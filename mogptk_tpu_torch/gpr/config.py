@@ -13,9 +13,13 @@ class Config:
     """Process-global configuration.
 
     Attributes:
-        dtype: floating dtype of parameters and data (default float64, the
-            original mogptk default; the H100 slice runs float32).
-        device: default device for models and data helpers.
+        dtype: floating dtype of parameters and data. None (the default) is
+            the JAX package's auto rule, float32 unless float64 is asked for
+            (use_double_precision): the type of the CUDA kernels.
+        device: default device for models, data helpers and training: the
+            card ("cuda"). On a machine without CUDA every entry point raises
+            unless the caller asks for the CPU (device="cpu", or
+            config.device = "cpu", as the CPU tests do).
         positive_minimum: lower bound of positive-constrained parameters.
         seed: seed of the package's torch.Generator.
         blocked_cholesky: None = auto (CUDA, float32, n >= blocked_cholesky_min_n
@@ -23,14 +27,22 @@ class Config:
     """
 
     def __init__(self):
-        self.dtype = torch.float64
-        self.device = torch.device("cpu")
+        self._dtype = None
+        self.device = "cuda"
         self.positive_minimum = 1e-8
         self.seed = 0
         self._generator = None
         self.blocked_cholesky = None
         self.blocked_cholesky_block = 512
         self.blocked_cholesky_min_n = 4096
+
+    @property
+    def dtype(self):
+        return torch.float32 if self._dtype is None else self._dtype
+
+    @dtype.setter
+    def dtype(self, value):
+        self._dtype = value
 
     def generator(self, device=None):
         """The package's torch.Generator, seeded from `seed` on first use."""
@@ -49,7 +61,8 @@ def resolve_device(device=None):
     asked for and this process has no CUDA device."""
     device = torch.device(config.device if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device %s requested but torch.cuda.is_available() is False" % device)
+        raise RuntimeError("device %s requested but torch.cuda.is_available() is False; "
+                           "pass device=\"cpu\" to run on the CPU" % device)
     return device
 
 
@@ -81,15 +94,12 @@ def use_blocked_cholesky(enable=True, block_size=None, min_n=None):
         config.blocked_cholesky_min_n = int(min_n)
 
 
-def blocked_cholesky_enabled(K):
-    """Route an (n, n) factorization: the blocked path with the hand-written
-    kernels runs on CUDA float32 for n >= min_n with n a multiple of the
-    block, unless forced either way."""
-    if K.ndim != 2:
-        return False
+def blocked_cholesky_enabled(n, device, dtype):
+    """Route an (n, n) factorization on `device` in `dtype`: the blocked path
+    with the hand-written kernels runs on CUDA float32 for n >= min_n with n
+    a multiple of the block, unless forced either way."""
     if config.blocked_cholesky is not None:
         return bool(config.blocked_cholesky)
-    n = K.shape[0]
-    return (K.is_cuda and K.dtype == torch.float32
+    return (torch.device(device).type == "cuda" and dtype == torch.float32
             and n >= config.blocked_cholesky_min_n
             and n % config.blocked_cholesky_block == 0)

@@ -50,5 +50,6 @@ def load_raw_state(model, raws, names=None):
 
 
 def raw_state_numpy(model):
-    """The port's raw values as numpy arrays, in parameters() order."""
-    return [r.cpu().numpy() for r in model.raw_state()]
+    """The port's raw values as numpy arrays, in parameters() order: copies,
+    which later training steps leave as they are."""
+    return [r.cpu().numpy().copy() for r in model.raw_state()]

@@ -1,16 +1,22 @@
-"""GP models: the base Model and exact GP regression (prediction path).
+"""GP models: the base Model and exact GP regression (training and
+prediction).
 
-JAX counterpart: mogptk_tpu/gpr/model.py (`Model` :126-251, `Exact`
-:489-784). Ported: construction, the noise diagonal, the noiseless Gram
-`_Kff`, `predict_f`/`predict_y` on the unmasked single-device branch, and a
-forward-only `log_marginal_likelihood` (the unmasked branch without probes).
-Training, means, masks, meshes, sampling and the jitter ladder are later
-work. Prediction recomputes the Gram and its factor on every call, as the
-JAX package does.
+JAX counterpart: mogptk_tpu/gpr/model.py (`Model` :126-360, `Exact`
+:489-784). Ported: construction, the objective `loss()` = −LML − log prior,
+the noise diagonal, the noiseless Gram `_Kff`, `predict_f`/`predict_y` on the
+unmasked single-device branch, and `log_marginal_likelihood` with the probe-
+trace gradient on channel-sorted data (`trace_probes`, the fused path
+ops/linalg.lml_chol_fused). Elsewhere the LML is a value only: its backward
+raises NotImplementedError (the closed-form gradient is ROADMAP queue 1,
+item 2). Means, masks, meshes, sampling and the jitter ladder are later work.
+Prediction recomputes the Gram and its factor on every call, as the JAX
+package does.
 
-On channel-sorted data the Gram goes through the K-gram kernel in one launch,
-and on CUDA float32 with n ≥ 4096 and n a multiple of 512 the factorization
-goes through the K-spanel and K-colwrite kernels (ops/).
+On channel-sorted data the Gram goes through the K-gram kernel in one launch
+(training: K-gram-lower, only the tiles the factorization reads), and on CUDA
+float32 with n ≥ 4096 and n a multiple of 512 the factorization goes through
+the K-spanel and K-colwrite kernels, the training solve through K-solve and
+its backward through K-lowrank-vjp (ops/).
 """
 import math
 
@@ -21,8 +27,25 @@ from .module import Module
 from .kernel import Kernel
 from .likelihood import GaussianLikelihood
 from .config import config, resolve_device
-from ..ops.block_mosm import sorted_channel_counts
-from ..ops.linalg import cholesky, jittered_cholesky, solve_triangular, cholesky_solve
+from ..ops.block_mosm import sorted_channel_counts, mosm_pair_stats
+from ..ops.linalg import (cholesky, jittered_cholesky, solve_triangular, cholesky_solve,
+                          lml_chol_fused)
+
+
+class _ValueOnly(torch.autograd.Function):
+    """Passes a value computed without autograd through, attached to the
+    trainable raws, with a backward that raises: an objective whose gradient
+    is not ported fails at .backward(), never silently with a zero
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, reason, val, *raws):
+        ctx.reason = reason
+        return val.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(ctx.reason)
 
 
 class Model(Module):
@@ -98,6 +121,20 @@ class Model(Module):
     def _residual_y(self):
         return self.y
 
+    def log_marginal_likelihood(self):
+        raise NotImplementedError()
+
+    def log_prior(self):
+        return sum(p.log_prior() for _, p in self.gp_parameters())
+
+    def forward(self):
+        return -self.log_marginal_likelihood() - self.log_prior()
+
+    def loss(self):
+        """The training objective −LML − log prior as a 0-d tensor; call
+        .backward() on it for the raws' gradients."""
+        return self()
+
     def predict_f(self, X):
         raise NotImplementedError()
 
@@ -119,10 +156,19 @@ class Exact(Model):
     Args:
         variance: noise variance, a float or one per channel.
         data_variance: optional fixed per-point noise variance (N,).
+        trace_probes: None, or the number R of Rademacher probes of the
+            Hutchinson probe-trace LML gradient (the training path).
+        seed: seed of the probes: they are drawn once, as an (N, R) ±1
+            matrix from a torch.Generator on the model's device seeded with
+            `seed`, and reused every step (the JAX package draws
+            jax.random.rademacher(PRNGKey(seed), (N, R)) every step, the
+            same matrix each time; the two generators differ).
+        probes: an explicit (N, R) probe matrix instead (e.g. the JAX
+            package's, to compare the two); sets trace_probes to R.
     """
 
     def __init__(self, kernel, X, y, variance=1.0, data_variance=None, jitter=1e-8, mean=None,
-                 device=None):
+                 device=None, trace_probes=None, seed=0, probes=None):
         variance = np.asarray(variance, dtype=np.float64)
         channels = 1 if kernel.output_dims is None else kernel.output_dims
         if 1 < variance.ndim or (variance.ndim == 1 and variance.shape[0] != channels):
@@ -135,6 +181,33 @@ class Exact(Model):
                 raise ValueError("data variance must have shape (data_points,)")
         self.data_variance = data_variance
         self.log_marginal_likelihood_constant = 0.5 * self.X.shape[0] * np.log(2.0 * np.pi)
+        n = self.X.shape[0]
+        if probes is not None:
+            probes = torch.as_tensor(probes if torch.is_tensor(probes) else np.array(probes),
+                                     dtype=config.dtype, device=self.device)
+            if probes.ndim != 2 or probes.shape[0] != n or probes.shape[1] < 1:
+                raise ValueError("probes must have shape (data_points, R)")
+            if trace_probes is not None and int(trace_probes) != probes.shape[1]:
+                raise ValueError("trace_probes must equal the number of columns of probes")
+            trace_probes = probes.shape[1]
+        elif trace_probes:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(seed))
+            probes = (2 * torch.randint(0, 2, (n, int(trace_probes)), generator=gen,
+                                        device=self.device) - 1).to(config.dtype)
+        self.trace_probes = None if not trace_probes else int(trace_probes)
+        self.seed = seed
+        self.probes = probes
+
+    def _fused_static(self):
+        """Static id of the fused probe-trace LML (ops/linalg.lml_chol_fused),
+        (family, counts, R), or None unless the data are channel-sorted (for
+        the MOSM kernel, the one with a sorted Gram) and trace_probes is set (JAX:
+        Exact._fused_static; the port has no Pallas switch, row mask, Gram
+        sharding, jitter ladder or Gram storage format to gate on)."""
+        if not self.trace_probes or self._channel_counts is None:
+            return None
+        return (self.kernel.family, self._channel_counts, self.trace_probes)
 
     def _noise_diag(self, add_jitter=False):
         """The (N,) diagonal added to the Gram: likelihood noise per channel,
@@ -154,14 +227,33 @@ class Exact(Model):
             return self.kernel.K_sorted(self.X, self._channel_counts)
         return self.kernel.K(self.X)
 
-    @torch.no_grad()
     def log_marginal_likelihood(self):
-        """LML value via Cholesky (forward only)."""
-        y = self._residual_y()
-        L = cholesky(self._Kff(), diag_shift=self._noise_diag(add_jitter=True))
-        alpha = cholesky_solve(L, y)
-        val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(y * alpha)
-        return val - self.log_marginal_likelihood_constant
+        """LML via Cholesky. With trace_probes on channel-sorted data it is the
+        fused path with the probe-trace gradient; elsewhere a value whose
+        backward raises NotImplementedError."""
+        static = self._fused_static()
+        if static is not None:
+            _, x = self.kernel._split(self.X)
+            st3, st2 = mosm_pair_stats(*self.kernel._params(), self.kernel.twopi)
+            diag = self._noise_diag(add_jitter=True)
+            val = lml_chol_fused(static, x, diag, self._residual_y(), st3, st2, self.probes)
+            return val - self.log_marginal_likelihood_constant
+        with torch.no_grad():
+            y = self._residual_y()
+            L = cholesky(self._Kff(), diag_shift=self._noise_diag(add_jitter=True))
+            alpha = cholesky_solve(L, y)
+            val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(y * alpha)
+            val = val - self.log_marginal_likelihood_constant
+        raws = self.trainable_raws()
+        if not (torch.is_grad_enabled() and raws):
+            return val
+        if not self.trace_probes:
+            why = ("the LML gradient without trace_probes (the closed-form exact gradient) is "
+                   "not ported yet (ROADMAP queue 1, item 2); pass trace_probes=R")
+        else:
+            why = ("the probe-trace LML gradient needs channel-sorted X (merge_data's layout); "
+                   "unsorted channels need the generic Gram's backward (ROADMAP queue 2, C1b)")
+        return _ValueOnly.apply(why, val, *raws)
 
     @torch.no_grad()
     def predict_f(self, X):

@@ -21,3 +21,8 @@ class Module(nn.Module):
     def raw_state(self):
         """The raw (unconstrained) tensors of all Parameters, in order."""
         return [p.raw.detach() for _, p in self.gp_parameters()]
+
+    def trainable_raws(self):
+        """The raw nn.Parameters the optimizer updates, in order: those with
+        requires_grad (JAX: the True entries of Module.train_mask)."""
+        return [p.raw for _, p in self.gp_parameters() if p.train]

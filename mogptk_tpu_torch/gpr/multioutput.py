@@ -4,7 +4,10 @@ JAX counterpart: mogptk_tpu/gpr/multioutput.py `MultiOutputSpectralMixtureKernel
 (:324-379). Its plain per-point formulation `_mosm_K` (:74-141) is the same
 function as ops/mosm_gram.mosm_gram_pairstats_plain, which every Gram here
 goes through: on CUDA the hand-written K-gram kernel, on the CPU that plain
-twin. The other multi-output families are not ported yet.
+twin. `family` and `_params()` are what the fused training LML
+(ops/linalg.lml_chol_fused) needs: it builds the band-lower Gram itself from
+the pair statistics. The other multi-output families are not
+ported yet.
 """
 import numpy as np
 import torch
@@ -37,6 +40,12 @@ class MultiOutputSpectralMixtureKernel(MultiOutputKernel):
             self.delay.train = False
             self.phase.train = False
         self.twopi = float(np.power(2.0 * np.pi, float(input_dims) / 2.0))
+
+    @property
+    def family(self):
+        """Fused-family id (name, statics): MOSM with the phase inside 2π
+        (JAX: gpr/iterative._family_of)."""
+        return ("mosm", (self.twopi, True))
 
     def _params(self):
         return (self.weight(), self.mean(), self.variance(), self.delay(), self.phase())

@@ -4,7 +4,8 @@ JAX counterpart: mogptk_tpu/gpr/parameter.py (Transform, Softplus, Sigmoid,
 Parameter). The raw value is unconstrained; calling the Parameter returns the
 constrained value. Inverses are computed on the host in float64 numpy exactly
 as in the JAX package, so both packages store identical raw values for the
-same assignment. Priors and pegging are not ported yet.
+same assignment. Priors and pegging are not ported yet: a prior raises at
+construction, so log_prior is 0.
 """
 import numpy as np
 import torch
@@ -123,6 +124,11 @@ class Parameter(nn.Module):
 
     def numpy(self):
         return self().detach().cpu().numpy()
+
+    def log_prior(self):
+        """Log density of the prior at the constrained value: 0, since no
+        prior can be set yet."""
+        return 0.0
 
     @staticmethod
     def to_transform(lower, upper):

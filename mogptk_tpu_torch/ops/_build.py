@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels in mogptk_tpu_torch/csrc/.
 
 No JAX counterpart: the JAX package's Pallas kernels are compiled by XLA.
-Here `nvcc` compiles every csrc/*.cu into one shared library with a plain C
+Here `nvcc` compiles every csrc/*.cu into an object, one process per source,
+all started together, and links them into one shared library with a plain C
 interface, at first use, into mogptk_tpu_torch/_build/<hash of the sources
-and flags>/, and ctypes loads it. Each C entry point launches on the stream
-it is given and returns its cudaError_t; `check` turns a nonzero code into an
+and flags>/ (the compiler's register and spill report goes to build.log
+beside it); ctypes loads it. Each C entry point launches on the stream it is
+given and returns its cudaError_t; `check` turns a nonzero code into an
 exception. Nothing is built when this module is imported.
 """
 import ctypes
@@ -27,7 +29,7 @@ LIB_NAME = "libmogptk_kernels.so"
 # only for the "a" target. No --use_fast_math: the Gram's cosine arguments
 # reach ~250 rad, where the fast __cosf is badly wrong.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _c_ptr = ctypes.c_void_p
 _c_i64 = ctypes.c_int64
@@ -41,6 +43,12 @@ SIGNATURES = {
     "s_panel_f32": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_ptr],
     # L, S, Ljj, inv, n, r0, B, zero_upper, stream
     "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
+    # x, c, stats, out, N, O, Q, D, tile, band, stream
+    "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_ptr],
+    # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, stream
+    "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr],
+    # L, invs, V, Z, X, n, B, R, stream
+    "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
 }
 
 
@@ -59,9 +67,13 @@ def nvcc_path():
     return found
 
 
-def nvcc_command(output, nvcc="nvcc"):
-    """The nvcc command line that builds the kernel library at `output`."""
-    return [nvcc] + NVCC_FLAGS + ["-I", CSRC_DIR, "-o", output] + sources()
+def nvcc_commands(output, nvcc="nvcc"):
+    """The nvcc command lines that build the kernel library at `output`: one
+    compile per source (run in parallel), then the link."""
+    objs = [output + "." + os.path.basename(src) + ".o" for src in sources()]
+    compiles = [[nvcc] + NVCC_FLAGS + ["-I", CSRC_DIR, "-c", src, "-o", obj]
+                for src, obj in zip(sources(), objs)]
+    return compiles, [nvcc, "-shared", "-o", output] + objs
 
 
 def source_hash():
@@ -84,15 +96,27 @@ def build():
     os.makedirs(out_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
+    compiles, link = nvcc_commands(tmp, nvcc_path())
+    log = []
     try:
-        proc = subprocess.run(nvcc_command(tmp, nvcc_path()), capture_output=True, text=True)
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        outs = [p.communicate()[0] for p in procs]
+        for cmd, p, out in zip(compiles, procs, outs):
+            log.append(" ".join(cmd) + "\n" + out)
+            if p.returncode != 0:
+                raise RuntimeError("nvcc failed (exit %d):\n%s" % (p.returncode, log[-1]))
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (exit %d):\n%s\n%s"
+            raise RuntimeError("nvcc link failed (exit %d):\n%s\n%s"
                                % (proc.returncode, proc.stdout, proc.stderr))
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write("\n".join(log))
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in [tmp] + link[3:]:
+            if os.path.exists(path):
+                os.remove(path)
     return lib
 
 
@@ -123,8 +147,9 @@ def stream_ptr(tensor):
 
 def require_cuda_inputs(name, floats=(), ints=()):
     """The checks every kernel wrapper makes before a launch: float32 (int32)
-    tensors, contiguous, on one CUDA device, without autograd history (the
-    kernels have no backward yet). Raises instead of falling back."""
+    tensors, contiguous, on one CUDA device, without autograd history (a
+    kernel's backward, where it has one, is another kernel called from a
+    torch.autograd.Function). Raises instead of falling back."""
     tensors = list(floats) + list(ints)
     device = tensors[0].device
     for t in tensors:

@@ -8,7 +8,8 @@ JAX counterpart: mogptk_tpu/ops/blocked_cholesky.py (`blocked_cholesky`
    Pallas kernel `_s_panel_pallas`);
 2. Ljj = chol(S[:B] + diag shift), inv = Ljj⁻¹ on the B×B block (library
    calls; the JAX package's recursive `_panel_factor_inv` worked around the
-   TPU's expander and is not ported);
+   TPU's expander and is not ported); with return_panel_invs every inverse,
+   the last one included, is kept for the solves (ops/fused_solve);
 3. L[r0:r0+B, r0:r0+B] = Ljj, L[r0+B:, r0:r0+B] = S[B:]·invᵀ, and the strip
    right of the diagonal block zeroed (`col_write`; the JAX Pallas kernels
    `_col_strip_write`, and `_panel_write` when zero_upper is off).
@@ -98,7 +99,8 @@ def _check_shapes(name, L, S, B):
         raise ValueError("%s: L must be (n, n) and S (n, B) with B dividing n" % name)
 
 
-def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True):
+def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
+                     return_panel_invs=False):
     """Lower Cholesky factor of K + diag(diag_shift), blocked by columns.
 
     Args:
@@ -109,9 +111,15 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True):
             inside the factorization (the noisy Gram is never formed).
         zero_upper: zero the strict upper triangle (L's contract). False
             leaves K's values there, for callers that read only the lower
-            triangle.
+            triangle. Only the lower triangle and the diagonal blocks of K
+            are read, so with zero_upper=False K's strict upper outside the
+            diagonal blocks may hold anything (the band-lower Gram,
+            ops/block_mosm.mosm_gram_sorted_lower).
+        return_panel_invs: also return the inverses of the diagonal blocks.
 
-    Returns the (n, n) factor. Where a diagonal block is not positive
+    Returns the (n, n) factor, or with return_panel_invs (L, invs): invs is
+    an (n/B, B, B) tensor, one lower inverse per block column in solve order,
+    or None when n needed padding. Where a diagonal block is not positive
     definite, that block and every later one come out NaN, as in the JAX
     package (which returns NaN rows instead of raising).
     """
@@ -137,6 +145,9 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True):
         L = K if K.is_contiguous() else K.contiguous()
     S = torch.empty((npad, B), dtype=K.dtype, device=K.device)
     eye = torch.eye(B, dtype=K.dtype, device=K.device)
+    invs = None
+    if return_panel_invs and npad == n:
+        invs = torch.empty((nb, B, B), dtype=K.dtype, device=K.device)
     failed = torch.zeros((), dtype=torch.bool, device=K.device)
     for j in range(nb):
         r0 = j * B
@@ -149,7 +160,10 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True):
         failed = failed | (info != 0)
         Ljj = torch.where(failed, torch.full_like(Ljj, float("nan")), Ljj).contiguous()
         inv = None
-        if j < nb - 1:
+        if j < nb - 1 or invs is not None:
             inv = torch.linalg.solve_triangular(Ljj, eye, upper=False).contiguous()
+            if invs is not None:
+                invs[j] = inv
         col_write(L, S, Ljj, inv, j, B, zero_upper)
-    return L[:n, :n] if npad != n else L
+    L = L[:n, :n] if npad != n else L
+    return (L, invs) if return_panel_invs else L

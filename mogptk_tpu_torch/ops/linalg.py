@@ -1,32 +1,42 @@
-"""Dense linear algebra of the exact-GP path.
+"""Dense linear algebra of the exact-GP path, and the fused training LML.
 
 JAX counterpart: mogptk_tpu/ops/linalg.py (`cholesky` :19-59,
 `jittered_cholesky` :94-160, `solve_triangular` :287-296, `cholesky_solve`
-:307-339). The factorization routes to ops/blocked_cholesky (the hand-written
-kernels on CUDA) by gpr.config.blocked_cholesky_enabled, else to
-torch.linalg.cholesky. The solves were XLA code in the JAX package and are
-torch.linalg calls here. The jitter ladder is not ported.
+:307-339, `_stoch_lowrank` :391-396, `lml_chol_fused` :650-715). The
+factorization routes to ops/blocked_cholesky (the hand-written kernels on
+CUDA) by gpr.config.blocked_cholesky_enabled, else to torch.linalg.cholesky.
+A solve given the panel inverses goes to ops/fused_solve (the K-solve kernel
+on CUDA); the other solves are torch.linalg calls. The jitter ladder is not
+ported.
 """
 import torch
 
-from .blocked_cholesky import blocked_cholesky
+from .blocked_cholesky import blocked_cholesky, effective_block
+from .block_mosm import (channel_ids, mosm_gram_sorted_lower, mosm_lowrank_vjp_sorted)
+from .fused_solve import fused_cho_solve
+from .mosm_gram import mosm_gram
 
 
-def cholesky(K, diag_shift=None):
+def cholesky(K, diag_shift=None, return_panel_invs=False, zero_upper=True):
     """Lower Cholesky factor of K + diag(diag_shift) (scalar or (n,) vector).
 
-    The blocked path overwrites K (see ops/blocked_cholesky). Both paths
-    return NaN instead of raising where K is not positive definite, as the
-    JAX package does."""
+    The blocked path overwrites K (see ops/blocked_cholesky); zero_upper=False
+    leaves its strict upper undefined, for callers that read only the lower
+    blocks. return_panel_invs=True returns (L, invs) with the diagonal-block
+    inverses for cholesky_solve(invs=...), None where the blocked path did not
+    run or padded. Both paths return NaN instead of raising where K is not
+    positive definite, as the JAX package does."""
     from ..gpr.config import config, blocked_cholesky_enabled
-    if blocked_cholesky_enabled(K):
+    if K.ndim == 2 and blocked_cholesky_enabled(K.shape[0], K.device, K.dtype):
         return blocked_cholesky(K, block_size=config.blocked_cholesky_block,
-                                diag_shift=diag_shift)
+                                diag_shift=diag_shift, zero_upper=zero_upper,
+                                return_panel_invs=return_panel_invs)
     if diag_shift is not None:
         K = K + torch.diag(torch.as_tensor(diag_shift, dtype=K.dtype, device=K.device)
                            .expand(K.shape[-1]))
     L, info = torch.linalg.cholesky_ex(K)
-    return torch.where(info != 0, torch.full_like(L, float("nan")), L)
+    L = torch.where(info != 0, torch.full_like(L, float("nan")), L)
+    return (L, None) if return_panel_invs else L
 
 
 def jittered_cholesky(K, jitter=None, extra_diag=None):
@@ -48,6 +58,87 @@ def solve_triangular(L, B):
     return torch.linalg.solve_triangular(L, B, upper=False)
 
 
-def cholesky_solve(L, B):
-    """Solve K X = B given the lower Cholesky factor L of K."""
+def cholesky_solve(L, B, invs=None):
+    """Solve K X = B given the lower Cholesky factor L of K.
+
+    invs: the diagonal-block inverses from cholesky(return_panel_invs=True).
+    With them both sweeps read only L's lower blocks and go through
+    ops/fused_solve: the K-solve kernel for CUDA tensors, its plain twin on
+    the CPU (not differentiable on CUDA)."""
+    if invs is not None and L.ndim == 2 and B.ndim == 2:
+        return fused_cho_solve(L, invs, B)
     return torch.cholesky_solve(B, L, upper=False)
+
+
+def _stoch_lowrank(alpha, U, Z, g, num_probes):
+    """dK = ½g(ααᵀ − R⁻¹ U Zᵀ) as an explicit low-rank pair (A, B):
+    dK = A Bᵀ."""
+    A = (0.5 * g) * torch.cat([alpha, -U / num_probes], dim=1)
+    B = torch.cat([alpha, Z], dim=1)
+    return A, B
+
+
+def _sorted_gram(x, counts, st3, st2, lower_only):
+    """The channel-sorted MOSM Gram; lower_only asks for the band-lower
+    variant, legal only when the blocked factorization consumes it (the
+    band is tied to the factorization's panel width, as in the JAX
+    package's ops/linalg._sorted_gram)."""
+    from ..gpr.config import config
+    n = x.shape[0]
+    if lower_only:
+        band = effective_block(n, config.blocked_cholesky_block)
+        K = mosm_gram_sorted_lower(x, counts, st3, st2, band=band)
+        if K is not None:
+            return K
+    c = channel_ids(counts, x.device)
+    return mosm_gram(x, c, x, c, st3, st2)
+
+
+class LmlCholFused(torch.autograd.Function):
+    """−Σ log diag(chol(K+D)) − ½ yᵀ(K+D)⁻¹y for the channel-sorted MOSM Gram
+    K of the pair statistics (st3, st2) and D = diag(`diag`) applied inside
+    the factorization; the probe-trace gradient (Hutchinson, R probes Z).
+
+    Forward: the Gram (band-lower on the blocked route), the blocked factor
+    with every panel inverse and zero_upper=False, one solve of (K+D)⁻¹[y, Z].
+    Backward: dK = A·Bᵀ with A = ½g[α, −U/R], B = [α, Z] goes straight to
+    the low-rank VJP (never forming dK), giving dst3/dst2; ddiag = Σ_r A∘B,
+    dy = −gα, dx = 0 (training inputs are constant, as in the JAX backward).
+    Autograd chains dst3/dst2 through mosm_pair_stats and ddiag through the
+    noise diagonal.
+    """
+
+    @staticmethod
+    def forward(ctx, static, x, diag, y, st3, st2, Z):
+        _, counts, _ = static
+        from ..gpr.config import blocked_cholesky_enabled
+        x, diag, y, st3, st2 = (t.detach() for t in (x, diag, y, st3, st2))
+        n = x.shape[0]
+        lower_ok = blocked_cholesky_enabled(n, x.device, x.dtype)
+        K = _sorted_gram(x, counts, st3, st2, lower_only=lower_ok)
+        L, invs = cholesky(K, diag_shift=diag, return_panel_invs=True, zero_upper=False)
+        AU = cholesky_solve(L, torch.cat([y, Z], dim=1), invs=invs)
+        alpha, U = AU[:, :1], AU[:, 1:]
+        val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(y * alpha)
+        ctx.static = static
+        ctx.save_for_backward(x, alpha, U, Z, st3, st2)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        _, counts, num_probes = ctx.static
+        x, alpha, U, Z, st3, st2 = ctx.saved_tensors
+        A, B = _stoch_lowrank(alpha, U, Z, g, num_probes)
+        dst3, dst2 = mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B)
+        ddiag = torch.sum(A * B, dim=1)
+        dy = -g * alpha
+        dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
+        return None, dx, ddiag, dy, dst3, dst2, None
+
+
+def lml_chol_fused(static, x, diag, y, st3, st2, Z):
+    """LmlCholFused.apply. static = (family, counts, num_probes): the family
+    id ("mosm", (twopi, True)), the per-channel counts tuple and R; x (N, D)
+    channel-sorted inputs, diag (N,), y (N, 1), st3/st2 the pair statistics,
+    Z (N, R) the probes."""
+    return LmlCholFused.apply(static, x, diag, y, st3, st2, Z)

@@ -48,19 +48,32 @@ def mosm_gram_pairstats_plain(x1, c1, x2, c2, st3, st2):
     return K
 
 
+def stats_table(st3, st2):
+    """The (O·O, 3QD + 2Q) pair table the CUDA kernels read: per pair
+    [V, M, Δθ] × (q, d), then [α, Δφ] × q."""
+    O = st3.shape[0]
+    return torch.cat([st3.reshape(O * O, -1), st2.reshape(O * O, -1)], dim=1).contiguous()
+
+
+def check_gram_inputs(name, x1, c1, x2, c2, stats, D):
+    """The K-gram kernels' input checks; raises instead of falling back."""
+    _build.require_cuda_inputs(name, floats=(x1, x2, stats), ints=(c1, c2))
+    N, M = x1.shape[0], x2.shape[0]
+    if x1.shape[1] != D or x2.shape[1] != D or c1.shape != (N,) or c2.shape != (M,):
+        raise ValueError("%s: x1 (N, D), c1 (N,), x2 (M, D), c2 (M,) expected" % name)
+    if stats.numel() * 4 > _SMEM_LIMIT:
+        raise ValueError("%s: %d channel-pair statistics exceed shared memory" % (name, stats.numel()))
+
+
 def mosm_gram(x1, c1, x2, c2, st3, st2):
     """(N, M) MOSM Gram; see mosm_gram_pairstats_plain for the arguments.
     CUDA: float32, contiguous, no autograd; one launch of csrc/mosm_gram.cu."""
     if x1.device.type == "cpu":
         return mosm_gram_pairstats_plain(x1, c1, x2, c2, st3, st2)
     O, _, Q, D, _ = st3.shape
-    stats = torch.cat([st3.reshape(O * O, -1), st2.reshape(O * O, -1)], dim=1).contiguous()
-    _build.require_cuda_inputs("mosm_gram", floats=(x1, x2, stats), ints=(c1, c2))
+    stats = stats_table(st3, st2)
+    check_gram_inputs("mosm_gram", x1, c1, x2, c2, stats, D)
     N, M = x1.shape[0], x2.shape[0]
-    if x1.shape[1] != D or x2.shape[1] != D or c1.shape != (N,) or c2.shape != (M,):
-        raise ValueError("mosm_gram: x1 (N, D), c1 (N,), x2 (M, D), c2 (M,) expected")
-    if stats.numel() * 4 > _SMEM_LIMIT:
-        raise ValueError("mosm_gram: %d channel-pair statistics exceed shared memory" % stats.numel())
     out = torch.empty((N, M), dtype=torch.float32, device=x1.device)
     err = _build.library().mosm_gram_f32(
         x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), stats.data_ptr(),

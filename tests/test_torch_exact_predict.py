@@ -59,6 +59,18 @@ def _models():
     return jm, tm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def cpu_device():
+    """The port runs on the card unless asked: these tests ask for the CPU,
+    on one thread (the suite runs files in parallel processes)."""
+    saved = tgpr.config.device, torch.get_num_threads()
+    tgpr.config.device = "cpu"
+    torch.set_num_threads(1)
+    yield
+    tgpr.config.device = saved[0]
+    torch.set_num_threads(saved[1])
+
+
 @pytest.fixture(scope="module")
 def jax_results():
     """The JAX model's answers, computed once for every case below."""
