@@ -14,7 +14,14 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   gradient through the K-gram-lower, K-spanel, K-colwrite, K-solve and
   K-lowrank-vjp kernels, one Adam update), the first step's LML and gradient
   checked against a float64 reference on the card, the first step repeated
-  for an identical loss, then six steps.
+  for an identical loss, then six steps;
+- closed-form training: K-gram-bwd against its twin on the first step's
+  dense cotangent (channel-sorted, and the same points permuted), then
+  Exact(trace_probes=None) steps (K-gram, K-spanel, K-colwrite, K-solve, the
+  inverse from the factor and K-gram-bwd), checked as above;
+- the user API: mogptk_tpu_torch.MOSM on a DataSet of the same data trains
+  six steps with the default Exact(), predicts and scores itself; a second
+  MOSM initializes by BNSE.
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -72,6 +79,20 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
+def set_bench_params(kernel):
+    """bench.py:56-58, the kernel parameters bench.py sets."""
+    rng = np.random.RandomState(1)
+    kernel.mean.assign(0.05 + 0.3 * rng.rand(CHANNELS, Q, 1))
+    kernel.variance.assign(0.2 + 0.3 * rng.rand(CHANNELS, Q, 1))
+
+
+def bench_model(gpr, X, Y, dev, trace_probes):
+    """The model bench.py builds (bench.py:52-60), with noise variance 0.1."""
+    kernel = gpr.MultiOutputSpectralMixtureKernel(Q, output_dims=CHANNELS)
+    set_bench_params(kernel)
+    return gpr.Exact(kernel, X, Y, variance=0.1, trace_probes=trace_probes, device=dev)
+
+
 T_START = time.perf_counter()
 
 
@@ -127,11 +148,7 @@ def main():
     gpr.use_single_precision()
     xs, ys = make_data()
     _, X, Y = gpr.merge_data(xs, ys, device=dev)
-    kernel = gpr.MultiOutputSpectralMixtureKernel(Q, output_dims=CHANNELS)
-    rng = np.random.RandomState(1)    # bench.py:56-58
-    kernel.mean.assign(0.05 + 0.3 * rng.rand(CHANNELS, Q, 1))
-    kernel.variance.assign(0.2 + 0.3 * rng.rand(CHANNELS, Q, 1))
-    model = gpr.Exact(kernel, X, Y, variance=0.1, trace_probes=PROBES, device=dev)
+    model = bench_model(gpr, X, Y, dev, PROBES)
     reqs = {k: torch.as_tensor(v, dtype=torch.float32, device=dev) for k, v in requests().items()}
     n = X.shape[0]
     D = 1
@@ -386,66 +403,42 @@ def main():
                       "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted}
     want = {"mosm_gram_lower": (1, 1), "s_panel": (32, 32), "col_write": (32, 32),
             "fused_cho_solve": (1, None), "mosm_lowrank_vjp": (1, 1)}
-    raws = model.trainable_raws()
-    for r in raws:
-        r.grad = None
-    loss = model.loss()
-    loss.backward()
-    torch.cuda.synchronize()
-    loss1 = float(loss.detach())
-    grads1 = [r.grad.clone() for r in raws]
-    phase("phase 5: float64 reference of the first step")
-    lml64, grads64, scale_lml = float64_training_reference(model, bm, mg)
-    d_lml = abs(-loss1 - lml64)
-    tol_lml = KAPPA_U * scale_lml
-    g_scale = max(float(g.abs().max()) for g in grads64)
-    d_grad = max(float((g.double() - r).abs().max()) for g, r in zip(grads1, grads64))
-    tol_grad = KAPPA_U * g_scale
-    print("first step vs float64 reference: LML %.6f vs %.6f, |d| %.3e (tol κu·%.1f = %.3e); "
-          "gradient max|d| %.3e (tol κu·max|g| = %.3e)"
-          % (-loss1, lml64, d_lml, scale_lml, tol_lml, d_grad, tol_grad))
-    if not (d_lml <= tol_lml and d_grad <= tol_grad):
-        fail("the first training step disagrees with the float64 reference")
-    for r in raws:
-        r.grad = None
-    loss = model.loss()
-    loss.backward()
-    if float(loss.detach()) != loss1 or not all(torch.equal(r.grad, g) for r, g in zip(raws, grads1)):
-        fail("a repeated first step gave another loss or gradient")
-    print("repeated first step: identical loss %.9g and gradients" % loss1)
-
+    loss1 = check_first_step(model, bm, mg, "probe-trace")
     if "--profile" in sys.argv[1:]:
         profile_step(model)
+    train_launches = train_and_count(gpr, model, train_counters, want, loss1, "probe-trace", smi)
+    del model
+    torch.cuda.empty_cache()
 
-    phase("phase 5: %d training steps" % TRAIN_STEPS)
-    for f in train_counters.values():
-        f.launches = 0
-    stamps = []
+    # -- phase 6: K-gram-bwd against its plain twin ----------------------------
+    t_added = time.perf_counter()
+    phase("phase 6: K-gram-bwd against its twin")
+    model = bench_model(gpr, X, Y, dev, None)
+    report["mosm_gram_bwd"] = check_gram_bwd(model, bm, mg)
+    torch.cuda.empty_cache()
 
-    def on_step(i, value):
-        stamps.append((time.perf_counter(), value, {k: f.launches for k, f in train_counters.items()}))
+    # -- phase 7: the closed-form training path -------------------------------
+    phase("phase 7: closed-form training path")
+    cf_counters = {"mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd,
+                   "s_panel": bc.s_panel, "col_write": bc.col_write,
+                   "fused_cho_solve": fs.fused_cho_solve,
+                   "mosm_gram_lower": bm.mosm_gram_sorted_lower,
+                   "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted}
+    cf_want = {"mosm_gram": (1, 1), "mosm_gram_bwd": (1, 1), "s_panel": (32, 32),
+               "col_write": (32, 32), "fused_cho_solve": (1, None),
+               "mosm_gram_lower": (0, 0), "mosm_lowrank_vjp": (0, 0)}
+    loss1 = check_first_step(model, bm, mg, "closed-form")
+    if "--profile" in sys.argv[1:]:
+        profile_step(model)
+    cf_launches = train_and_count(gpr, model, cf_counters, cf_want, loss1, "closed-form", smi)
+    del model
+    torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
-    t_start = time.perf_counter()
-    losses, _ = gpr.train(model, method="Adam", lr=1e-3, iters=TRAIN_STEPS, callback=on_step)
-    train_launches = {k: f.launches for k, f in train_counters.items()}
-    prev_t, prev_c = t_start, {k: 0 for k in train_counters}
-    step_ms = []
-    for i, (t, value, cnt) in enumerate(stamps):
-        raised = {k: cnt[k] - prev_c[k] for k in cnt}
-        step_ms.append(1e3 * (t - prev_t))
-        print("train step %d: loss %.6f, %.2f ms, launches %s" % (i, value, step_ms[-1], raised))
-        if not np.isfinite(value):
-            fail("train step %d: loss is not finite" % i)
-        for k, (lo, hi) in want.items():
-            if raised[k] < lo or (hi is not None and raised[k] != hi):
-                fail("train step %d launched %s %d times" % (i, k, raised[k]))
-        prev_t, prev_c = t, cnt
-    if abs(losses[0] - loss1) > 0:
-        fail("the first train step's loss differs from the checked first step")
-    med = float(np.median(step_ms[1:]))
-    print("training: %d Adam steps at N=%d, R=%d, median step %.2f ms, %.3f steps/s (%s)"
-          % (TRAIN_STEPS, n, PROBES, med, 1e3 / med, smi.stdout.strip().splitlines()[0]))
+    # -- phase 8: the user API at full width ---------------------------------
+    phase("phase 8: user API (DataSet, MOSM, train, predict, error, BNSE)")
+    drive_user_api(xs, ys, cf_counters)
+    print("phases 6-8 (K-gram-bwd, closed-form training, user API) wall time: %.1f s"
+          % (time.perf_counter() - t_added))
 
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu"}
@@ -470,6 +463,10 @@ def main():
          "source": "mogptk_tpu_torch/csrc/mosm_lowrank_vjp.cu",
          "replaces": "mogptk_tpu/ops/block_mosm.py:652",
          "path": "train", "launches": train_launches["mosm_lowrank_vjp"]},
+        {"name": "mosm_gram_bwd", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/mosm_gram_bwd.cu",
+         "replaces": "mogptk_tpu/ops/block_mosm.py:345; mogptk_tpu/ops/pallas_mosm.py:274",
+         "path": "train", "launches": cf_launches["mosm_gram_bwd"]},
     ]
     for k in kernels:
         r = report[k["name"]]
@@ -481,6 +478,188 @@ def main():
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def check_gram_bwd(model, bm, mg):
+    """K-gram-bwd against its plain twin on the first closed-form step's
+    dense cotangent dK = ½(ααᵀ − K⁻¹) of `model`, channel-sorted and with the
+    points permuted, each against a float64 evaluation of the twin. Returns
+    the channel-sorted call's report entry."""
+    import torch
+    from mogptk_tpu_torch.ops import linalg as la
+    n, dev, D = model.X.shape[0], model.X.device, model.kernel.input_dims
+    with torch.no_grad():
+        c, x = model.kernel._split(model.X)
+        counts = model._channel_counts
+        params = [p.detach() for p in model.kernel._params()]
+        st3, st2 = bm.mosm_pair_stats(*params, model.kernel.twopi)
+        K = bm.mosm_gram_sorted(x, counts, *params, model.kernel.twopi)
+        _, L, invs, alpha = la._chol_lml(K, model._noise_diag(add_jitter=True), model.y)
+        G, _ = la._dense_lml_cotangents(L, alpha, 1.0, invs)   # the first step's dK (g = 1)
+        del K, L, invs, alpha
+        ref = mg.mosm_gram_bwd_plain(x.double(), c, x.double(), c, st3.double(), st2.double(),
+                                     G.double())
+        scale = max(float(r.abs().max()) for r in ref)
+        perm = torch.as_tensor(np.random.RandomState(3).permutation(n), device=dev)
+        xp, cp = x[perm].contiguous(), c[perm].contiguous()
+        Gp = G[perm][:, perm].contiguous()
+        for label, args, cnt in (("channel-sorted", (x, c, x, c, st3, st2, G), counts),
+                                 ("permuted", (xp, cp, xp, cp, st3, st2, Gp), None)):
+            got = mg.mosm_gram_bwd(*args, cnt, cnt)
+            twin = mg.mosm_gram_bwd_plain(*args)
+            err_k = max(float((a.double() - r).abs().max()) for a, r in zip(got, ref))
+            err_t = max(float((a.double() - r).abs().max()) for a, r in zip(twin, ref))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, twin))
+            # float32 sums over 2.7e8 elements in two orders: at most twice the
+            # twin's error against float64, plus a floor of 1e-5 of the scale
+            tol = 2 * err_t + 1e-5 * scale
+            ms = median_ms(lambda: mg.mosm_gram_bwd(*args, cnt, cnt))
+            pms = median_ms(lambda: mg.mosm_gram_bwd_plain(*args), reps=3, warmup=1)
+            bnd = bound(4 * n * n + 4 * n * (2 * D + 2), n * n * Q * (18 * D + 16))
+            print("K-gram-bwd %s %dx%d: pair cotangents vs float64 %.3e (twin %.3e, tol %.3e, "
+                  "scale %.3e), vs twin %.3e, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+                  % ((label, n, n, err_k, err_t, tol, scale, err, ms, pms) + bnd))
+            if not err_k <= tol:
+                fail("K-gram-bwd (%s) is further from float64 than twice its plain twin" % label)
+            if label == "channel-sorted":
+                entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
+            del got, twin
+    return entry
+
+
+def drive_user_api(xs, ys, counters):
+    """The quick start at full width: DataSet → MOSM (default Exact()) →
+    train → predict → error, then a second MOSM initialized by BNSE. Fails
+    unless training went through K-gram and K-gram-bwd once a step and every
+    answer is finite and plausible."""
+    import torch
+    import mogptk_tpu_torch as mogptk
+    ds = mogptk.DataSet([xc[:, 0] for xc in xs], [yc[:, 0] for yc in ys])
+    api = mogptk.MOSM(ds, Q=Q)
+    if api.gpr.trace_probes is not None or api.gpr.X.device.type != "cuda":
+        fail("MOSM did not build the default Exact() on the card")
+    set_bench_params(api.gpr.kernel)
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses, _ = api.train(method="Adam", lr=0.01, iters=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    raised = {k: f.launches for k, f in counters.items()}
+    steps = np.diff(api.times)
+    print("MOSM.train(Adam, lr=0.01, iters=%d) at N=%d: %.2f s, losses %s, step ms %s, "
+          "launches %s" % (TRAIN_STEPS, api.gpr.X.shape[0], train_s, np.round(losses, 4).tolist(),
+                           np.round(1e3 * steps, 2).tolist(), raised))
+    if not np.all(np.isfinite(losses)):
+        fail("MOSM.train gave a non-finite loss")
+    if raised["mosm_gram_bwd"] != TRAIN_STEPS or raised["mosm_gram"] != TRAIN_STEPS + 1:
+        fail("MOSM.train did not go through K-gram and K-gram-bwd once a step")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    Xp, Mu, Lo, Up = api.predict()
+    predict_ms = 1e3 * (time.perf_counter() - t)
+    for j in range(CHANNELS):
+        if Mu[j].shape != (N_PER_CHANNEL,) or not np.all(np.isfinite(Mu[j])):
+            fail("MOSM.predict: channel %d is non-finite or misshapen" % j)
+        if not (np.all(Lo[j] < Mu[j]) and np.all(Mu[j] < Up[j])):
+            fail("MOSM.predict: channel %d's bands do not bracket the mean" % j)
+    t = time.perf_counter()
+    mae = api.error("MAE")
+    error_ms = 1e3 * (time.perf_counter() - t)
+    print("MOSM.predict() over %d points: %.2f ms; error('MAE') = %.6f in %.2f ms"
+          % (api.gpr.X.shape[0], predict_ms, mae, error_ms))
+    # a fitted model predicts its training points better than their mean does
+    yall = np.concatenate(ys)
+    if not (np.isfinite(mae) and mae < np.mean(np.abs(yall - yall.mean()))):
+        fail("MOSM.error('MAE') = %r is not a fit" % mae)
+    del api
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bnse = mogptk.MOSM(ds, Q=Q)
+    bnse.init_parameters("BNSE", iters=20)
+    torch.cuda.synchronize()
+    vals = [p.numpy() for p in bnse.parameters()]
+    print("MOSM.init_parameters('BNSE', iters=20) over %d channels of %d points: %.2f s; "
+          "weights %s" % (CHANNELS, N_PER_CHANNEL, time.perf_counter() - t,
+                          np.round(bnse.gpr.kernel.weight.numpy(), 4).tolist()))
+    if not all(np.all(np.isfinite(v)) for v in vals):
+        fail("BNSE initialization gave non-finite parameters")
+    del bnse
+
+
+def check_first_step(model, bm, mg, label):
+    """The model's first training step (loss and every raw's gradient)
+    against float64_training_reference within κ·u, then once more for a
+    bit-identical loss and gradient. Returns the first loss."""
+    import torch
+    raws = model.trainable_raws()
+    for r in raws:
+        r.grad = None
+    loss = model.loss()
+    loss.backward()
+    torch.cuda.synchronize()
+    loss1 = float(loss.detach())
+    grads1 = [r.grad.clone() for r in raws]
+    phase("%s: float64 reference of the first step" % label)
+    lml64, grads64, scale_lml = float64_training_reference(model, bm, mg)
+    d_lml = abs(-loss1 - lml64)
+    tol_lml = KAPPA_U * scale_lml
+    g_scale = max(float(g.abs().max()) for g in grads64)
+    d_grad = max(float((g.double() - r).abs().max()) for g, r in zip(grads1, grads64))
+    tol_grad = KAPPA_U * g_scale
+    print("%s first step vs float64 reference: LML %.6f vs %.6f, |d| %.3e (tol κu·%.1f = %.3e); "
+          "gradient max|d| %.3e (tol κu·max|g| = %.3e, max|g| %.3e)"
+          % (label, -loss1, lml64, d_lml, scale_lml, tol_lml, d_grad, tol_grad, g_scale))
+    if not (d_lml <= tol_lml and d_grad <= tol_grad):
+        fail("the first %s training step disagrees with the float64 reference" % label)
+    for r in raws:
+        r.grad = None
+    loss = model.loss()
+    loss.backward()
+    if float(loss.detach()) != loss1 or not all(torch.equal(r.grad, g) for r, g in zip(raws, grads1)):
+        fail("a repeated first %s step gave another loss or gradient" % label)
+    print("%s repeated first step: identical loss %.9g and gradients" % (label, loss1))
+    for r in raws:
+        r.grad = None
+    return loss1
+
+
+def train_and_count(gpr, model, counters, want, loss1, label, smi):
+    """TRAIN_STEPS Adam steps of gpr.train with every count set to 0 first;
+    each step must launch each kernel as `want` says ((least, exact or
+    None)). Returns the counts of the whole run."""
+    import torch
+    phase("%s: %d training steps" % (label, TRAIN_STEPS))
+    for f in counters.values():
+        f.launches = 0
+    stamps = []
+
+    def on_step(i, value):
+        stamps.append((time.perf_counter(), value, {k: f.launches for k, f in counters.items()}))
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    losses, _ = gpr.train(model, method="Adam", lr=1e-3, iters=TRAIN_STEPS, callback=on_step)
+    launches = {k: f.launches for k, f in counters.items()}
+    prev_t, prev_c = t_start, {k: 0 for k in counters}
+    step_ms = []
+    for i, (t, value, cnt) in enumerate(stamps):
+        raised = {k: cnt[k] - prev_c[k] for k in cnt}
+        step_ms.append(1e3 * (t - prev_t))
+        print("%s train step %d: loss %.6f, %.2f ms, launches %s" % (label, i, value, step_ms[-1], raised))
+        if not np.isfinite(value):
+            fail("%s train step %d: loss is not finite" % (label, i))
+        for k, (lo, hi) in want.items():
+            if raised[k] < lo or (hi is not None and raised[k] != hi):
+                fail("%s train step %d launched %s %d times" % (label, i, k, raised[k]))
+        prev_t, prev_c = t, cnt
+    if abs(losses[0] - loss1) > 0:
+        fail("the first %s train step's loss differs from the checked first step" % label)
+    med = float(np.median(step_ms[1:]))
+    print("%s training: %d Adam steps at N=%d, median step %.2f ms, %.3f steps/s (%s)"
+          % (label, TRAIN_STEPS, model.X.shape[0], med, 1e3 / med, smi.stdout.strip().splitlines()[0]))
+    return launches
 
 
 def print_ptxas_report(lib):
@@ -522,11 +701,13 @@ def float64_reference(model, Xq, bm, mg):
 
 def float64_training_reference(model, bm, mg):
     """The first training step in float64 on the card with plain functions
-    only: the dense Gram, torch.linalg.cholesky and cholesky_solve with the
-    model's probes, and autograd over the plain Gram for the gradient. The
-    probe-trace gradient of the LML is the gradient of the surrogate
-    Σ K∘(A Bᵀ) + Σ diag∘(A∘B)·1 with A = ½[α, −U/R], B = [α, Z] held fixed;
-    its Gram part runs one channel-pair block at a time (pair_block_gram).
+    only: the dense Gram, torch.linalg.cholesky and cholesky_solve, and
+    autograd over the plain Gram for the gradient. The LML's gradient is the
+    gradient of the surrogate Σ K∘dK + Σ diag∘diag(dK) with the cotangent dK
+    held fixed: for the probe-trace gradient (model.probes set)
+    dK = A Bᵀ, A = ½[α, −U/R], B = [α, Z]; for the closed-form gradient
+    dK = ½(ααᵀ − K⁻¹), K⁻¹ from torch.cholesky_inverse. The Gram part runs one
+    channel-pair block at a time (pair_block_gram).
 
     Returns (LML, gradient of the loss −LML per trainable raw, the scale
     |½yᵀα| + Σ|log L_ii| of the LML's two terms)."""
@@ -551,23 +732,29 @@ def float64_training_reference(model, bm, mg):
     kdiag = torch.sum(w ** 2 * kern.twopi * torch.sqrt(torch.prod(var, dim=-1)), dim=-1)[cl]
     diag = noise_pt + model.jitter * torch.mean(kdiag + noise_pt)
     y = model.y.double()
-    Z = model.probes.double()
-    R = Z.shape[1]
+    Z = None if model.probes is None else model.probes.double()
     with torch.no_grad():
         K = mg.mosm_gram_pairstats_plain(x, c, x, c, st3, st2)
         K.diagonal().add_(diag)
         L = torch.linalg.cholesky(K)
         del K
-        AU = torch.cholesky_solve(torch.cat([y, Z], dim=1), L, upper=False)
-        alpha, U = AU[:, :1], AU[:, 1:]
+        AU = torch.cholesky_solve(y if Z is None else torch.cat([y, Z], dim=1), L, upper=False)
+        alpha = AU[:, :1]
         logdet = torch.sum(torch.log(torch.diagonal(L)))
         quad = 0.5 * torch.sum(y * alpha)
         lml = float(-logdet - quad) - model.log_marginal_likelihood_constant
         scale = float(logdet.abs() + quad.abs())
+        if Z is None:
+            dK = torch.cholesky_inverse(L, upper=False).neg_().addr_(alpha[:, 0], alpha[:, 0]).mul_(0.5)
+            block = lambda sa, sb: dK[sa, sb]
+            ddiag = torch.diagonal(dK)
+        else:
+            A = 0.5 * torch.cat([alpha, -AU[:, 1:] / Z.shape[1]], dim=1)
+            B = torch.cat([alpha, Z], dim=1)
+            block = lambda sa, sb: A[sa] @ B[sb].T
+            ddiag = torch.sum(A * B, dim=1)
         del L
-        A = 0.5 * torch.cat([alpha, -U / R], dim=1)
-        B = torch.cat([alpha, Z], dim=1)
-    grads = list(torch.autograd.grad(torch.sum(diag * torch.sum(A * B, dim=1)), raws,
+    grads = list(torch.autograd.grad(torch.sum(diag * ddiag), raws,
                                      retain_graph=True, allow_unused=True))
     offs = np.concatenate([[0], np.cumsum(model._channel_counts)]).astype(int)
     O = len(model._channel_counts)
@@ -576,7 +763,7 @@ def float64_training_reference(model, bm, mg):
         for b in range(O):
             sb = slice(offs[b], offs[b + 1])
             Kab = pair_block_gram(x[sa], x[sb], st3[a, b], st2[a, b])
-            s = torch.sum(Kab * (A[sa] @ B[sb].T))
+            s = torch.sum(Kab * block(sa, sb))
             for i, g in enumerate(torch.autograd.grad(s, raws, retain_graph=True, allow_unused=True)):
                 if g is not None:
                     grads[i] = g if grads[i] is None else grads[i] + g
@@ -654,6 +841,8 @@ def event_ms(fn):
 
 
 def median_ms(fn, reps=10, warmup=2):
+    """The median over `reps` calls of fn, each timed with CUDA events
+    after `warmup` calls."""
     for _ in range(warmup):
         fn()
     return float(np.median([event_ms(fn) for _ in range(reps)]))

@@ -23,9 +23,10 @@
 // order, so nothing carries from one to the next as it did across the TPU's
 // sequential grid: each block writes its 3QD + 2Q partial sums (a fixed-order
 // warp and block reduction, no atomics), and a second kernel sums each pair's
-// partials in a fixed order in float64. The result is deterministic.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// partials in a fixed order in float64. The result is deterministic. The tau
+// chain and both reductions are shared with csrc/mosm_gram_bwd.cu
+// (mosm_pair_vjp.cuh).
+#include "mosm_pair_vjp.cuh"
 
 namespace {
 
@@ -34,7 +35,6 @@ constexpr int kSub = 128;       // a block's quarter-tile edge
 constexpr int kThreads = 256;   // 16 x 16 threads
 constexpr int kMicro = 8;       // 8 x 8 elements per thread
 constexpr int kMaxR = 64;
-constexpr float kTwoPi = 6.283185307179586f;
 
 template <int Q, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -105,73 +105,10 @@ lowrank_vjp_kernel(const int* __restrict__ idx, const float* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < NOUT; ++k) acc[k] = 0.0f;
 #pragma unroll
-    for (int u = 0; u < kMicro; ++u) {
+    for (int u = 0; u < kMicro; ++u)
 #pragma unroll
-        for (int v = 0; v < kMicro; ++v) {
-            const float gv = g[u][v];
-#pragma unroll
-            for (int q = 0; q < Q; ++q) {
-                float td[D];
-                float e = 0.0f, a = 0.0f;
-#pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    const float* s3 = st + 3 * (q * D + d);
-                    td[d] = (xi[u][d] - xj[v][d]) + s3[2];
-                    e += td[d] * td[d] * s3[0];
-                    a += td[d] * s3[1];
-                }
-                const float alpha = st[3 * Q * D + 2 * q];
-                const float ang = kTwoPi * (a + st[3 * Q * D + 2 * q + 1]);
-                const float E = expf(-0.5f * e);
-                float S, C;
-                sincosf(ang, &S, &C);
-                const float gE = gv * E;
-                const float P = alpha * gE;
-                const float dang = -P * S;
-                const float de = -0.5f * P * C;
-                const float da = kTwoPi * dang;
-                acc[3 * Q * D + 2 * q] += gE * C;
-                acc[3 * Q * D + 2 * q + 1] += kTwoPi * dang;
-#pragma unroll
-                for (int d = 0; d < D; ++d) {
-                    const float* s3 = st + 3 * (q * D + d);
-                    acc[3 * (q * D + d)] += de * td[d] * td[d];
-                    acc[3 * (q * D + d) + 1] += da * td[d];
-                    acc[3 * (q * D + d) + 2] += de * (2.0f * s3[0]) * td[d] + da * s3[1];
-                }
-            }
-        }
-    }
-
-    // fixed-order reduction: warp shuffles, then the 8 warp sums in order
-    const int lane = t % 32, warp = t / 32;
-#pragma unroll
-    for (int k = 0; k < NOUT; ++k) {
-        float v = acc[k];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-        if (lane == 0) red[warp][k] = v;
-    }
-    __syncthreads();
-    if (t < NOUT) {
-        float v = 0.0f;
-        for (int w = 0; w < kThreads / 32; ++w) v += red[w][t];
-        partial[(int64_t)blockIdx.x * NOUT + t] = v;
-    }
-}
-
-// out[pair] = sum of the pair's partial rows, in order, in float64.
-// pairs: (P, 3) int32 [pair id, first partial row, row count].
-__global__ void lowrank_vjp_reduce_kernel(const float* __restrict__ partial,
-                                          const int* __restrict__ pairs,
-                                          float* __restrict__ out, int nout) {
-    const int p = blockIdx.x;
-    const int pair = pairs[3 * p], first = pairs[3 * p + 1], count = pairs[3 * p + 2];
-    for (int k = threadIdx.x; k < nout; k += blockDim.x) {
-        double v = 0.0;
-        for (int i = 0; i < count; ++i) v += (double)partial[(int64_t)(first + i) * nout + k];
-        out[(int64_t)pair * nout + k] = (float)v;
-    }
+        for (int v = 0; v < kMicro; ++v) add_pair_cotangents<Q, D>(g[u][v], xi[u], xj[v], st, acc);
+    block_reduce_store<NOUT, kThreads>(acc, red, partial + (int64_t)blockIdx.x * NOUT);
 }
 
 template <int Q, int D>
@@ -186,8 +123,7 @@ int launch(const int* idx, const float* x, const float* A, const float* Bm, cons
     kernel<<<(unsigned)(4 * S), kThreads, smem, stream>>>(idx, x, A, Bm, stats, partial, R);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    lowrank_vjp_reduce_kernel<<<(unsigned)P, 32, 0, stream>>>(partial, pairs, out,
-                                                              3 * Q * D + 2 * Q);
+    pair_reduce_kernel<<<(unsigned)P, 32, 0, stream>>>(partial, pairs, out, 3 * Q * D + 2 * Q);
     return (int)cudaGetLastError();
 }
 

@@ -6,6 +6,7 @@ counterpart here: on CUDA the hand-written kernels are chosen from the tensor's
 device, and float32 matmuls stay full float32 (TF32 is never enabled by this
 package).
 """
+import numpy as np
 import torch
 
 
@@ -21,7 +22,9 @@ class Config:
             unless the caller asks for the CPU (device="cpu", or
             config.device = "cpu", as the CPU tests do).
         positive_minimum: lower bound of positive-constrained parameters.
-        seed: seed of the package's torch.Generator.
+        seed: seed of the package's torch.Generator and of its numpy
+            Generator (numpy_rng), which draws host-side initial parameters
+            and data removals as in the JAX package.
         blocked_cholesky: None = auto (CUDA, float32, n >= blocked_cholesky_min_n
             and n a multiple of blocked_cholesky_block), True/False to force.
     """
@@ -32,6 +35,7 @@ class Config:
         self.positive_minimum = 1e-8
         self.seed = 0
         self._generator = None
+        self._np_rng = None
         self.blocked_cholesky = None
         self.blocked_cholesky_block = 512
         self.blocked_cholesky_min_n = 4096
@@ -52,6 +56,14 @@ class Config:
             self._generator.manual_seed(self.seed)
         return self._generator
 
+    def numpy_rng(self):
+        """The package's numpy Generator, np.random.default_rng(seed) on
+        first use (JAX: gpr/config.py Config.numpy_rng): the same seed draws
+        the same initial parameters in both packages."""
+        if self._np_rng is None:
+            self._np_rng = np.random.default_rng(self.seed)
+        return self._np_rng
+
 
 config = Config()
 
@@ -68,9 +80,10 @@ def resolve_device(device=None):
 
 def set_seed(seed):
     """Seed the package's random state (the analog of the reference's
-    torch.manual_seed)."""
+    torch.manual_seed): the torch.Generator and the numpy Generator."""
     config.seed = int(seed)
     config._generator = None
+    config._np_rng = np.random.default_rng(config.seed)
 
 
 def use_single_precision():

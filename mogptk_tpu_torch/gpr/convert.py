@@ -26,13 +26,17 @@ def load_raw_state(model, raws, names=None):
     into the port's raw nn.Parameters.
 
     Args:
-        model: the port's model or module.
+        model: the port's gpr model or module, or a top-level model
+            (mogptk_tpu_torch.Model, e.g. MOSM), which loads into its .gpr:
+            so a trained JAX mogptk_tpu.MOSM's raws carry into the port's.
         raws: list of arrays, e.g. [np.asarray(r) for r in jax_model.raw_state()].
         names: optional JAX parameter names ([p.name for p in
             jax_model.parameters()]) checked against parameter_names(model).
 
     Raises ValueError on a count, shape or name mismatch, before copying.
     """
+    if not hasattr(model, "gp_parameters") and hasattr(model, "gpr"):
+        model = model.gpr
     params = model.gp_parameters()
     if len(raws) != len(params):
         raise ValueError("expected %d raw arrays, got %d" % (len(params), len(raws)))

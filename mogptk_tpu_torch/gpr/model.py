@@ -28,24 +28,8 @@ from .kernel import Kernel
 from .likelihood import GaussianLikelihood
 from .config import config, resolve_device
 from ..ops.block_mosm import sorted_channel_counts, mosm_pair_stats
-from ..ops.linalg import (cholesky, jittered_cholesky, solve_triangular, cholesky_solve,
-                          lml_chol_fused)
-
-
-class _ValueOnly(torch.autograd.Function):
-    """Passes a value computed without autograd through, attached to the
-    trainable raws, with a backward that raises: an objective whose gradient
-    is not ported fails at .backward(), never silently with a zero
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, reason, val, *raws):
-        ctx.reason = reason
-        return val.clone()
-
-    @staticmethod
-    def backward(ctx, g):
-        raise NotImplementedError(ctx.reason)
+from ..ops.linalg import (jittered_cholesky, solve_triangular, cholesky_solve, lml_chol_fused,
+                          lml_quadform_logdet_shifted, lml_quadform_logdet_stochastic_shifted)
 
 
 class Model(Module):
@@ -63,7 +47,7 @@ class Model(Module):
     def __init__(self, kernel, X, y, likelihood=None, jitter=1e-8, mean=None, device=None):
         super().__init__()
         if mean is not None:
-            raise NotImplementedError("mean functions are not ported yet")
+            raise NotImplementedError("mean functions are not ported yet (ROADMAP queue 1, item 9)")
         if likelihood is None:
             likelihood = GaussianLikelihood(1.0)
         if not isinstance(kernel, Kernel):
@@ -228,9 +212,12 @@ class Exact(Model):
         return self.kernel.K(self.X)
 
     def log_marginal_likelihood(self):
-        """LML via Cholesky. With trace_probes on channel-sorted data it is the
-        fused path with the probe-trace gradient; elsewhere a value whose
-        backward raises NotImplementedError."""
+        """LML via Cholesky (JAX: Exact.log_marginal_likelihood, the unmasked
+        single-device branches). With trace_probes on channel-sorted data,
+        the fused path (Gram, factor, solve and probe-trace backward in one
+        Function); otherwise the differentiable Gram _Kff() with the noise
+        diagonal riding the factorization, then the closed-form gradient
+        (trace_probes=None) or the probe-trace gradient on the dense dK."""
         static = self._fused_static()
         if static is not None:
             _, x = self.kernel._split(self.X)
@@ -238,22 +225,14 @@ class Exact(Model):
             diag = self._noise_diag(add_jitter=True)
             val = lml_chol_fused(static, x, diag, self._residual_y(), st3, st2, self.probes)
             return val - self.log_marginal_likelihood_constant
-        with torch.no_grad():
-            y = self._residual_y()
-            L = cholesky(self._Kff(), diag_shift=self._noise_diag(add_jitter=True))
-            alpha = cholesky_solve(L, y)
-            val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(y * alpha)
-            val = val - self.log_marginal_likelihood_constant
-        raws = self.trainable_raws()
-        if not (torch.is_grad_enabled() and raws):
-            return val
-        if not self.trace_probes:
-            why = ("the LML gradient without trace_probes (the closed-form exact gradient) is "
-                   "not ported yet (ROADMAP queue 1, item 2); pass trace_probes=R")
+        y = self._residual_y()
+        K = self._Kff()
+        diag = self._noise_diag(add_jitter=True)
+        if self.trace_probes:
+            val = lml_quadform_logdet_stochastic_shifted(K, diag, y, self.probes)
         else:
-            why = ("the probe-trace LML gradient needs channel-sorted X (merge_data's layout); "
-                   "unsorted channels need the generic Gram's backward (ROADMAP queue 2, C1b)")
-        return _ValueOnly.apply(why, val, *raws)
+            val = lml_quadform_logdet_shifted(K, diag, y)
+        return val - self.log_marginal_likelihood_constant
 
     @torch.no_grad()
     def predict_f(self, X):

@@ -12,6 +12,9 @@ from .parameter import Parameter
 
 
 class Module(nn.Module):
+    def name(self):
+        return type(self).__name__
+
     def gp_parameters(self):
         """(path, Parameter) pairs in registration order, e.g.
         ("kernel.weight", <Parameter>); named_modules() deduplicates."""

@@ -123,7 +123,9 @@ class Parameter(nn.Module):
         return self.transform.forward(self.raw)
 
     def numpy(self):
-        return self().detach().cpu().numpy()
+        """The constrained value as a new numpy array (never a view of the
+        live raw, which later steps update in place)."""
+        return np.array(self().detach().cpu())
 
     def log_prior(self):
         """Log density of the prior at the constrained value: 0, since no

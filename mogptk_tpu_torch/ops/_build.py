@@ -47,6 +47,8 @@ SIGNATURES = {
     "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_ptr],
     # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, stream
     "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr],
+    # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, S, P, M, Q, D, stream
+    "mosm_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_ptr],
     # L, invs, V, Z, X, n, B, R, stream
     "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
 }

@@ -10,7 +10,7 @@ cross-statistic of the MOSM algebra is a scalar, computed here once at O²
 cost. The JAX package then launched one Pallas kernel per upper channel pair
 and assembled the Gram from transposes; here the channel of each row is
 spelled out from `counts` and the whole N×N Gram is one call of
-ops/mosm_gram.mosm_gram.
+ops/mosm_gram.mosm_gram (differentiable; its backward is K-gram-bwd).
 
 The kernels take the pair statistics (st3, st2), not the parameters: the
 training path (ops/linalg.lml_chol_fused) receives the statistics as inputs
@@ -74,7 +74,10 @@ def channel_ids(counts, device):
 
 
 def mosm_gram_sorted(x, counts, w, mu, var, theta, phi, twopi):
-    """Full (N, N) MOSM Gram for channel-sorted x with per-channel `counts`."""
+    """Full (N, N) MOSM Gram for channel-sorted x with per-channel `counts`,
+    differentiable in the parameters through ops/mosm_gram.MosmGram (JAX:
+    `_gram_block`'s custom VJP, B2; there the lower blocks are transposes of
+    upper ones, here one launch covers the whole N×N each way)."""
     counts = tuple(int(n) for n in counts)
     if len(counts) != w.shape[0]:
         raise ValueError("counts must have one entry per output dim")
@@ -82,7 +85,7 @@ def mosm_gram_sorted(x, counts, w, mu, var, theta, phi, twopi):
         raise ValueError("counts must sum to the number of rows of x")
     c = channel_ids(counts, x.device)
     st3, st2 = mosm_pair_stats(w, mu, var, theta, phi, twopi)
-    return mosm_gram(x, c, x, c, st3, st2)
+    return mosm_gram(x, c, x, c, st3, st2, counts, counts)
 
 
 # -- K-gram-lower (TPU kernel A1) ----------------------------------------------

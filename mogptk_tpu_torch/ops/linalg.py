@@ -1,8 +1,11 @@
-"""Dense linear algebra of the exact-GP path, and the fused training LML.
+"""Dense linear algebra of the exact-GP path, and the training LMLs.
 
 JAX counterpart: mogptk_tpu/ops/linalg.py (`cholesky` :19-59,
 `jittered_cholesky` :94-160, `solve_triangular` :287-296, `cholesky_solve`
-:307-339, `_stoch_lowrank` :391-396, `lml_chol_fused` :650-715). The
+:307-339, `_stoch_lowrank` :391-396, `_dense_lml_cotangents` :425-496,
+`lml_quadform_logdet_shifted` :553-576,
+`lml_quadform_logdet_stochastic_shifted` :579-606, `lml_chol_fused`
+:650-715). The
 factorization routes to ops/blocked_cholesky (the hand-written kernels on
 CUDA) by gpr.config.blocked_cholesky_enabled, else to torch.linalg.cholesky.
 A solve given the panel inverses goes to ops/fused_solve (the K-solve kernel
@@ -12,8 +15,9 @@ ported.
 import torch
 
 from .blocked_cholesky import blocked_cholesky, effective_block
+from .blocked_trisolve import blocked_cho_solve, spd_inverse_from_factor
 from .block_mosm import (channel_ids, mosm_gram_sorted_lower, mosm_lowrank_vjp_sorted)
-from .fused_solve import fused_cho_solve
+from .fused_solve import MAX_RHS, fused_cho_solve
 from .mosm_gram import mosm_gram
 
 
@@ -62,11 +66,14 @@ def cholesky_solve(L, B, invs=None):
     """Solve K X = B given the lower Cholesky factor L of K.
 
     invs: the diagonal-block inverses from cholesky(return_panel_invs=True).
-    With them both sweeps read only L's lower blocks and go through
-    ops/fused_solve: the K-solve kernel for CUDA tensors, its plain twin on
-    the CPU (not differentiable on CUDA)."""
+    With them both sweeps read only L's lower blocks: up to 64 right-hand
+    sides through ops/fused_solve (the K-solve kernel for CUDA tensors, its
+    plain twin on the CPU; not differentiable on CUDA), wider ones through
+    the blocked GEMM sweeps (as the JAX package routes them)."""
     if invs is not None and L.ndim == 2 and B.ndim == 2:
-        return fused_cho_solve(L, invs, B)
+        if B.shape[1] <= MAX_RHS:
+            return fused_cho_solve(L, invs, B)
+        return blocked_cho_solve(L, B, invs=invs)
     return torch.cholesky_solve(B, L, upper=False)
 
 
@@ -76,6 +83,100 @@ def _stoch_lowrank(alpha, U, Z, g, num_probes):
     A = (0.5 * g) * torch.cat([alpha, -U / num_probes], dim=1)
     B = torch.cat([alpha, Z], dim=1)
     return A, B
+
+
+def _chol_lml(K, diag, rhs):
+    """Shared LML forward core: factor K + diag(diag) (the shift applied
+    inside the factorization, K overwritten on the blocked route), solve
+    rhs = [y, Z...] in one call. Returns (val, L, invs, K⁻¹rhs)."""
+    L, invs = cholesky(K, diag_shift=diag, return_panel_invs=True, zero_upper=False)
+    X = cholesky_solve(L, rhs, invs=invs)
+    val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(rhs[:, :1] * X[:, :1])
+    return val, L, invs, X
+
+
+def _dense_lml_cotangents(L, alpha, g, invs=None):
+    """dK = ½g(ααᵀ − K⁻¹) and dy = −gα from the lower factor L of K (its
+    strict upper is never read). On the blocked route K⁻¹ comes from the
+    factor (spd_inverse_from_factor, ≈ n³/2 multiply-adds in GEMMs) when the
+    panel width divides n, else from a column-blocked double triangular
+    solve of the identity (2,048 columns at a time); on the unblocked route
+    from torch.cholesky_inverse. dK is formed in K⁻¹'s buffer."""
+    from ..gpr.config import blocked_cholesky_enabled
+    n = L.shape[0]
+    if blocked_cholesky_enabled(n, L.device, L.dtype):
+        if invs is not None and invs.shape[0] * invs.shape[-1] != n:
+            invs = None
+        eff = invs.shape[-1] if invs is not None else effective_block(n, 1024)
+        if n % eff == 0:
+            Kinv = spd_inverse_from_factor(L, block_size=eff, invs=invs)
+        else:
+            Kinv = torch.empty_like(L)
+            eye = torch.eye(n, dtype=L.dtype, device=L.device)
+            for c0 in range(0, n, 2048):
+                Zb = torch.linalg.solve_triangular(L, eye[:, c0:c0 + 2048], upper=False)
+                Kinv[:, c0:c0 + 2048] = torch.linalg.solve_triangular(L.mT, Zb, upper=True)
+    else:
+        Kinv = torch.cholesky_inverse(L, upper=False)
+    dK = Kinv.neg_().addr_(alpha[:, 0], alpha[:, 0]).mul_(0.5 * g)
+    return dK, -g * alpha
+
+
+class LmlQuadformLogdetShifted(torch.autograd.Function):
+    """−Σ log diag(chol(K+D)) − ½ yᵀ(K+D)⁻¹y with D = diag(`diag`) applied
+    inside the factorization, and the closed-form gradient (JAX:
+    lml_quadform_logdet_shifted).
+
+    Forward: the factor (blocked: every panel inverse, zero_upper=False) and
+    α = (K+D)⁻¹y. The blocked factorization overwrites K in place, so nothing
+    may have saved K for its backward (ops/mosm_gram.MosmGram saves its
+    inputs, never its output). Backward: dK = ½g(ααᵀ − (K+D)⁻¹) (dense),
+    ddiag = diag(dK), dy = −gα."""
+
+    @staticmethod
+    def forward(ctx, K, diag, y):
+        val, L, invs, alpha = _chol_lml(K.detach(), diag.detach(), y.detach())
+        ctx.save_for_backward(L, alpha, invs)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        L, alpha, invs = ctx.saved_tensors
+        dK, dy = _dense_lml_cotangents(L, alpha, g, invs)
+        return dK, torch.diagonal(dK).clone(), dy
+
+
+def lml_quadform_logdet_shifted(K, diag, y):
+    """LmlQuadformLogdetShifted.apply: K (n, n) noiseless Gram (overwritten
+    on the blocked route), diag (n,), y (n, 1)."""
+    return LmlQuadformLogdetShifted.apply(K, diag, y)
+
+
+class LmlQuadformLogdetStochasticShifted(torch.autograd.Function):
+    """The same value with the probe-trace gradient (JAX:
+    lml_quadform_logdet_stochastic_shifted) for an explicit (n, R) probe
+    matrix Z: y and Z are solved in one call, and the backward forms the
+    dense dK = A·Bᵀ, A = ½g[α, −U/R], B = [α, Z] (_stoch_lowrank), for the
+    Gram's own backward (unsorted channels: K-gram-bwd); ddiag = Σ_r A∘B,
+    dy = −gα."""
+
+    @staticmethod
+    def forward(ctx, K, diag, y, Z):
+        val, _, _, AU = _chol_lml(K.detach(), diag.detach(), torch.cat([y.detach(), Z], dim=1))
+        ctx.save_for_backward(AU, Z)
+        return val
+
+    @staticmethod
+    def backward(ctx, g):
+        AU, Z = ctx.saved_tensors
+        alpha = AU[:, :1]
+        A, B = _stoch_lowrank(alpha, AU[:, 1:], Z, g, Z.shape[1])
+        return A @ B.T, torch.sum(A * B, dim=1), -g * alpha, None
+
+
+def lml_quadform_logdet_stochastic_shifted(K, diag, y, Z):
+    """LmlQuadformLogdetStochasticShifted.apply; Z (n, R) the probes."""
+    return LmlQuadformLogdetStochasticShifted.apply(K, diag, y, Z)
 
 
 def _sorted_gram(x, counts, st3, st2, lower_only):
@@ -116,10 +217,8 @@ class LmlCholFused(torch.autograd.Function):
         n = x.shape[0]
         lower_ok = blocked_cholesky_enabled(n, x.device, x.dtype)
         K = _sorted_gram(x, counts, st3, st2, lower_only=lower_ok)
-        L, invs = cholesky(K, diag_shift=diag, return_panel_invs=True, zero_upper=False)
-        AU = cholesky_solve(L, torch.cat([y, Z], dim=1), invs=invs)
+        val, _, _, AU = _chol_lml(K, diag, torch.cat([y, Z], dim=1))
         alpha, U = AU[:, :1], AU[:, 1:]
-        val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(y * alpha)
         ctx.static = static
         ctx.save_for_backward(x, alpha, U, Z, st3, st2)
         return val

@@ -21,6 +21,7 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
             "import mogptk_tpu_torch.gpr.training, mogptk_tpu_torch.ops.linalg\n"
             "import mogptk_tpu_torch.ops.fused_solve, mogptk_tpu_torch.ops.blocked_trisolve\n"
             "import mogptk_tpu_torch.ops.block_mosm, mogptk_tpu_torch.ops.blocked_cholesky\n"
+            "import mogptk_tpu_torch.model, mogptk_tpu_torch.models.mosm, mogptk_tpu_torch.init\n"
             "bad = [m for m in ('jax', 'pandas', 'matplotlib') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -29,7 +30,7 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
 def test_kernel_sources_and_nvcc_command():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["blocked_cholesky.cu", "fused_cho_solve.cu", "mosm_gram.cu",
-                     "mosm_lowrank_vjp.cu"]
+                     "mosm_gram_bwd.cu", "mosm_lowrank_vjp.cu"]
     compiles, link = _build.nvcc_commands("/tmp/out.so")
     # one compile per source, all into the one library
     assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == _build.sources()
@@ -152,3 +153,56 @@ def test_cuda_training_kernels_match_plain_twins():
             x.double(), counts, *st64, Am.double(), Bm.double()))
         torch.cuda.synchronize()
         assert _rel_err(got, ref) <= 2 * _rel_err(twin, ref) + 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_gram_bwd_matches_plain_twin():
+    """K-gram-bwd against its plain twin on the card, float32, small shapes:
+    unsorted channel IDs with a cross-Gram (N ≠ M), and channel-sorted data
+    with ragged channels and D = 2 (padding on every channel). Tolerance: no
+    more than 2x the float32 twin's error against a float64 twin on the same
+    inputs, plus a floor of 1e-5 relative (summation order alone). A repeated
+    call is bit-identical (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(2)
+    O, Q = 3, 2
+    cases = []
+    for D, sorted_counts in ((1, None), (2, (300, 1, 257))):
+        if sorted_counts is None:
+            N, M = 700, 500
+            c1 = torch.as_tensor(rng.randint(0, O, N), dtype=torch.int32, device=dev)
+            c2 = torch.as_tensor(rng.randint(0, O, M), dtype=torch.int32, device=dev)
+            x1 = torch.as_tensor(rng.rand(N, D) * 20, dtype=torch.float32, device=dev)
+            x2 = torch.as_tensor(rng.rand(M, D) * 20, dtype=torch.float32, device=dev)
+        else:
+            N = M = sum(sorted_counts)
+            c1 = c2 = tbm.channel_ids(sorted_counts, dev)
+            x1 = x2 = torch.as_tensor(np.sort(rng.rand(N, D) * 20, axis=0), dtype=torch.float32,
+                                      device=dev)
+        cases.append((D, sorted_counts, x1, c1, x2, c2))
+    for D, counts, x1, c1, x2, c2 in cases:
+        params = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
+            0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+            0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))]
+        twopi = float((2 * np.pi) ** (D / 2))
+        st3, st2 = tbm.mosm_pair_stats(*params, twopi)
+        g = torch.as_tensor(rng.randn(x1.shape[0], x2.shape[0]), dtype=torch.float32, device=dev)
+        launches = tmg.mosm_gram_bwd.launches
+        got = tmg.mosm_gram_bwd(x1, c1, x2, c2, st3, st2, g, counts, counts)
+        again = tmg.mosm_gram_bwd(x1, c1, x2, c2, st3, st2, g, counts, counts)
+        assert tmg.mosm_gram_bwd.launches == launches + 2
+        twin = tmg.mosm_gram_bwd_plain(x1, c1, x2, c2, st3, st2, g)
+        ref = tmg.mosm_gram_bwd_plain(x1.double(), c1, x2.double(), c2, st3.double(),
+                                      st2.double(), g.double())
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert _rel_err(got, ref) <= 2 * _rel_err(twin, ref) + 1e-5
+        # through autograd: the Gram on the card carries MosmGram's backward
+        ps = [p.clone().requires_grad_() for p in params]
+        K = tmg.mosm_gram(x1, c1, x2, c2, *tbm.mosm_pair_stats(*ps, twopi), counts, counts)
+        assert type(K.grad_fn).__name__ == "MosmGramBackward"
+        grads = torch.autograd.grad(torch.sum(K * g), ps)
+        for a, b in zip(grads, tbm.pair_stats_vjp(params, twopi, *got)):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))

@@ -199,18 +199,23 @@ def _small_model(trace_probes=PROBES, shuffle=False, device=None):
 
 
 def test_unported_configurations_raise():
-    """The exact-gradient path, unsorted channels and LBFGS raise
-    NotImplementedError naming their ROADMAP item; the LML value itself is
-    still there."""
-    for model, item in ((_small_model(trace_probes=None), "queue 1, item 2"),
-                        (_small_model(shuffle=True), "queue 2, C1b")):
-        assert model._fused_static() is None
-        loss = model.loss()
-        assert np.isfinite(float(loss.detach()))
-        with pytest.raises(NotImplementedError, match=item):
-            loss.backward()
-    with pytest.raises(NotImplementedError, match="LBFGS"):
+    """What is not ported raises NotImplementedError naming its ROADMAP
+    item: LBFGS, a mean function, the SM-model initialization and a sparse
+    inference selector. (The closed-form gradient and unsorted channels,
+    which raised here before, now train: test_torch_closed_form.py.)"""
+    import mogptk_tpu_torch as mogptk
+    with pytest.raises(NotImplementedError, match="LBFGS.*queue 1, item 8"):
         tgpr.train(_small_model(), method="LBFGS", iters=1)
+    xs, ys, _, _ = _dense_data()
+    _, X, Y = tgpr.merge_data(xs, ys)
+    k = tgpr.MultiOutputSpectralMixtureKernel(2, output_dims=3)
+    with pytest.raises(NotImplementedError, match="mean functions"):
+        tgpr.Exact(k, X, Y, mean=object())
+    ds = mogptk.DataSet([x[:, 0] for x in xs], [y[:, 0] for y in ys])
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        mogptk.MOSM(ds, Q=2).init_parameters("SM", iters=1)
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        mogptk.MOSM(ds, Q=2, inference=mogptk.Titsias(inducing_points=8))
 
 
 def test_probes():
