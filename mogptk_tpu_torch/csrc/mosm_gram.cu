@@ -15,8 +15,8 @@
 // Q cos per element and no reuse. The O*O pair table is tiny and sits in
 // shared memory; each thread keeps its column's x2 and channel in registers
 // and walks ROWS rows, so neighbouring threads write neighbouring addresses.
-// expf/cosf are the full-precision library functions (no fast math): the
-// cosine argument reaches ~250 rad on the bench data.
+// The element is csrc/mosm_element.cuh (full-precision expf/cosf, no fast
+// math: the cosine argument reaches ~250 rad on the bench data).
 //
 // mosm_gram_lower_f32 replaces a third Pallas kernel,
 //   mogptk_tpu/ops/block_mosm.py  mosm_gram_sorted_lower (pallas_call at :437),
@@ -31,12 +31,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mosm_element.cuh"
+
 namespace {
 
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kRows = 4;     // rows per thread
-constexpr int kMaxD = 8;     // input dims kept in registers
 
 __global__ void mosm_gram_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
                                  const float* __restrict__ x2, const int* __restrict__ c2,
@@ -60,26 +61,12 @@ __global__ void mosm_gram_kernel(const float* __restrict__ x1, const int* __rest
     float xj[kMaxD];
     for (int d = 0; d < D; ++d) xj[d] = x2[j * D + d];
     const int cj = c2[j];
-    const float two_pi = 6.283185307179586f;
 
     const int64_t i0 = ((int64_t)blockIdx.y * blockDim.y + threadIdx.y) * kRows;
     for (int r = 0; r < kRows; ++r) {
         const int64_t i = i0 + r;
         if (i >= N) break;
-        const float* p = table + (c1[i] * O + cj) * S;
-        float k = 0.0f;
-        for (int q = 0; q < Q; ++q) {
-            float e = 0.0f, a = 0.0f;
-            for (int d = 0; d < D; ++d) {
-                const float* s3 = p + 3 * (q * D + d);
-                const float td = (x1[i * D + d] - xj[d]) + s3[2];
-                e += td * td * s3[0];
-                a += td * s3[1];
-            }
-            const float* s2 = p + 3 * Q * D + 2 * q;
-            k += s2[0] * expf(-0.5f * e) * cosf(two_pi * (a + s2[1]));
-        }
-        out[i * M + j] = k;
+        out[i * M + j] = mosm_element(table + (c1[i] * O + cj) * S, x1 + i * D, xj, Q, D);
     }
 }
 

@@ -26,7 +26,8 @@ def load_raw_state(model, raws, names=None):
     into the port's raw nn.Parameters.
 
     Args:
-        model: the port's gpr model or module, or a top-level model
+        model: the port's gpr model (Exact, ExactIterative: the kernel's and
+            the likelihood's raws) or module, or a top-level model
             (mogptk_tpu_torch.Model, e.g. MOSM), which loads into its .gpr:
             so a trained JAX mogptk_tpu.MOSM's raws carry into the port's.
         raws: list of arrays, e.g. [np.asarray(r) for r in jax_model.raw_state()].

@@ -32,6 +32,18 @@ from ..ops.linalg import (jittered_cholesky, solve_triangular, cholesky_solve, l
                           lml_quadform_logdet_shifted, lml_quadform_logdet_stochastic_shifted)
 
 
+def generator(seed, device):
+    """A torch.Generator on `device` seeded with `seed`."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def rademacher(gen, shape, dtype, device):
+    """A ±1 matrix drawn from `gen`."""
+    return (2 * torch.randint(0, 2, shape, generator=gen, device=device) - 1).to(dtype)
+
+
 class Model(Module):
     """Base GP model.
 
@@ -175,10 +187,8 @@ class Exact(Model):
                 raise ValueError("trace_probes must equal the number of columns of probes")
             trace_probes = probes.shape[1]
         elif trace_probes:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            probes = (2 * torch.randint(0, 2, (n, int(trace_probes)), generator=gen,
-                                        device=self.device) - 1).to(config.dtype)
+            probes = rademacher(generator(seed, self.device), (n, int(trace_probes)),
+                                config.dtype, self.device)
         self.trace_probes = None if not trace_probes else int(trace_probes)
         self.seed = seed
         self.probes = probes

@@ -6,8 +6,9 @@ reference mogptk/model.py:76-1037. Training runs gpr.train (torch.optim, one
 synchronizing callback per step); prediction runs the gpr model's predict_y
 on its device and hands numpy back. Ported: the `Exact` selector
 (closed-form gradient by default, probe-trace with trace_probes),
-save/LoadModel, the metrics and the plots. Not ported yet: the sparse and iterative selectors (construction
-raises NotImplementedError naming the ROADMAP item), sampling, and the XLA
+the `Iterative` selector (MOSM only), save/LoadModel, the metrics and the
+plots. Not ported yet: the sparse selectors (construction raises
+NotImplementedError naming the ROADMAP item), sampling, and the XLA
 compilation-cache priming (`precompile`, which has no counterpart here).
 """
 import inspect
@@ -50,15 +51,22 @@ class Exact:
         self.trace_probes = trace_probes
 
     def _build(self, kernel, x, y, y_err=None, mean=None, device=None):
-        variance = self.variance
-        if variance is None:
-            variance = [1.0] * kernel.output_dims if kernel.output_dims is not None else 1.0
-        data_variance = self.data_variance
-        if data_variance is None and y_err is not None:
-            data_variance = y_err ** 2
+        variance, data_variance = _noise(self, kernel, y_err)
         return gpr.Exact(kernel, x, y, variance=variance, data_variance=data_variance,
                          jitter=self.jitter, mean=mean, trace_probes=self.trace_probes,
                          device=device)
+
+
+def _noise(selector, kernel, y_err):
+    """The selector's noise variance (default 1 per channel) and data
+    variance (default y_err², when the data carry errors)."""
+    variance = selector.variance
+    if variance is None:
+        variance = [1.0] * kernel.output_dims if kernel.output_dims is not None else 1.0
+    data_variance = selector.data_variance
+    if data_variance is None and y_err is not None:
+        data_variance = y_err ** 2
+    return variance, data_variance
 
 
 class _Unported:
@@ -86,8 +94,29 @@ class Hensman(_Unported):
     item = 7
 
 
-class Iterative(_Unported):
-    item = 5
+class Iterative:
+    """Iterative exact inference selector: CG and Lanczos quadrature, no
+    Cholesky factor and no Gram formed (JAX: mogptk_tpu/model.py:157-190);
+    the MOSM kernel only so far."""
+
+    def __init__(self, variance=None, data_variance=None, jitter=1e-8, max_cg_iters=100,
+                 cg_tol=1e-5, num_probes=16, lanczos_iters=32, precond_rank=64):
+        self.variance = variance
+        self.data_variance = data_variance
+        self.jitter = jitter
+        self.max_cg_iters = max_cg_iters
+        self.cg_tol = cg_tol
+        self.num_probes = num_probes
+        self.lanczos_iters = lanczos_iters
+        self.precond_rank = precond_rank
+
+    def _build(self, kernel, x, y, y_err=None, mean=None, device=None):
+        variance, data_variance = _noise(self, kernel, y_err)
+        return gpr.ExactIterative(kernel, x, y, variance=variance, data_variance=data_variance,
+                                  jitter=self.jitter, mean=mean, max_cg_iters=self.max_cg_iters,
+                                  cg_tol=self.cg_tol, num_probes=self.num_probes,
+                                  lanczos_iters=self.lanczos_iters,
+                                  precond_rank=self.precond_rank, device=device)
 
 
 class Model:
@@ -217,9 +246,15 @@ class Model:
             pass
         torch.save(self, filename)
 
-    def log_marginal_likelihood(self):
-        """The model's log marginal likelihood, a float."""
+    def log_marginal_likelihood(self, readout=True):
+        """The model's log marginal likelihood, a float. For the Iterative
+        engine the training-step value is a budget-limited estimate; by
+        default it is read again at an evaluation-grade budget
+        (gpr.ExactIterative.log_marginal_likelihood_readout). readout=False
+        returns the training-budget estimate."""
         with torch.no_grad():
+            if readout and hasattr(self.gpr, "log_marginal_likelihood_readout"):
+                return float(self.gpr.log_marginal_likelihood_readout())
             return float(self.gpr.log_marginal_likelihood())
 
     def BIC(self):

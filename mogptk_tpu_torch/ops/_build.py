@@ -51,6 +51,8 @@ SIGNATURES = {
     "mosm_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_ptr],
     # L, invs, V, Z, X, n, B, R, stream
     "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
+    # x, c, stats, V, out, N, R, O, Q, D, stream
+    "mosm_matvec_f32": [_c_ptr] * 5 + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
 }
 
 

@@ -8,6 +8,18 @@ import torch
 from mogptk_tpu.ops.blocked_cholesky import blocked_cholesky as jax_blocked_cholesky
 from mogptk_tpu_torch.ops import blocked_cholesky as tbc
 
+import jax_reference
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small shapes: one torch thread (the suite runs files in parallel
+    processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 def _spd(n, seed, dtype):
     rng = np.random.RandomState(seed)
@@ -21,7 +33,8 @@ def test_f32_matches_jax_pallas_path():
     FP32 products. Tolerance rtol 2e-4, atol 2e-5: bf16x3 against FP32, as in
     tests/test_linalg.py (test_pallas_s_panel_update_matches_jnp)."""
     K = _spd(1024, 40, np.float32)
-    ref = np.asarray(jax_blocked_cholesky(jnp.asarray(K), 512, update_precision="high"))
+    ref = np.asarray(jax_reference.jit(
+        lambda K_: jax_blocked_cholesky(K_, 512, update_precision="high"))(jnp.asarray(K)))
     launches = (tbc.s_panel.launches, tbc.col_write.launches)
     L = tbc.blocked_cholesky(torch.from_numpy(K.copy()), block_size=512)
     assert L.dtype == torch.float32

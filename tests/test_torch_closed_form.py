@@ -25,6 +25,8 @@ import mogptk_tpu.gpr as jgpr
 import mogptk_tpu_torch.gpr as tgpr
 from mogptk_tpu_torch.ops import mosm_gram as tmg
 
+import jax_reference
+
 RTOL = 1e-7
 PROBES, SEED, LR, STEPS = 8, 3, 0.01, 3
 
@@ -72,8 +74,7 @@ def _port_model(shuffle, jm, **kw):
     X, Y, _, _ = _data(shuffle)
     tm = tgpr.Exact(tgpr.MultiOutputSpectralMixtureKernel(2, output_dims=3), X, Y,
                     variance=0.1, **kw)
-    tgpr.load_raw_state(tm, [np.asarray(r) for r in jm.raw_state()],
-                        names=[p.name for p in jm.parameters()])
+    tgpr.load_raw_state(tm, jm["raws"], names=jm["names"])
     return tm
 
 
@@ -82,7 +83,7 @@ def _jax_run(jm, steps):
     optax Adam steps (one jitted value-and-grad, the update of
     gpr/training.py)."""
     train, fixed = jm._split_raws()
-    vg = jax.jit(jax.value_and_grad(jm.make_loss_fn()))
+    vg = jax_reference.jit(jax.value_and_grad(jm.make_loss_fn()))
     opt = optax.adam(LR)
     state = opt.init(train)
     losses, grads, raws = [], [], []
@@ -98,25 +99,36 @@ def _jax_run(jm, steps):
     return losses, grads, raws
 
 
-@pytest.fixture(scope="module")
-def jax_sorted():
-    jm = _jax_model(False)
-    return (jm,) + _jax_run(jm, STEPS)
+def _answers(jm, steps):
+    """The model as its raws and names, then _jax_run's answers: numpy only
+    (jax_reference.once_per_run)."""
+    return (jax_reference.raws_and_names(jm),) + _jax_run(jm, steps)
 
 
 @pytest.fixture(scope="module")
-def jax_shuffled():
-    jm = _jax_model(True)
-    return (jm,) + _jax_run(jm, 0)
+def jax_sorted(tmp_path_factory):
+    return jax_reference.once_per_run(tmp_path_factory, "closed_form_jax_sorted",
+                                      lambda: _answers(_jax_model(False), STEPS))
 
 
 @pytest.fixture(scope="module")
-def jax_shuffled_probes():
+def jax_shuffled(tmp_path_factory):
+    return jax_reference.once_per_run(tmp_path_factory, "closed_form_jax_shuffled",
+                                      lambda: _answers(_jax_model(True), 0))
+
+
+def _probe_answers():
     jm = _jax_model(True, trace_probes=PROBES)
     assert jm._fused_static() is None        # unsorted: the dense stochastic LML
     Z = np.asarray(jax.random.rademacher(jax.random.PRNGKey(SEED), (120, PROBES),
                                          dtype=jnp.float64))
-    return (jm, Z) + _jax_run(jm, 0)
+    return (jax_reference.raws_and_names(jm), Z) + _jax_run(jm, 0)
+
+
+@pytest.fixture(scope="module")
+def jax_shuffled_probes(tmp_path_factory):
+    return jax_reference.once_per_run(tmp_path_factory, "closed_form_jax_shuffled_probes",
+                                      _probe_answers)
 
 
 def _check_loss_and_grads(tm, loss, grads):

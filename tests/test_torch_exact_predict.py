@@ -5,6 +5,9 @@ generator, cut to 4 channels x 48 points) in float64 on the CPU; the JAX
 model's raw parameters are carried across with load_raw_state. Tolerance
 rtol 1e-7: XLA-CPU's exp is only ~1e-8 accurate even in float64.
 """
+import math
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -12,6 +15,8 @@ import torch
 import mogptk_tpu.gpr as jgpr
 import mogptk_tpu_torch.gpr as tgpr
 from mogptk_tpu_torch.ops import blocked_cholesky, mosm_gram
+
+import jax_reference
 
 RTOL = 1e-7
 CHANNELS, N_PER, Q = 4, 48, 2
@@ -72,17 +77,29 @@ def cpu_device():
 
 
 @pytest.fixture(scope="module")
-def jax_results():
-    """The JAX model's answers, computed once for every case below."""
+def jax_results(tmp_path_factory):
+    """The JAX model's answers, computed once per test run for every case
+    below (jax_reference.once_per_run)."""
+    return jax_reference.once_per_run(tmp_path_factory, "exact_predict_jax", _jax_answers)
+
+
+def _jax_answers():
     jm, _ = _models()
+    # the body of the JAX package's predict_y(Xq, sigma=2) (gpr/model.py:
+    # 442-449) under one jit; its quantiles come from erf on the host
+    p = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+
+    def predict(q):
+        mu, var = jm.predict_f(q)
+        return mu, var, jm.likelihood.predict(q, mu, var, [1.0 - p, p], sigma=2)
+
     out = []
     for Xq in _queries():
-        mu, var = jm.predict_f(Xq)
-        bands = jm.predict_y(Xq, sigma=2)
+        mu, var, bands = jax_reference.jit(predict)(jnp.asarray(Xq))
         out.append((np.asarray(mu), np.asarray(var), [np.asarray(b) for b in bands]))
     # loss() is the jitted −LML − log prior, and there are no priors; the
     # eager log_marginal_likelihood() costs seconds of op-by-op dispatch
-    return out, -jm.loss()
+    return out, float(-jm.loss())
 
 
 @pytest.fixture

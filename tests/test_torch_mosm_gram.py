@@ -16,7 +16,19 @@ from mogptk_tpu.gpr.multioutput import _mosm_K
 from mogptk_tpu_torch.ops import block_mosm as tbm
 from mogptk_tpu_torch.ops import mosm_gram as tmg
 
+import jax_reference
+
 RTOL, ATOL = 1e-7, 1e-12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small shapes: one torch thread (the suite runs files in parallel
+    processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
@@ -56,7 +68,7 @@ def test_sorted_gram_matches_pallas(counts, Q, D):
     params = _params(O, Q, D, 1)
     twopi = float((2 * np.pi) ** (D / 2))
     # jitted: one compile instead of one trace per interpret-mode pallas_call
-    ref = jax.jit(lambda x, *p: jbm.mosm_gram_sorted(x, counts, *p, twopi, True))(
+    ref = jax_reference.jit(lambda x, *p: jbm.mosm_gram_sorted(x, counts, *p, twopi, True))(
         jnp.asarray(x), *map(jnp.asarray, params))
     launches = tmg.mosm_gram.launches
     got = tbm.mosm_gram_sorted(_t(x), counts, *map(_t, params), twopi)
@@ -73,10 +85,11 @@ def test_cross_gram_matches_pallas_and_mosm_K():
     params = _params(O, Q, D, 4)
     twopi = float((2 * np.pi) ** (D / 2))
     jp = tuple(map(jnp.asarray, params))
-    ref_pallas = jax.jit(lambda *a: jpm.mosm_gram(*a, twopi, True))(
+    ref_pallas = jax_reference.jit(lambda *a: jpm.mosm_gram(*a, twopi, True))(
         jnp.asarray(x1), jnp.asarray(c1, jnp.int32), jnp.asarray(x2), jnp.asarray(c2, jnp.int32), *jp)
-    ref_dense = _mosm_K(jnp.asarray(c1), jnp.asarray(x1), jnp.asarray(c2), jnp.asarray(x2),
-                        jp, twopi, phase_inside_2pi=True)
+    ref_dense = jax_reference.jit(lambda c1_, x1_, c2_, x2_, p_: _mosm_K(
+        c1_, x1_, c2_, x2_, p_, twopi, phase_inside_2pi=True))(
+        jnp.asarray(c1), jnp.asarray(x1), jnp.asarray(c2), jnp.asarray(x2), jp)
     st3, st2 = tbm.mosm_pair_stats(*map(_t, params), twopi)
     got = tmg.mosm_gram(_t(x1), torch.as_tensor(c1, dtype=torch.int32), _t(x2),
                         torch.as_tensor(c2, dtype=torch.int32), st3, st2)

@@ -12,8 +12,19 @@ from mogptk_tpu_torch.ops import _build
 from mogptk_tpu_torch.ops import blocked_cholesky as tbc
 from mogptk_tpu_torch.ops import block_mosm as tbm
 from mogptk_tpu_torch.ops import mosm_gram as tmg
+from mogptk_tpu_torch.ops import mosm_matvec as tmv
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Small shapes: one torch thread (the suite runs files in parallel
+    processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_import_pulls_in_no_jax_pandas_matplotlib():
@@ -22,6 +33,8 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
             "import mogptk_tpu_torch.ops.fused_solve, mogptk_tpu_torch.ops.blocked_trisolve\n"
             "import mogptk_tpu_torch.ops.block_mosm, mogptk_tpu_torch.ops.blocked_cholesky\n"
             "import mogptk_tpu_torch.model, mogptk_tpu_torch.models.mosm, mogptk_tpu_torch.init\n"
+            "import mogptk_tpu_torch.gpr.iterative, mogptk_tpu_torch.ops.iterative\n"
+            "import mogptk_tpu_torch.ops.mosm_matvec\n"
             "bad = [m for m in ('jax', 'pandas', 'matplotlib') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -30,7 +43,7 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
 def test_kernel_sources_and_nvcc_command():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["blocked_cholesky.cu", "fused_cho_solve.cu", "mosm_gram.cu",
-                     "mosm_gram_bwd.cu", "mosm_lowrank_vjp.cu"]
+                     "mosm_gram_bwd.cu", "mosm_lowrank_vjp.cu", "mosm_matvec.cu"]
     compiles, link = _build.nvcc_commands("/tmp/out.so")
     # one compile per source, all into the one library
     assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == _build.sources()
@@ -206,3 +219,41 @@ def test_cuda_gram_bwd_matches_plain_twin():
         grads = torch.autograd.grad(torch.sum(K * g), ps)
         for a, b in zip(grads, tbm.pair_stats_vjp(params, twopi, *got)):
             torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_matvec_matches_plain_twin():
+    """K-matvec against its plain twin on the card, float32: channel-sorted
+    ragged channels and the same points permuted, at R = 1, 33 and 1,024
+    (one chunk of V, two, and a shrunk row tile). Tolerance per entry
+    (2e-4 + N·2⁻²⁴)·max|K|·‖V[:, r]‖₁: K-gram's per-entry bound against its
+    twin (2e-4·max|K|, float32 cosines of arguments up to ~140 rad here)
+    carried through the sum, plus the float32 summation bound of N terms. A
+    repeated call is bit-identical (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(3)
+    counts, O, Q, D = (300, 1, 257), 3, 2, 1
+    n = sum(counts)
+    x = torch.as_tensor(np.sort(rng.rand(n, D) * 20, axis=0), dtype=torch.float32, device=dev)
+    c = tbm.channel_ids(counts, dev)
+    params = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
+        0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+        0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))]
+    st3, st2 = tbm.mosm_pair_stats(*params, float(np.sqrt(2 * np.pi)))
+    perm = torch.as_tensor(rng.permutation(n), device=dev)
+    kmax = float(tmg.mosm_gram_pairstats_plain(x, c, x, c, st3, st2).abs().max())
+    for R in (1, 33, 1024):
+        V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+        tol = (2e-4 + n * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
+        for xx, cc, VV in ((x, c, V), (x[perm].contiguous(), c[perm].contiguous(),
+                                       V[perm].contiguous())):
+            launches = tmv.mosm_matvec.launches
+            got = tmv.mosm_matvec(xx, cc, st3, st2, VV)
+            again = tmv.mosm_matvec(xx, cc, st3, st2, VV)
+            assert tmv.mosm_matvec.launches == launches + 2
+            twin = tmv.mosm_matvec_plain(xx, cc, st3, st2, VV)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            assert bool(((got - twin).abs() <= tol).all())

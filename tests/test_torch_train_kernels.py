@@ -19,6 +19,8 @@ from mogptk_tpu_torch.ops import block_mosm as tbm
 from mogptk_tpu_torch.ops import fused_solve as tfs
 from mogptk_tpu_torch.ops import mosm_gram as tmg
 
+import jax_reference
+
 RTOL = 1e-7
 
 
@@ -52,7 +54,7 @@ def test_lower_gram_matches_jax_on_written_tiles(band):
     band; the twin's other tiles are NaN. atol 1e-12·max|K|."""
     counts = (512, 512)
     x, params, twopi = _setup(counts, 2, 1, seed=4)
-    ref = np.asarray(jax.jit(lambda x, *p: jbm.mosm_gram_sorted_lower(
+    ref = np.asarray(jax_reference.jit(lambda x, *p: jbm.mosm_gram_sorted_lower(
         x, counts, *p, twopi, band=band))(jnp.asarray(x), *map(jnp.asarray, params)))
     st3, st2 = tbm.mosm_pair_stats(*map(_t, params), twopi)
     launches = tbm.mosm_gram_sorted_lower.launches
@@ -97,14 +99,15 @@ def test_fused_solve_twin_matches_jax(n, Bs, r, nan_upper):
                      for i in range(n // Bs)])
     Lin = L + np.triu(np.full((n, n), np.nan), 1) if nan_upper else L
     got = tfs.fused_cho_solve(_t(Lin), _t(invs), _t(B)).numpy()
-    X_ref = np.asarray(jsl.cho_solve((jnp.asarray(L), True), jnp.asarray(B)))
+    jinvs = [jnp.asarray(v) for v in invs]
+    X_ref, ref_f32, ref_f64 = map(np.asarray, jax_reference.jit(lambda L_, Lin_, B_, invs_: (
+        jsl.cho_solve((L_, True), B_),
+        jax_fused_cho_solve(Lin_.astype(jnp.float32), [v.astype(jnp.float32) for v in invs_],
+                            B_.astype(jnp.float32), block_size=Bs),
+        jax_blocked_cho_solve(Lin_, B_, invs=invs_, block_size=Bs)))(
+            jnp.asarray(L), jnp.asarray(Lin), jnp.asarray(B), jinvs))
     scale = np.abs(X_ref).max()
-    ref_f32 = np.asarray(jax_fused_cho_solve(jnp.asarray(Lin, jnp.float32),
-                                             [jnp.asarray(v, jnp.float32) for v in invs],
-                                             jnp.asarray(B, jnp.float32), block_size=Bs))
     np.testing.assert_allclose(got, ref_f32, rtol=0, atol=3e-5 * max(scale, 1.0))
-    ref_f64 = np.asarray(jax_blocked_cho_solve(jnp.asarray(Lin), jnp.asarray(B),
-                                               invs=[jnp.asarray(v) for v in invs], block_size=Bs))
     np.testing.assert_allclose(got, ref_f64, rtol=RTOL, atol=1e-12 * scale)
     np.testing.assert_allclose(got, X_ref, rtol=RTOL, atol=1e-10 * scale)
 
@@ -129,7 +132,8 @@ def test_lowrank_vjp_matches_jax_and_autograd(counts, Q, D):
     N = sum(counts)
     rng = np.random.RandomState(10)
     A, B = rng.randn(N, 17), rng.randn(N, 17)
-    ref_jax = jax.jit(lambda x, p, A, B: jbm.mosm_lowrank_vjp_sorted(x, counts, p, twopi, A, B))(
+    ref_jax = jax_reference.jit(lambda x, p, A, B: jbm.mosm_lowrank_vjp_sorted(
+        x, counts, p, twopi, A, B))(
         jnp.asarray(x), tuple(map(jnp.asarray, params)), jnp.asarray(A), jnp.asarray(B))
     tp = list(map(_t, params))
     st3, st2 = tbm.mosm_pair_stats(*tp, twopi)

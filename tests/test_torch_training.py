@@ -23,6 +23,8 @@ from mogptk_tpu_torch.ops import block_mosm as tbm
 from mogptk_tpu_torch.ops import fused_solve as tfs
 from mogptk_tpu_torch.ops import blocked_cholesky as tbc
 
+import jax_reference
+
 RTOL = 1e-7
 PROBES, SEED, LR, STEPS = 8, 3, 0.01, 3
 
@@ -79,19 +81,19 @@ def _port_model(data, jm, Z, **kw):
     _, X, Y = tgpr.merge_data(xs, ys)
     k = tgpr.MultiOutputSpectralMixtureKernel(2, output_dims=len(xs))
     tm = tgpr.Exact(k, X, Y, variance=0.1, probes=Z, **kw)
-    tgpr.load_raw_state(tm, [np.asarray(r) for r in jm.raw_state()],
-                        names=[p.name for p in jm.parameters()])
+    tgpr.load_raw_state(tm, jm["raws"], names=jm["names"])
     return tm
 
 
 def _jax_run(data, steps):
     """Loss and gradient at the start, then the raws after each of `steps`
-    optax Adam steps (one jitted value-and-grad, the update of gpr/training.py)."""
+    optax Adam steps (one jitted value-and-grad, the update of gpr/training.py);
+    numpy only, the model as its raws and names (jax_reference.once_per_run)."""
     jgpr.use_pallas(True)
     try:
         jm, Z = _jax_model(data)
         train, fixed = jm._split_raws()
-        vg = jax.jit(jax.value_and_grad(jm.make_loss_fn()))
+        vg = jax_reference.jit(jax.value_and_grad(jm.make_loss_fn()))
         opt = optax.adam(LR)
         state = opt.init(train)
         losses, grads, raws = [], [], []
@@ -106,16 +108,16 @@ def _jax_run(data, steps):
             raws.append([np.asarray(a) for a in train])
     finally:
         jgpr.use_pallas(None)
-    return jm, Z, losses, grads, raws
+    return jax_reference.raws_and_names(jm), Z, losses, grads, raws
 
 
 @pytest.fixture(scope="module")
-def jax_dense():
-    return _jax_run(_dense_data(), STEPS)
+def jax_dense(tmp_path_factory):
+    return jax_reference.once_per_run(tmp_path_factory, "training_jax_dense",
+                                      lambda: _jax_run(_dense_data(), STEPS))
 
 
-@pytest.fixture(scope="module")
-def jax_blocked():
+def _jax_blocked_run():
     saved = (jgpr.config.blocked_cholesky, jgpr.config.blocked_cholesky_block)
     jgpr.use_blocked_cholesky(True, block_size=512)
     try:
@@ -123,6 +125,11 @@ def jax_blocked():
     finally:
         jgpr.config.blocked_cholesky, jgpr.config.blocked_cholesky_block = saved
         jgpr.config.bump()
+
+
+@pytest.fixture(scope="module")
+def jax_blocked(tmp_path_factory):
+    return jax_reference.once_per_run(tmp_path_factory, "training_jax_blocked", _jax_blocked_run)
 
 
 def _check_loss_and_grads(tm, loss, grads):

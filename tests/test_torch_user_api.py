@@ -4,8 +4,9 @@ in float64.
 
 Both packages get the same numpy data and the same set_seed, so the MOSM
 constructor's random initial parameters and the random test split come
-from the same numpy Generator draws. The JAX flows run once per module, the
-port's too; each test compares one stage. rtol 1e-7 (XLA-CPU's exp is only
+from the same numpy Generator draws. The JAX flow runs once per test run
+(tests/jax_reference.py), the port's once per module; each test compares
+one stage. rtol 1e-7 (XLA-CPU's exp is only
 ~1e-8 accurate even in float64) unless stated.
 """
 import os
@@ -18,6 +19,8 @@ import torch
 
 import mogptk_tpu as J
 import mogptk_tpu_torch as T
+
+import jax_reference
 
 RTOL = 1e-7
 
@@ -51,8 +54,7 @@ def _flow(pkg):
     """The quick start, with what each stage leaves behind."""
     out = {}
     model = pkg.MOSM(_dataset(pkg, 3, 40), Q=2)
-    params = lambda m: [np.asarray(p()) if pkg is J else p.numpy() for p in
-                        (m.gpr.parameters() if pkg is J else m.parameters())]
+    params = lambda m: _params(pkg, m)
     out["init"] = params(model)
     model.init_parameters("LS")
     out["ls"] = params(model)
@@ -60,18 +62,46 @@ def _flow(pkg):
     out["trained"] = params(model)
     out["predict"] = model.predict()
     out["mae"] = model.error("MAE")
-    out["model"] = model
-    bnse = pkg.MOSM(_dataset(pkg, 1, 50), Q=2)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        bnse.init_parameters("BNSE", iters=5)
-    out["bnse"] = params(bnse)
+    if pkg is J:
+        # numpy only, so one worker's answers serve every worker
+        out["raws"] = [np.asarray(r) for r in model.gpr.raw_state()]
+        out["names"] = [p.name for p in model.gpr.parameters()]
+    else:
+        out["model"] = model
     return out
 
 
+def _bnse(pkg):
+    """The parameters a one-channel MOSM gets from init_parameters('BNSE');
+    _dataset reseeds, so this is independent of _flow."""
+    model = pkg.MOSM(_dataset(pkg, 1, 50), Q=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        model.init_parameters("BNSE", iters=5)
+    return _params(pkg, model)
+
+
+def _params(pkg, model):
+    """A model's parameter values, numpy."""
+    if pkg is J:
+        return [np.asarray(p()) for p in model.gpr.parameters()]
+    return [p.numpy() for p in model.parameters()]
+
+
 @pytest.fixture(scope="module")
-def flows():
-    return _flow(J), _flow(T)
+def flows(tmp_path_factory):
+    """The JAX flow once per test run (jax_reference.once_per_run), the
+    port's in this process."""
+    return jax_reference.once_per_run(tmp_path_factory, "user_api_jax_flow",
+                                      lambda: _flow(J)), _flow(T)
+
+
+@pytest.fixture(scope="module")
+def bnse_params(tmp_path_factory):
+    """BNSE apart from the flow, so that parallel workers compute the two
+    JAX references side by side."""
+    return jax_reference.once_per_run(tmp_path_factory, "user_api_jax_bnse",
+                                      lambda: _bnse(J)), _bnse(T)
 
 
 def _close(a, b, what, atol=1e-12):
@@ -95,12 +125,12 @@ def test_ls_initialization_matches_jax(flows):
     _close(j["ls"], t["ls"], "parameter")
 
 
-def test_bnse_initialization_matches_jax(flows):
+def test_bnse_initialization_matches_jax(bnse_params):
     """BNSE on a 50-point signal: the inner spectral-kernel GP trains 5
     closed-form Adam steps (lr 2.0), then the frequency-domain posterior."""
-    j, t = flows
-    _close(j["bnse"], t["bnse"], "parameter")
-    assert np.all(t["bnse"][0] > 1e-6)          # the peaks were found
+    j, t = bnse_params
+    _close(j, t, "parameter")
+    assert np.all(t[0] > 1e-6)          # the peaks were found
 
 
 def test_train_losses_and_parameters_match_jax(flows):
@@ -139,12 +169,11 @@ def test_save_and_load_round_trip(flows, tmp_path):
 
 def test_load_raw_state_from_a_jax_mosm(flows):
     """gpr.load_raw_state takes a top-level model: a trained JAX MOSM's raws
-    go into a fresh port MOSM, which then predicts as the JAX one."""
-    jm = flows[0]["model"]
+    go into a fresh port MOSM, which then predicts as the JAX one did."""
+    j = flows[0]
     tm = T.MOSM(_dataset(T, 3, 40), Q=2)
-    T.gpr.load_raw_state(tm, [np.asarray(r) for r in jm.gpr.raw_state()],
-                         names=[p.name for p in jm.gpr.parameters()])
-    for a, b in zip(jm.predict(), tm.predict()):
+    T.gpr.load_raw_state(tm, j["raws"], names=j["names"])
+    for a, b in zip(j["predict"], tm.predict()):
         _close(a, b, "channel")
 
 
