@@ -31,7 +31,21 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   against a float64 execution of the same estimator with the same draws, a
   repeated step, three counted Adam steps; then the evaluation-grade
   readout's two halves against the dense float64 LML at N=16,384 and
-  N=32,768, and iterative predict against Exact predict.
+  N=32,768, and iterative predict against Exact predict;
+- sparse inference: K-gram-bwd's input half (dx1, dx2) against its twin on
+  the first step's cotangents of bench.py's SVGP cell (Titsias, 256 random
+  Halton inducing points per channel, M = 1,024, N = 16,384, the jitter
+  ladder at 3 rungs): Kuf channel-sorted and with permuted rows, and Kuu;
+  the repairs of the kernels' limits (K-lowrank-vjp at R = 65 and 129, the
+  generic instances at Q = 5, D = 3, at O = 20 with the pair table in
+  global memory and at D = 9, a float64 model on the card against the
+  CPU); the Titsias's first ELBO and gradient (the inducing points'
+  included) against a float64 execution on the card and the float32 plain
+  twins, a repeated step, 20 counted Adam steps with the jitter rungs that
+  fired, predict_y latency for 4,096 points, the same model through
+  mogptk_tpu_torch.MOSM with the Titsias selector; then Snelson,
+  SparseHensman, Hensman and OpperArchambeau at N = 4,096 (1,024 for the
+  last two), each first step against float64 and three counted steps.
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -42,6 +56,7 @@ it, or when any check fails. Times come from CUDA events (kernels, median of
 Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s FP32
 outside the tensor cores.
 """
+import contextlib
 import json
 import subprocess
 import sys
@@ -440,6 +455,35 @@ def main():
     check_readout_and_predict(gpr, xs, ys, X, Y, reqs["a"], dev)
     print("phases 9-11 (iterative engine) wall time: %.1f s" % (time.perf_counter() - t_iter))
 
+    # -- phase 12: K-gram-bwd's input half against its plain twin ---------------
+    t_sparse = time.perf_counter()
+    phase("phase 12: K-gram-bwd's input half against its twin (bench Titsias, M=%d)"
+          % (CHANNELS * SPARSE_M_PER_CHANNEL))
+    gpr.set_seed(0)
+    gpr.use_jitter_ladder(3)
+    model = titsias_model(gpr, X, Y, dev)
+    report["mosm_gram_bwd_inputs"] = check_gram_bwd_inputs(model, bm, mg)
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the kernels' shape and dtype limits, repaired ----------------
+    phase("phase 13: K-lowrank-vjp at R > 64, the generic instances, float64 on the card")
+    check_repairs(gpr, bm, mg, X, Y, dev)
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the sparse training path (bench.py's SVGP cell) --------------
+    phase("phase 14: sparse training path (Titsias, bench.py's SVGP cell)")
+    sparse_launches = drive_titsias(gpr, _build, model, reqs["b"], smi)
+    del model
+    torch.cuda.empty_cache()
+    drive_user_api_titsias(xs, ys)
+    torch.cuda.empty_cache()
+
+    # -- phase 15: the other sparse and variational models ---------------------
+    phase("phase 15: Snelson, SparseHensman, Hensman, OpperArchambeau")
+    drive_other_sparse(gpr, _build, xs, ys, dev, smi)
+    gpr.use_jitter_ladder(0)
+    print("phases 12-15 (sparse inference) wall time: %.1f s" % (time.perf_counter() - t_sparse))
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu"}
     kernels = [
@@ -472,6 +516,10 @@ def main():
          "replaces": "mogptk_tpu/ops/block_mosm.py:507; mogptk_tpu/ops/block_mosm.py:530; "
                      "mogptk_tpu/ops/fused.py:288",
          "path": "iterative train", "launches": iter_launches["mosm_matvec"]},
+        {"name": "mosm_gram_bwd_inputs", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/mosm_gram_bwd.cu",
+         "replaces": "mogptk_tpu/ops/pallas_mosm.py:274 (the input half of _bwd_kernel, :103-160)",
+         "path": "sparse train", "launches": sparse_launches["mosm_gram_bwd_inputs"]},
     ]
     for k in kernels:
         r = report[k["name"]]
@@ -483,6 +531,521 @@ def main():
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+SPARSE_M_PER_CHANNEL = 256   # bench.py's SVGP cell: M = 1,024 over 4 channels
+SPARSE_STEPS = 20
+
+
+class Counter:
+    """A launch count kept in attribute `attr` of a kernel wrapper (the
+    wrapper of K-gram-bwd counts its two instances apart), read and reset
+    as `launches`."""
+
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self):
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value):
+        setattr(self.fn, self.attr, value)
+
+
+def sparse_counters():
+    from mogptk_tpu_torch.ops import linalg as la
+    from mogptk_tpu_torch.ops import mosm_gram as mg
+    return {"mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd,
+            "mosm_gram_bwd_inputs": Counter(mg.mosm_gram_bwd, "input_launches"),
+            "jitter rungs": Counter(la.jittered_cholesky, "rungs")}
+
+
+def titsias_model(gpr, X, Y, dev, Z=SPARSE_M_PER_CHANNEL, Z_init="random"):
+    """bench.py's SVGP cell (bench.py:52-61, :155-173): Titsias on the bench
+    model's kernel with Z=M // CHANNELS random (Halton) inducing points per
+    channel and noise variance 0.1."""
+    kernel = gpr.MultiOutputSpectralMixtureKernel(Q, output_dims=CHANNELS)
+    set_bench_params(kernel)
+    return gpr.Titsias(kernel, X, Y, Z=Z, Z_init=Z_init, variance=0.1, device=dev)
+
+
+def gram_cotangents(model):
+    """The Grams of the model's objective (in the order it forms them) and
+    their cotangents at the current parameters: the Grams are made leaves
+    for one loss().backward()."""
+    import torch
+    kernel = model.kernel
+    K_orig = kernel.K
+    grams = []
+
+    def K(X1, X2=None):
+        grams.append(K_orig(X1, X2).detach().requires_grad_())
+        return grams[-1]
+
+    kernel.K = K
+    try:
+        cot = torch.autograd.grad(model.loss(), grams)
+    finally:
+        del kernel.K
+    return [g.detach() for g in grams], [g.contiguous() for g in cot]
+
+
+def check_gram_bwd_inputs(model, bm, mg):
+    """K-gram-bwd with the input half against its plain twin on the first
+    Titsias step's cotangents of Kuf (M x N: the inducing points channel-
+    sorted, and with their rows permuted) and of Kuu (M x M, x1 is x2),
+    each output group (the parameter half, dx1, dx2) held at most twice as
+    far from a float64 evaluation of the twin as the float32 twin, plus a
+    floor of 1e-5 of its scale (float32 sums over up to 1.7e7 elements in
+    two orders); a repeat is bit-identical. Times the path's calls (inputs
+    1 for Kuf, 3 for Kuu) against the parameter half alone, the plain twin
+    and the bound, with the channel counts given (the kernels' time) and
+    read on the host (the wrapper as the sparse models call it). Returns
+    the sorted Kuf call's report entry."""
+    import torch
+    dev, D, O = model.X.device, model.kernel.input_dims, model.kernel.output_dims
+    _, cot = gram_cotangents(model)
+    with torch.no_grad():
+        cz, z = model.kernel._split(model.Z().detach())
+        c, x = model.kernel._split(model.X)
+        st3, st2 = bm.mosm_pair_stats(*[p.detach() for p in model.kernel._params()],
+                                      model.kernel.twopi)
+        perm = torch.as_tensor(np.random.RandomState(5).permutation(z.shape[0]), device=dev)
+        M, N = z.shape[0], x.shape[0]
+        cases = (("Kuf %dx%d channel-sorted" % (M, N), (z, cz, x, c, st3, st2, cot[0]), 1),
+                 ("Kuf %dx%d rows permuted" % (M, N),
+                  (z[perm], cz[perm], x, c, st3, st2, cot[0][perm].contiguous()), 1),
+                 ("Kuu %dx%d (x1 is x2)" % (M, M), (z, cz, z, cz, st3, st2, cot[1]), 3))
+        entry = None
+        for label, args, inputs in cases:
+            got = mg.mosm_gram_bwd(*args, inputs=3)
+            again = mg.mosm_gram_bwd(*args, inputs=3)
+            twin = mg.mosm_gram_bwd_plain(*args, inputs=3)
+            a64 = [a.double() if a.is_floating_point() else a for a in args]
+            ref = mg.mosm_gram_bwd_plain(*a64, inputs=3)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("K-gram-bwd with inputs (%s): a repeated call differs" % label)
+            parts = []
+            for name, sl in (("pair cotangents", slice(0, 2)), ("dx1", slice(2, 3)),
+                             ("dx2", slice(3, 4))):
+                scale = max(float(r.abs().max()) for r in ref[sl])
+                err_k = max(float((a.double() - r).abs().max()) for a, r in zip(got[sl], ref[sl]))
+                err_t = max(float((a.double() - r).abs().max()) for a, r in zip(twin[sl], ref[sl]))
+                tol = 2 * err_t + 1e-5 * scale
+                parts.append("%s %.3e (twin %.3e, tol %.3e, scale %.3e)"
+                             % (name, err_k, err_t, tol, scale))
+                if not err_k <= tol:
+                    fail("K-gram-bwd with inputs (%s): %s further from float64 than twice its "
+                         "twin" % (label, name))
+            err = max(float((a - b).abs().max()) for a, b in zip(got, twin))
+            del got, again, twin, ref
+            cnt = (mg.channel_counts(args[1], O), mg.channel_counts(args[3], O))
+            ms = median_ms(lambda: mg.mosm_gram_bwd(*args, *cnt, inputs=inputs))
+            ms0 = median_ms(lambda: mg.mosm_gram_bwd(*args, *cnt))
+            wms = median_ms(lambda: mg.mosm_gram_bwd(*args, inputs=inputs))
+            pms = median_ms(lambda: mg.mosm_gram_bwd_plain(*args, inputs=inputs), reps=3, warmup=1)
+            n1, n2 = args[0].shape[0], args[2].shape[0]
+            bnd = bound(4 * n1 * n2 + 4 * (n1 + n2) * (2 * D + 2), n1 * n2 * Q * (20 * D + 16))
+            print("K-gram-bwd with inputs=%d, %s: vs float64 %s; vs twin %.3e; kernel %.3f ms "
+                  "(parameter half alone %.3f ms; the wrapper reading the channel counts on the "
+                  "host, as the sparse models' backward does, %.3f ms), plain %.3f ms, "
+                  "bound %.3f ms (%s)" % ((inputs, label, "; ".join(parts), err, ms, ms0, wms, pms)
+                                          + bnd))
+            if entry is None:
+                entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
+        # the user API's default of 10 inducing points per channel: the layout
+        # pads each channel to 256 rows, so most of each tile is padding
+        keep = torch.cat([torch.nonzero(cz == a)[:10, 0] for a in range(O)])
+        z10, cz10, g10 = z[keep].contiguous(), cz[keep].contiguous(), cot[0][keep].contiguous()
+        cnt = (mg.channel_counts(cz10, O), mg.channel_counts(c, O))
+        ms = median_ms(lambda: mg.mosm_gram_bwd(z10, cz10, x, c, st3, st2, g10, *cnt, inputs=1))
+        n1 = z10.shape[0]
+        bnd = bound(4 * n1 * N + 4 * (n1 + N) * (2 * D + 2), n1 * N * Q * (20 * D + 16))
+        print("K-gram-bwd with inputs=1, Kuf %dx%d (10 inducing points per channel, each "
+              "padded to %d rows): kernel %.3f ms, bound %.4f ms (%s)"
+              % ((n1, N, mg.BWD_TILE, ms) + bnd))
+    return entry
+
+
+def check_repairs(gpr, bm, mg, X, Y, dev):
+    """The kernels' shape and dtype limits, repaired: K-lowrank-vjp at
+    R = 65 and 129 at the training shape (two and three chunks of 64) and a
+    probe-trace step with 64 probes through it; K-gram-bwd (with inputs) and
+    K-lowrank-vjp in their generic instance at Q = 5, D = 3; K-gram and
+    K-matvec in their generic instance at O = 20, Q = 4, D = 2 (the 51 KB
+    pair table in global memory) and at D = 9; a float64 MOSM Exact model's
+    step and predict on the card (the plain twins, no launch) against the
+    CPU. Each kernel against float64 within twice its float32 twin plus a
+    floor, as phases 4, 6 and 9 hold them."""
+    import torch
+    from mogptk_tpu_torch.ops import mosm_matvec as mv
+    model = bench_model(gpr, X, Y, dev, 64)
+    c, x = model.kernel._split(model.X)
+    counts, twopi = model._channel_counts, model.kernel.twopi
+    params = [p.detach() for p in model.kernel._params()]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.no_grad():
+        st3, st2 = bm.mosm_pair_stats(*params, twopi)
+        for R in (65, 129):
+            A, Bm = (torch.randn((x.shape[0], R), generator=gen, device=dev) for _ in range(2))
+            lowrank_vjp_check(bm, x, counts, params, twopi, st3, st2, A, Bm,
+                              "R=%d (%d chunks of <= 64)" % (R, -(-R // 64)), reps=3,
+                              plain_reps=1, plain_warmup=0)
+            del A, Bm
+    before = bm.mosm_lowrank_vjp_sorted.launches
+    loss = model.loss()
+    loss.backward()
+    torch.cuda.synchronize()
+    grads = [r.grad for r in model.trainable_raws()]
+    print("Exact(trace_probes=64) step (R = 65): loss %.6f, K-lowrank-vjp launches %d, "
+          "gradient finite %s" % (float(loss.detach()), bm.mosm_lowrank_vjp_sorted.launches - before,
+                                  all(bool(torch.isfinite(g).all()) for g in grads)))
+    if bm.mosm_lowrank_vjp_sorted.launches - before != 1 or not all(
+            bool(torch.isfinite(g).all()) for g in grads):
+        fail("the probe-trace step with 64 probes did not go through K-lowrank-vjp")
+    del model, loss, grads
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(12)
+
+    def mosm(O, Qg, Dg):
+        ps = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
+            0.5 + rng.rand(O, Qg), 0.1 + rng.rand(O, Qg, Dg), 0.2 + rng.rand(O, Qg, Dg),
+            0.1 * rng.randn(O, Qg, Dg), 0.1 * rng.randn(O, Qg))]
+        return ps, float((2 * np.pi) ** (Dg / 2))
+
+    with torch.no_grad():
+        # the generic backward instances, Q = 5, D = 3, 3 channels
+        sc = (1024, 512, 768)
+        ns = sum(sc)
+        xs3 = torch.as_tensor(np.sort(rng.rand(ns, 3) * 20, axis=0), dtype=torch.float32,
+                              device=dev)
+        cs3 = bm.channel_ids(sc, dev)
+        ps, tp = mosm(3, 5, 3)
+        s3, s2 = bm.mosm_pair_stats(*ps, tp)
+        print("instances at O=3, Q=5, D=3: backward %s" % mg.kernel_instance("backward", 3, 5, 3))
+        g = torch.randn((ns, ns), generator=gen, device=dev)
+        args = (xs3, cs3, xs3, cs3, s3, s2, g)
+        got = mg.mosm_gram_bwd(*args, sc, sc, inputs=3)
+        twin = mg.mosm_gram_bwd_plain(*args, inputs=3)
+        ref = mg.mosm_gram_bwd_plain(xs3.double(), cs3, xs3.double(), cs3, s3.double(),
+                                     s2.double(), g.double(), inputs=3)
+        scale = max(float(r.abs().max()) for r in ref)
+        err_k = max(float((a.double() - r).abs().max()) for a, r in zip(got, ref))
+        err_t = max(float((a.double() - r).abs().max()) for a, r in zip(twin, ref))
+        ms = median_ms(lambda: mg.mosm_gram_bwd(*args, sc, sc, inputs=3), reps=3)
+        print("K-gram-bwd generic (Q=5, D=3, N=%d, inputs=3): vs float64 %.3e (twin %.3e, tol "
+              "%.3e), kernel %.3f ms" % (ns, err_k, err_t, 2 * err_t + 1e-5 * scale, ms))
+        if not err_k <= 2 * err_t + 1e-5 * scale:
+            fail("K-gram-bwd's generic instance is further from float64 than twice its twin")
+        del g, got, twin, ref
+        A, Bm = (torch.randn((ns, 17), generator=gen, device=dev) for _ in range(2))
+        lowrank_vjp_check(bm, xs3, sc, ps, tp, s3, s2, A, Bm, "generic (Q=5, D=3)", reps=3,
+                          plain_reps=1, plain_warmup=0)
+        # the generic forward instances
+        for O, Qg, Dg in ((20, 4, 2), (2, 1, 9)):
+            n = 4096
+            xg = torch.as_tensor(rng.rand(n, Dg) * 10, dtype=torch.float32, device=dev)
+            cg = torch.as_tensor(rng.randint(0, O, n), dtype=torch.int32, device=dev)
+            ps, tp = mosm(O, Qg, Dg)
+            s3, s2 = bm.mosm_pair_stats(*ps, tp)
+            table = 4 * O * O * (3 * Qg * Dg + 2 * Qg)
+            K = mg.mosm_gram(xg, cg, xg, cg, s3, s2)
+            Kp = mg.mosm_gram_pairstats_plain(xg, cg, xg, cg, s3, s2)
+            err, kmax = float((K - Kp).abs().max()), float(Kp.abs().max())
+            ms = median_ms(lambda: mg.mosm_gram(xg, cg, xg, cg, s3, s2), reps=3)
+            print("K-gram O=%d Q=%d D=%d (pair table %d bytes, %s instance): max_abs_err %.3e "
+                  "(tol %.3e), kernel %.3f ms" % (O, Qg, Dg, table,
+                                                  mg.kernel_instance("forward", O, Qg, Dg), err,
+                                                  2e-4 * kmax, ms))
+            if not err <= 2e-4 * kmax:
+                fail("K-gram's generic instance disagrees with its plain twin")
+            del K, Kp
+            V = torch.randn((n, 33), generator=gen, device=dev)
+            matvec_check(mv, mg, xg, cg, s3, s2, V, "generic O=%d Q=%d D=%d" % (O, Qg, Dg), reps=3)
+
+    # float64 on the card: the plain twins on the card against the CPU
+    saved = gpr.config._dtype
+    gpr.use_double_precision()
+    try:
+        xs_, ys_ = make_data()
+        xs_, ys_ = [a[::16] for a in xs_], [a[::16] for a in ys_]
+        out = []
+        counts_before = (mg.mosm_gram.launches, mg.mosm_gram_bwd.launches)
+        for device in ("cpu", dev):
+            _, Xd, Yd = gpr.merge_data(xs_, ys_, device=device)
+            m = bench_model(gpr, Xd, Yd, device, None)
+            loss = m.loss()
+            loss.backward()
+            mu, var = m.predict_f(Xd[::5])
+            out.append([loss.detach(), mu, var] + [r.grad for r in m.trainable_raws()])
+        d = max(float((b.cpu() - a).abs().max() / max(float(a.abs().max()), 1e-300))
+                for a, b in zip(*out))
+        launched = (mg.mosm_gram.launches, mg.mosm_gram_bwd.launches) != counts_before
+        print("float64 Exact (N=%d) on the card vs the CPU: loss, predict and gradient within "
+              "%.3e relative (tol 1e-9), kernel launches %s" % (Xd.shape[0], d, launched))
+        if d > 1e-9 or launched:
+            fail("float64 on the card disagrees with the CPU or launched a float32 kernel")
+    finally:
+        gpr.config._dtype = saved
+
+
+@contextlib.contextmanager
+def plain_twins(_build):
+    """Inside, every kernel wrapper runs its plain twin on the card (the
+    float32 twin execution that a check holds the kernels' execution to)."""
+    saved = _build.runs_plain
+    _build.runs_plain = lambda t: True
+    try:
+        yield
+    finally:
+        _build.runs_plain = saved
+
+
+def step_outputs(model):
+    """[loss, every trainable raw's gradient] of one loss().backward()."""
+    raws = model.trainable_raws()
+    for r in raws:
+        r.grad = None
+    loss = model.loss()
+    loss.backward()
+    out = [loss.detach()] + [r.grad.detach().clone() for r in raws]
+    for r in raws:
+        r.grad = None
+    return out
+
+
+def three_ways(gpr, _build, model, rebuild, fn):
+    """fn(model) through the kernels, through the float32 plain twins on the
+    card, and through a float64 copy (rebuild() under float64, then the
+    model's raws and relative jitter) on the card's float64 route; three
+    lists of float64 tensors, and the jitter rungs each execution fired."""
+    from mogptk_tpu_torch.ops import linalg as la
+    rungs, outs = [], []
+    for how in ("kernels", "twins", "float64"):
+        r0 = la.jittered_cholesky.rungs
+        if how == "kernels":
+            out = fn(model)
+        elif how == "twins":
+            with plain_twins(_build):
+                out = fn(model)
+        else:
+            raws = [r.detach().double().cpu().numpy() for r in model.raw_state()]
+            saved = gpr.config._dtype
+            gpr.use_double_precision()
+            try:
+                m64 = rebuild()
+                gpr.load_raw_state(m64, raws)
+                m64.jitter = model.jitter      # float64's own floor is lower
+                out = fn(m64)
+            finally:
+                gpr.config._dtype = saved
+            del m64
+        rungs.append(la.jittered_cholesky.rungs - r0)
+        outs.append([t.double() for t in out])
+    return outs, rungs
+
+
+def held(label, what, got, twin, ref, floor):
+    """max |got − ref| <= 2·max |twin − ref| + floor·max |ref| over a group
+    of tensors; prints the reading and fails beyond it."""
+    scale = max(float(r.abs().max()) for r in ref)
+    d_k = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    d_t = max(float((t - r).abs().max()) for t, r in zip(twin, ref))
+    tol = 2 * d_t + floor * scale
+    print("%s %s: vs float64 %.4e (float32 twins %.4e, tol %.4e, scale %.4e)"
+          % (label, what, d_k, d_t, tol, scale))
+    if not d_k <= tol:
+        fail("%s: %s is further from float64 than twice the float32 twins" % (label, what))
+
+
+def check_sparse_first_step(gpr, _build, model, rebuild, label):
+    """The model's first step (loss and every raw's gradient, the inducing
+    points' on their own too) through the kernels, held against a float64
+    execution on the card at most twice as far off as the float32 plain
+    twins, plus a floor of 1e-5 of the scale (a float32 sum of N = 16,384
+    terms in another order: √N·u ≈ 8e-6); then once more for a
+    bit-identical loss and gradient. Where the jitter ladder fires in
+    float32 (a factor too ill-conditioned for float32 at the model's
+    jitter), the three executions are held at the jitter it settled on, so
+    that all three factor the same matrices; the model's jitter is restored
+    after. Returns the first loss."""
+    import torch
+    from mogptk_tpu_torch.ops import linalg as la
+    r0 = la.jittered_cholesky.rungs
+    first = step_outputs(model)
+    fired = la.jittered_cholesky.rungs - r0
+    jitter = model.jitter
+    if fired:
+        model.jitter = jitter * 10.0 ** fired
+        print("%s: the jitter ladder fired %d rung(s) in float32 at relative jitter %.1e; the "
+              "first step is held at %.1e, where it settled" % (label, fired, jitter,
+                                                                model.jitter))
+    try:
+        (got, twin, ref), rungs = three_ways(gpr, _build, model, rebuild, step_outputs)
+    finally:
+        model.jitter = jitter
+    print("%s first step: loss %.6f (float64 %.6f), jitter rungs fired (kernels, twins, "
+          "float64) %s" % (label, float(got[0]), float(ref[0]), rungs))
+    if any(rungs) or not all(torch.equal(a.double(), b) for a, b in zip(first, got)):
+        fail("%s: the executions do not factor the matrices the ladder settled on" % label)
+    held(label, "loss", got[:1], twin[:1], ref[:1], 1e-5)
+    held(label, "gradient", got[1:], twin[1:], ref[1:], 1e-5)
+    if getattr(model, "Z", None) is not None and model.Z.train:
+        train = [p for _, p in model.gp_parameters() if p.train]
+        k = 1 + next(i for i, p in enumerate(train) if p is model.Z)
+        held(label, "inducing points' gradient", got[k:k + 1], twin[k:k + 1], ref[k:k + 1], 1e-5)
+        if float(got[k][:, 0].abs().max()) != 0.0:
+            fail("%s: the inducing points' channel column has a gradient" % label)
+    again = step_outputs(model)
+    if not all(torch.equal(a, b) for a, b in zip(again, first)):
+        fail("%s: a repeated first step gave another loss or gradient" % label)
+    print("%s repeated first step: identical loss %.9g and gradients" % (label, float(first[0])))
+    return float(first[0])
+
+
+def drive_titsias(gpr, _build, model, Xq, smi):
+    """Phase 14: the bench Titsias's first step against float64, an optional
+    profile, SPARSE_STEPS counted Adam steps (K-gram twice a step, K-gram-bwd
+    with the input half twice, the parameter-only K-gram-bwd never; the
+    jitter rungs that fired), predict_y latency at Xq against a float64
+    execution, and the channel column of Z left as it was. Returns the
+    training run's counts."""
+    import torch
+    dev = model.X.device
+
+    def rebuild():
+        return titsias_model(gpr, model.X.double(), model.y.double(), dev,
+                             Z=model.Z().detach().double(), Z_init="grid")
+
+    loss1 = check_sparse_first_step(gpr, _build, model, rebuild, "Titsias")
+    if "--profile" in sys.argv[1:]:
+        profile_step(model)
+    Z0 = model.Z.raw.detach().clone()
+    want = {"mosm_gram": (2, 2), "mosm_gram_bwd_inputs": (2, 2), "mosm_gram_bwd": (0, 0)}
+    launches = train_and_count(gpr, model, sparse_counters(), want, loss1, "Titsias", smi,
+                               steps=SPARSE_STEPS)
+    if not torch.equal(model.Z.raw[:, 0], Z0[:, 0]):
+        fail("training moved the inducing points' channel column")
+    print("Titsias: the inducing points moved by at most %.3e in x"
+          % float((model.Z.raw.detach()[:, 1:] - Z0[:, 1:]).abs().max()))
+
+    M = Xq.shape[0]
+    model.predict_y(Xq, sigma=2)        # warm-up
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mu, lo, up = model.predict_y(Xq, sigma=2)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t))
+    for out in (mu, lo, up):
+        if out.shape != (M, 1) or not bool(torch.isfinite(out).all()):
+            fail("Titsias predict_y: non-finite or misshapen answer")
+    if not bool((lo < mu).all() and (mu < up).all()):
+        fail("Titsias predict_y: bands do not bracket the mean")
+    print("Titsias predict_y for %d points: median %.2f ms, p90 %.2f ms over 10 requests (%s)"
+          % (M, float(np.median(times)), float(np.percentile(times, 90)),
+             smi.stdout.strip().splitlines()[0]))
+    with torch.no_grad():
+        (got, twin, ref), _ = three_ways(gpr, _build, model, rebuild,
+                                         lambda m: list(m.predict_f(Xq)))
+    held("Titsias predict_f (%d points, after training)" % M, "mean", got[:1], twin[:1],
+         ref[:1], 1e-5)
+    held("Titsias predict_f (%d points, after training)" % M, "variance", got[1:], twin[1:],
+         ref[1:], 1e-5)
+    return launches
+
+
+def drive_user_api_titsias(xs, ys):
+    """The same model through the user API: mogptk.MOSM with the Titsias
+    selector (256 random inducing points per channel) trains three steps
+    through K-gram-bwd's input half, predicts and scores itself."""
+    import torch
+    import mogptk_tpu_torch as mogptk
+    counters = sparse_counters()
+    ds = mogptk.DataSet([xc[:, 0] for xc in xs], [yc[:, 0] for yc in ys])
+    api = mogptk.MOSM(ds, Q=Q, inference=mogptk.Titsias(inducing_points=SPARSE_M_PER_CHANNEL,
+                                                          init_inducing_points="random"))
+    if type(api.gpr).__name__ != "Titsias" or api.gpr.Z.raw.device.type != "cuda":
+        fail("MOSM with the Titsias selector did not build a Titsias on the card")
+    set_bench_params(api.gpr.kernel)
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses, _ = api.train(method="Adam", lr=0.01, iters=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    raised = {k: f.launches for k, f in counters.items()}
+    print("MOSM(inference=Titsias(%d, 'random')).train(Adam, iters=%d): %.2f s, losses %s, "
+          "launches %s" % (SPARSE_M_PER_CHANNEL, TRAIN_STEPS, time.perf_counter() - t,
+                           np.round(losses, 4).tolist(), raised))
+    if not np.all(np.isfinite(losses)) or raised["mosm_gram_bwd_inputs"] != 2 * TRAIN_STEPS:
+        fail("MOSM with the Titsias selector did not train through K-gram-bwd's input half")
+    Xp, Mu, Lo, Up = api.predict()
+    for j in range(CHANNELS):
+        if Mu[j].shape != (N_PER_CHANNEL,) or not np.all(np.isfinite(Mu[j])):
+            fail("MOSM(Titsias).predict: channel %d is non-finite or misshapen" % j)
+        if not (np.all(Lo[j] < Mu[j]) and np.all(Mu[j] < Up[j])):
+            fail("MOSM(Titsias).predict: channel %d's bands do not bracket the mean" % j)
+    mae = api.error("MAE")
+    yall = np.concatenate(ys)
+    print("MOSM(Titsias).error('MAE') = %.6f (the data's own spread %.6f)"
+          % (mae, np.mean(np.abs(yall - yall.mean()))))
+    if not (np.isfinite(mae) and mae < np.mean(np.abs(yall - yall.mean()))):
+        fail("MOSM(Titsias).error('MAE') = %r is not a fit" % mae)
+
+
+def drive_other_sparse(gpr, _build, xs, ys, dev, smi):
+    """Phase 15: Snelson and SparseHensman at N = 4,096 (every fourth bench
+    point, 64 grid inducing points per channel), Hensman and
+    OpperArchambeau at N = 1,024 (every sixteenth; their variational
+    parameters are one per point): each first step against a float64
+    execution and the float32 twins, then TRAIN_STEPS counted Adam steps."""
+    import torch
+
+    def data(every):
+        _, Xd, Yd = gpr.merge_data([a[::every] for a in xs], [a[::every] for a in ys], device=dev)
+        return Xd, Yd
+
+    def kernel():
+        k = gpr.MultiOutputSpectralMixtureKernel(Q, output_dims=CHANNELS)
+        set_bench_params(k)
+        return k
+
+    X4, Y4 = data(4)
+    X16, Y16 = data(16)
+    inducing = {"mosm_gram": (2, 2), "mosm_gram_bwd_inputs": (2, 2), "mosm_gram_bwd": (0, 0)}
+    dense = {"mosm_gram": (1, 1), "mosm_gram_bwd_inputs": (0, 0), "mosm_gram_bwd": (1, 1)}
+    cases = (
+        ("Snelson", X4, Y4, inducing,
+         lambda X_, Y_, Z: gpr.Snelson(kernel(), X_, Y_, Z=Z, variance=0.1, device=dev)),
+        ("SparseHensman", X4, Y4, inducing,
+         lambda X_, Y_, Z: gpr.SparseHensman(kernel(), X_, Y_, Z=Z, device=dev)),
+        ("Hensman", X16, Y16, dense, lambda X_, Y_, Z: gpr.Hensman(kernel(), X_, Y_, device=dev)),
+        ("OpperArchambeau", X16, Y16, dense,
+         lambda X_, Y_, Z: gpr.OpperArchambeau(kernel(), X_, Y_, device=dev)))
+    for label, Xd, Yd, want, make in cases:
+        model = make(Xd, Yd, 64)
+        if hasattr(model, "q_sqrt"):      # q(u) away from p(u), so Z's gradient is not zero
+            n = model.q_mu.shape[0]
+            rng = np.random.RandomState(8)
+            model.q_mu.assign(0.3 * rng.randn(n, 1))
+            model.q_sqrt.assign(np.eye(n) + 0.01 * np.tril(rng.randn(n, n), -1))
+
+        def rebuild(model=model, make=make):
+            Z = getattr(model, "Z", None)
+            Z = Z().detach().double() if Z is not None and Z.train else None
+            return make(model.X.double(), model.y.double(), Z)
+
+        loss1 = check_sparse_first_step(gpr, _build, model, rebuild,
+                                        "%s (N=%d)" % (label, Xd.shape[0]))
+        train_and_count(gpr, model, sparse_counters(), want, loss1, label, smi)
+        del model
+        torch.cuda.empty_cache()
 
 
 ITER_N_PER_CHANNEL = 16384
@@ -1275,12 +1838,12 @@ def check_first_step(model, bm, mg, label):
     return loss1
 
 
-def train_and_count(gpr, model, counters, want, loss1, label, smi):
-    """TRAIN_STEPS Adam steps of gpr.train with every count set to 0 first;
+def train_and_count(gpr, model, counters, want, loss1, label, smi, steps=TRAIN_STEPS):
+    """`steps` Adam steps of gpr.train with every count set to 0 first;
     each step must launch each kernel as `want` says ((least, exact or
     None)). Returns the counts of the whole run."""
     import torch
-    phase("%s: %d training steps" % (label, TRAIN_STEPS))
+    phase("%s: %d training steps" % (label, steps))
     for f in counters.values():
         f.launches = 0
     stamps = []
@@ -1290,7 +1853,7 @@ def train_and_count(gpr, model, counters, want, loss1, label, smi):
 
     torch.cuda.synchronize()
     t_start = time.perf_counter()
-    losses, _ = gpr.train(model, method="Adam", lr=1e-3, iters=TRAIN_STEPS, callback=on_step)
+    losses, _ = gpr.train(model, method="Adam", lr=1e-3, iters=steps, callback=on_step)
     launches = {k: f.launches for k, f in counters.items()}
     prev_t, prev_c = t_start, {k: 0 for k in counters}
     step_ms = []
@@ -1308,7 +1871,7 @@ def train_and_count(gpr, model, counters, want, loss1, label, smi):
         fail("the first %s train step's loss differs from the checked first step" % label)
     med = float(np.median(step_ms[1:]))
     print("%s training: %d Adam steps at N=%d, median step %.2f ms, %.3f steps/s (%s)"
-          % (label, TRAIN_STEPS, model.X.shape[0], med, 1e3 / med, smi.stdout.strip().splitlines()[0]))
+          % (label, steps, model.X.shape[0], med, 1e3 / med, smi.stdout.strip().splitlines()[0]))
     return launches
 
 

@@ -6,13 +6,17 @@
 Each ROOT is a checkout of this repository (for example a `git archive` of
 another commit unpacked into a directory that .gitignore lists); NEW_ROOT
 defaults to the directory of this script. From each root it builds
-mogptk_tpu_torch/csrc/mosm_gram.cu (K-gram) and, where the root has it,
-mosm_matvec.cu (K-matvec) with that root's own headers and the nvcc flags of
-ops/_build.py, each into a library of its own under
-NEW_ROOT/mogptk_tpu_torch/_build/ab/, and calls them in the same process on
-the same inputs: the 4 x 4,096-point bench model of chip_smoke.py (K-gram
-over 16,384^2, 16,384 x 4,096 and the band-lower Gram; K-matvec at R = 33)
-and K-matvec at benchmarks/bignum_exact.py's N = 65,536, R = 33. Rounds
+mogptk_tpu_torch/csrc/mosm_gram.cu (K-gram) and, where the root has them,
+mosm_matvec.cu (K-matvec) and mosm_gram_bwd.cu (K-gram-bwd) with that
+root's own headers and the nvcc flags of ops/_build.py, each into a library
+of its own under NEW_ROOT/mogptk_tpu_torch/_build/ab/, and calls them in the
+same process on the same inputs: the 4 x 4,096-point bench model of
+chip_smoke.py (K-gram over 16,384^2, 16,384 x 4,096 and the band-lower Gram;
+K-matvec at R = 33; K-gram-bwd's parameter half on a dense 16,384^2
+cotangent, its unrolled instance, the closed-form step's call) and K-matvec
+at benchmarks/bignum_exact.py's N = 65,536, R = 33. A root whose kernels
+take an instance argument (`int generic`) gets 0, the unrolled instance;
+K-gram-bwd's input half is off (inputs = 0). Rounds
 alternate which side runs first; each prints its CUDA-event medians (10
 calls, 5 at N = 65,536) per case and side, then the largest difference
 between the two sides' outputs. Prints the card's name and power limit
@@ -24,7 +28,16 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("mosm_gram.cu", "mosm_matvec.cu")
+SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu")
+# sources a library also needs where the root has them (K-gram-bwd's
+# instances with the input half are compiled from a file of their own)
+COMPANIONS = {"mosm_gram_bwd.cu": ("mosm_gram_bwd_inputs.cu",)}
+
+
+def takes_instance(root):
+    """True when root's kernels take the instance argument `generic`."""
+    with open(os.path.join(root, "mogptk_tpu_torch", "csrc", "mosm_gram.cu")) as f:
+        return "int generic" in f.read()
 
 
 def build(root, out_dir, tag, nvcc, flags):
@@ -37,7 +50,9 @@ def build(root, out_dir, tag, nvcc, flags):
         if not os.path.exists(path):
             continue
         lib = os.path.join(out_dir, "%s_%s.so" % (tag, src[:-3]))
-        cmd = [nvcc] + flags + ["-shared", "-I", csrc, path, "-o", lib]
+        extra = [os.path.join(csrc, c) for c in COMPANIONS.get(src, ())
+                 if os.path.exists(os.path.join(csrc, c))]
+        cmd = [nvcc] + flags + ["-shared", "-I", csrc, path] + extra + ["-o", lib]
         procs[src] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT))
     libs = {}
@@ -102,24 +117,45 @@ def main():
     V, Vb = (torch.randn((m, 33), generator=gen, device=dev) for m in (n, nb))
     stream = torch.cuda.current_stream().cuda_stream
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    inst = {side: [I32(0)] if takes_instance(root) else [] for side, root in roots.items()}
+    side_of = {id(lib): side for side in libs for lib in libs[side].values()}
 
     def ptr(t):
         return P(t.data_ptr())
 
     def gram(lib, out, x2, c2):
+        tail = inst[side_of[id(lib)]] + [P(stream)]
         return lambda: lib.mosm_gram_f32(ptr(x), ptr(c), ptr(x2), ptr(c2), ptr(stats), ptr(out),
-                                         I64(n), I64(x2.shape[0]), I32(O), I32(Q), I32(D),
-                                         P(stream))
+                                         I64(n), I64(x2.shape[0]), I32(O), I32(Q), I32(D), *tail)
 
     def lower(lib, out):
+        tail = inst[side_of[id(lib)]] + [P(stream)]
         return lambda: lib.mosm_gram_lower_f32(ptr(x), ptr(c), ptr(stats), ptr(out), I64(n),
                                                I32(O), I32(Q), I32(D), I64(bm.TILE), I64(512),
-                                               P(stream))
+                                               *tail)
 
     def matvec(lib, out, xx, cc, VV):
+        tail = inst[side_of[id(lib)]] + [P(stream)]
         return lambda: lib.mosm_matvec_f32(ptr(xx), ptr(cc), ptr(stats), ptr(VV), ptr(out),
                                            I64(xx.shape[0]), I32(VV.shape[1]), I32(O), I32(Q),
-                                           I32(D), P(stream))
+                                           I32(D), *tail)
+
+    # K-gram-bwd on the bench model's sorted Gram: channels of 4,096 rows,
+    # so the maps are the identity and g is read in place
+    counts = tuple(int(k) for k in torch.bincount(c.long(), minlength=O).tolist())
+    idx, pairs = mg._device_gram_layout(counts, counts, mg.BWD_TILE, torch.device(dev))
+    rmap = mg.channel_map(c, counts)
+    g = torch.randn((n, n), generator=gen, device=dev)
+    nout = 3 * Q * D + 2 * Q
+    partial = torch.empty((4 * idx.shape[0], nout), device=dev)
+
+    def gram_bwd(lib, out):
+        new = inst[side_of[id(lib)]]
+        extra = ([I32(0), I32(0), P(0), P(0), P(0), I32(0), I32(0), P(0), P(0)] if new else [])
+        return lambda: lib.mosm_gram_bwd_f32(
+            ptr(idx), ptr(g), ptr(x), ptr(rmap), ptr(x), ptr(rmap), ptr(stats), ptr(partial),
+            ptr(pairs), ptr(out), I32(idx.shape[0]), I32(pairs.shape[0]), I64(n), I32(Q), I32(D),
+            *extra, P(stream))
 
     cases = []   # (name, source, reps, {side: (call, output)})
     for name, shape, make in (
@@ -130,6 +166,10 @@ def main():
         cases.append((name, "mosm_gram.cu", 10, {
             side: (lambda o: (make(libs[side]["mosm_gram.cu"], o), o))(
                 torch.zeros(shape, device=dev)) for side in libs}))
+    if all("mosm_gram_bwd.cu" in l for l in libs.values()):
+        cases.append(("K-gram-bwd %dx%d (parameter half)" % (n, n), "mosm_gram_bwd.cu", 10, {
+            side: (lambda o: (gram_bwd(libs[side]["mosm_gram_bwd.cu"], o), o))(
+                torch.zeros((O * O, nout), device=dev)) for side in libs}))
     for name, xx, cc, VV, reps in (("K-matvec N=%d R=33" % n, x, c, V, 10),
                                    ("K-matvec N=%d R=33" % nb, xb, cb, Vb, 5)):
         if all("mosm_matvec.cu" in l for l in libs.values()):

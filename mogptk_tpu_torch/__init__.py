@@ -5,11 +5,14 @@ counterpart: mogptk_tpu/__init__.py. This package imports torch and never
 jax; pandas and matplotlib are imported lazily, inside the functions that
 load data frames or draw, never when the package is imported. It covers the
 MOSM quick start (DataSet → MOSM → init_parameters → train → predict) on exact
-inference with the closed-form or the probe-trace gradient; see README.md,
+inference with the closed-form or the probe-trace gradient, the iterative
+engine, and the sparse and variational inference schemes (Snelson, Titsias,
+Hensman, OpperArchambeau) with the Gaussian likelihood; see README.md,
 "PyTorch/CUDA port".
 """
 from . import gpr
-from .gpr import config, set_seed, use_single_precision, use_double_precision
+from .gpr import (config, set_seed, use_single_precision, use_double_precision,
+                  use_jitter_ladder)
 from .transformer import (Transformer, TransformBase, TransformDetrend,
                           TransformLinear, TransformNormalize, TransformLog,
                           TransformStandard)

@@ -18,6 +18,12 @@
 // The element is csrc/mosm_element.cuh (full-precision expf/cosf, no fast
 // math: the cosine argument reaches ~250 rad on the bench data).
 //
+// Two instances (ops/mosm_gram.kernel_instance chooses, mode 0 or 1): the
+// unrolled one above (D <= kMaxD, the pair table within 48 KB of shared
+// memory), and a generic one for any D and O: the input-dim loop runs to
+// the runtime D, x2 is read in place, and the pair table is read from
+// global memory through the read-only path instead of shared memory.
+//
 // mosm_gram_lower_f32 replaces a third Pallas kernel,
 //   mogptk_tpu/ops/block_mosm.py  mosm_gram_sorted_lower (pallas_call at :437),
 // the band-lower Gram of the training path: of the (N/tile)^2 tiles it writes
@@ -39,6 +45,7 @@ constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 constexpr int kRows = 4;     // rows per thread
 
+template <bool kUnrolled>
 __global__ void mosm_gram_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
                                  const float* __restrict__ x2, const int* __restrict__ c2,
                                  const float* __restrict__ stats, float* __restrict__ out,
@@ -49,55 +56,74 @@ __global__ void mosm_gram_kernel(const float* __restrict__ x1, const int* __rest
         const int64_t tj = ((int64_t)blockIdx.x * blockDim.x) / tile;
         if (ti < tj && ti * tile / band != tj * tile / band) return;
     }
-    extern __shared__ float table[];
+    extern __shared__ float smem_table[];
     const int S = 3 * Q * D + 2 * Q;  // per pair: [V, M, dtheta] x (Q, D), then [alpha, dphi] x Q
-    const int total = O * O * S;
-    for (int t = threadIdx.y * blockDim.x + threadIdx.x; t < total; t += blockDim.x * blockDim.y)
-        table[t] = stats[t];
-    __syncthreads();
+    const float* table = stats;
+    if constexpr (kUnrolled) {
+        const int total = O * O * S;
+        for (int t = threadIdx.y * blockDim.x + threadIdx.x; t < total;
+             t += blockDim.x * blockDim.y)
+            smem_table[t] = stats[t];
+        __syncthreads();
+        table = smem_table;
+    }
 
     const int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (j >= M) return;
-    float xj[kMaxD];
-    for (int d = 0; d < D; ++d) xj[d] = x2[j * D + d];
     const int cj = c2[j];
-
     const int64_t i0 = ((int64_t)blockIdx.y * blockDim.y + threadIdx.y) * kRows;
-    for (int r = 0; r < kRows; ++r) {
-        const int64_t i = i0 + r;
-        if (i >= N) break;
-        out[i * M + j] = mosm_element(table + (c1[i] * O + cj) * S, x1 + i * D, xj, Q, D);
+    if constexpr (kUnrolled) {
+        float xj[kMaxD];
+        for (int d = 0; d < D; ++d) xj[d] = x2[j * D + d];
+        for (int r = 0; r < kRows; ++r) {
+            const int64_t i = i0 + r;
+            if (i >= N) break;
+            out[i * M + j] = mosm_element<true>(table + (c1[i] * O + cj) * S, x1 + i * D, xj, Q, D);
+        }
+    } else {
+        for (int r = 0; r < kRows; ++r) {
+            const int64_t i = i0 + r;
+            if (i >= N) break;
+            out[i * M + j] = mosm_element<false>(table + ((int64_t)c1[i] * O + cj) * S, x1 + i * D,
+                                                 x2 + j * D, Q, D);
+        }
     }
 }
 
 int launch_gram(const float* x1, const int* c1, const float* x2, const int* c2,
                 const float* stats, float* out, int64_t N, int64_t M, int O, int Q, int D,
-                int64_t tile, int64_t band, cudaStream_t stream) {
-    if (D > kMaxD) return (int)cudaErrorInvalidValue;
+                int64_t tile, int64_t band, int generic, cudaStream_t stream) {
+    if (D < 1 || (!generic && D > kMaxD)) return (int)cudaErrorInvalidValue;
     if (N == 0 || M == 0) return 0;
-    const size_t smem = sizeof(float) * (size_t)O * O * (3 * Q * D + 2 * Q);
+    const size_t smem = generic ? 0 : sizeof(float) * (size_t)O * O * (3 * Q * D + 2 * Q);
+    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
     dim3 block(kBlockX, kBlockY);
     dim3 grid((unsigned)((M + kBlockX - 1) / kBlockX),
               (unsigned)((N + (int64_t)kBlockY * kRows - 1) / ((int64_t)kBlockY * kRows)));
-    mosm_gram_kernel<<<grid, block, smem, stream>>>(x1, c1, x2, c2, stats, out, N, M, O, Q, D,
-                                                    tile, band);
+    if (generic)
+        mosm_gram_kernel<false><<<grid, block, 0, stream>>>(x1, c1, x2, c2, stats, out, N, M, O,
+                                                            Q, D, tile, band);
+    else
+        mosm_gram_kernel<true><<<grid, block, smem, stream>>>(x1, c1, x2, c2, stats, out, N, M,
+                                                              O, Q, D, tile, band);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// generic: 0 for the unrolled instance, 1 for the generic one.
 extern "C" int mosm_gram_f32(const float* x1, const int* c1, const float* x2, const int* c2,
                              const float* stats, float* out, int64_t N, int64_t M,
-                             int O, int Q, int D, cudaStream_t stream) {
-    return launch_gram(x1, c1, x2, c2, stats, out, N, M, O, Q, D, 0, 1, stream);
+                             int O, int Q, int D, int generic, cudaStream_t stream) {
+    return launch_gram(x1, c1, x2, c2, stats, out, N, M, O, Q, D, 0, 1, generic, stream);
 }
 
 // Square (N, N) band-lower Gram of channel-sorted x; tile and band must be
 // multiples of 32 and divide N, band a multiple of tile.
 extern "C" int mosm_gram_lower_f32(const float* x, const int* c, const float* stats, float* out,
                                    int64_t N, int O, int Q, int D, int64_t tile, int64_t band,
-                                   cudaStream_t stream) {
+                                   int generic, cudaStream_t stream) {
     if (tile <= 0 || tile % kBlockX || band % tile || N % band)
         return (int)cudaErrorInvalidValue;
-    return launch_gram(x, c, x, c, stats, out, N, N, O, Q, D, tile, band, stream);
+    return launch_gram(x, c, x, c, stats, out, N, N, O, Q, D, tile, band, generic, stream);
 }

@@ -31,6 +31,12 @@
 // Left for later: evaluating each symmetric off-diagonal tile once for both
 // directions (as the TPU kernel did), and tensor cores (3xTF32 or wgmma)
 // for wide R.
+//
+// Two instances (ops/mosm_gram.kernel_instance chooses): the unrolled one
+// above (D <= kMaxD, the pair table in shared memory within 48 KB), and a
+// generic one for any D and O (the element's input-dim loop to the runtime
+// D, the pair table read from global memory through the read-only path;
+// TN = 4 for every R).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,10 +56,11 @@ struct Layout {
     int64_t table, xr, cr, xc, cc, G, Vs, acc, total;
 };
 
-__host__ __device__ inline Layout layout(int BM, int RC, int64_t Rpad, int O, int Q, int D) {
+__host__ __device__ inline Layout layout(int BM, int RC, int64_t Rpad, int O, int Q, int D,
+                                         bool table_in_smem) {
     Layout s;
     s.table = 0;
-    s.xr = round_up((int64_t)O * O * (3 * Q * D + 2 * Q), 4);
+    s.xr = table_in_smem ? round_up((int64_t)O * O * (3 * Q * D + 2 * Q), 4) : 0;
     s.cr = s.xr + round_up((int64_t)BM * D, 4);
     s.xc = s.cr + round_up(BM, 4);
     s.cc = s.xc + round_up((int64_t)kBK * D, 4);
@@ -64,7 +71,7 @@ __host__ __device__ inline Layout layout(int BM, int RC, int64_t Rpad, int O, in
     return s;
 }
 
-template <int BM, int TN>
+template <int BM, int TN, bool kUnrolled>
 __global__ void __launch_bounds__(kThreads, 2)
 mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
                    const float* __restrict__ stats, const float* __restrict__ V,
@@ -72,9 +79,9 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
     constexpr int RC = 16 * TN;     // columns of V per chunk
     constexpr int TM = BM / 16;     // rows of the micro-tile
     const int64_t Rpad = round_up(R, RC);
-    const Layout L = layout(BM, RC, Rpad, O, Q, D);
+    const Layout L = layout(BM, RC, Rpad, O, Q, D, kUnrolled);
     extern __shared__ __align__(16) float smem[];
-    float* table = smem + L.table;
+    const float* table = kUnrolled ? smem + L.table : stats;
     float* xr = smem + L.xr;
     int* cr = reinterpret_cast<int*>(smem + L.cr);
     float* xc = smem + L.xc;
@@ -86,7 +93,8 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
     const int t = threadIdx.x;
     const int S = 3 * Q * D + 2 * Q;  // per pair: [V, M, dtheta] x (Q, D), then [alpha, dphi] x Q
     const int64_t i0 = (int64_t)blockIdx.x * BM;
-    for (int k = t; k < O * O * S; k += kThreads) table[k] = stats[k];
+    if constexpr (kUnrolled)
+        for (int k = t; k < O * O * S; k += kThreads) smem[L.table + k] = stats[k];
     for (int k = t; k < BM * D; k += kThreads) {
         const int64_t i = i0 + k / D;
         xr[k] = i < N ? x[i * D + k % D] : 0.0f;
@@ -110,7 +118,8 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
         for (int e = t; e < BM * kBK; e += kThreads) {
             const int r = e / kBK, col = e % kBK;
             G[r * (kBK + 1) + col] = j0 + col < N
-                ? mosm_element(table + (cr[r] * O + cc[col]) * S, xr + r * D, xc + col * D, Q, D)
+                ? mosm_element<kUnrolled>(table + (cr[r] * O + cc[col]) * S, xr + r * D,
+                                          xc + col * D, Q, D)
                 : 0.0f;
         }
 
@@ -160,40 +169,47 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
     }
 }
 
-template <int BM, int TN>
+template <int BM, int TN, bool kUnrolled>
 int launch(const float* x, const int* c, const float* stats, const float* V, float* out,
            int64_t N, int R, int O, int Q, int D, cudaStream_t stream) {
     constexpr int RC = 16 * TN;
-    const Layout L = layout(BM, RC, round_up(R, RC), O, Q, D);
+    const Layout L = layout(BM, RC, round_up(R, RC), O, Q, D, kUnrolled);
     const size_t smem = sizeof(float) * (size_t)L.total;
-    cudaError_t err = cudaFuncSetAttribute(mosm_matvec_kernel<BM, TN>,
+    if (kUnrolled && sizeof(float) * (size_t)L.xr > 48 * 1024) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(mosm_matvec_kernel<BM, TN, kUnrolled>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const unsigned grid = (unsigned)((N + BM - 1) / BM);
-    mosm_matvec_kernel<BM, TN><<<grid, kThreads, smem, stream>>>(x, c, stats, V, out, N, R, O, Q, D);
+    mosm_matvec_kernel<BM, TN, kUnrolled><<<grid, kThreads, smem, stream>>>(x, c, stats, V, out,
+                                                                           N, R, O, Q, D);
     return (int)cudaGetLastError();
 }
 
-template <int TN>
+template <int TN, bool kUnrolled>
 int launch_tn(const float* x, const int* c, const float* stats, const float* V, float* out,
               int64_t N, int R, int O, int Q, int D, cudaStream_t stream) {
     const int64_t acc = 4 * round_up(R, 16 * TN);
-    if (64 * acc <= kMaxAccBytes) return launch<64, TN>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    if (32 * acc <= kMaxAccBytes) return launch<32, TN>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    if (16 * acc <= kMaxAccBytes) return launch<16, TN>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    if (64 * acc <= kMaxAccBytes)
+        return launch<64, TN, kUnrolled>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    if (32 * acc <= kMaxAccBytes)
+        return launch<32, TN, kUnrolled>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    if (16 * acc <= kMaxAccBytes)
+        return launch<16, TN, kUnrolled>(x, c, stats, V, out, N, R, O, Q, D, stream);
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // out (N, R) = K(x, x) @ V for x (N, D), channel IDs c (N,), V (N, R), all
-// row-major; stats is the (O*O, 3QD + 2Q) pair table. R <= 2048, D <= 8.
+// row-major; stats is the (O*O, 3QD + 2Q) pair table. R <= 2048; D <= 8
+// for the unrolled instance (generic = 0), any D for the generic one (1).
 extern "C" int mosm_matvec_f32(const float* x, const int* c, const float* stats, const float* V,
-                               float* out, int64_t N, int R, int O, int Q, int D,
+                               float* out, int64_t N, int R, int O, int Q, int D, int generic,
                                cudaStream_t stream) {
-    if (D < 1 || D > kMaxD || R < 1 || R > 2048) return (int)cudaErrorInvalidValue;
+    if (D < 1 || (!generic && D > kMaxD) || R < 1 || R > 2048) return (int)cudaErrorInvalidValue;
     if (N == 0) return 0;
-    if (R <= 16) return launch_tn<1>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    if (R <= 32) return launch_tn<2>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    return launch_tn<4>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    if (generic) return launch_tn<4, false>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    if (R <= 16) return launch_tn<1, true>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    if (R <= 32) return launch_tn<2, true>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    return launch_tn<4, true>(x, c, stats, V, out, N, R, O, Q, D, stream);
 }

@@ -27,6 +27,8 @@ class Config:
             and data removals as in the JAX package.
         blocked_cholesky: None = auto (CUDA, float32, n >= blocked_cholesky_min_n
             and n a multiple of blocked_cholesky_block), True/False to force.
+        jitter_ladder: rungs of ops/linalg.jittered_cholesky's retry ladder
+            (0, the default, disables it; use_jitter_ladder).
     """
 
     def __init__(self):
@@ -39,6 +41,7 @@ class Config:
         self.blocked_cholesky = None
         self.blocked_cholesky_block = 512
         self.blocked_cholesky_min_n = 4096
+        self.jitter_ladder = 0
 
     @property
     def dtype(self):
@@ -94,6 +97,15 @@ def use_single_precision():
 def use_double_precision():
     """Use float64 (the original mogptk default; plain torch on every device)."""
     config.dtype = torch.float64
+
+
+def use_jitter_ladder(rungs=3):
+    """Retry an unusable Cholesky factorization (NaN, or a diagonal ratio
+    min|Lii|/max|Lii| under 1000·eps) with up to `rungs` 10×-escalated
+    jitters; 0 disables (JAX: gpr/config.py use_jitter_ladder). An extension
+    beyond the reference: it keeps float32 training alive when trained
+    inducing points degrade Kuu's conditioning."""
+    config.jitter_ladder = int(rungs)
 
 
 def use_blocked_cholesky(enable=True, block_size=None, min_n=None):

@@ -11,13 +11,14 @@ import torch
 
 
 def parameter_names(model):
-    """JAX-style names of the port's Parameters ("<OwnerClass>.<attr>", as
-    the JAX package names them), in order."""
+    """JAX-style names of the port's Parameters, in order: the explicit name
+    where a Parameter has one (the sparse models' "induction_points"), else
+    "<OwnerClass>.<attr>", as the JAX package names them."""
     modules = dict(model.named_modules())
     names = []
-    for path, _ in model.gp_parameters():
+    for path, p in model.gp_parameters():
         owner, _, attr = path.rpartition(".")
-        names.append("%s.%s" % (type(modules[owner]).__name__, attr))
+        names.append(p.name or "%s.%s" % (type(modules[owner]).__name__, attr))
     return names
 
 
@@ -27,7 +28,9 @@ def load_raw_state(model, raws, names=None):
 
     Args:
         model: the port's gpr model (Exact, ExactIterative: the kernel's and
-            the likelihood's raws) or module, or a top-level model
+            the likelihood's raws; the sparse models also their inducing
+            points and variational parameters, induction_points, q_mu,
+            q_sqrt, q_nu, q_lambda) or module, or a top-level model
             (mogptk_tpu_torch.Model, e.g. MOSM), which loads into its .gpr:
             so a trained JAX mogptk_tpu.MOSM's raws carry into the port's.
         raws: list of arrays, e.g. [np.asarray(r) for r in jax_model.raw_state()].

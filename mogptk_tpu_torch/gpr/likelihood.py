@@ -1,10 +1,12 @@
 """Likelihoods: the base class and the Gaussian likelihood.
 
 JAX counterpart: mogptk_tpu/gpr/likelihood.py (`Likelihood` :88-135,
-`GaussianLikelihood` :261-320). Only what exact-GP prediction needs is ported:
-the Gaussian likelihood's closed-form predictive bands. Quadrature, Monte
-Carlo bands and the other likelihoods are later work.
+`GaussianLikelihood` :261-320). Ported: the Gaussian likelihood's
+closed-form predictive bands, log density and variational expectation, what
+exact and sparse Gaussian inference need. Quadrature, Monte Carlo bands and
+the other likelihoods are later work (ROADMAP queue 1, item 9).
 """
+import numpy as np
 import torch
 
 from .module import Module
@@ -21,7 +23,27 @@ class Likelihood(Module):
 
     def predict(self, X, mu, var, ci=None, sigma=None):
         """Predictive mean and optional (lower, upper) bands of y."""
-        raise NotImplementedError("only the Gaussian likelihood's predict is ported")
+        raise NotImplementedError("only the Gaussian likelihood's predict is ported "
+                                  "(ROADMAP queue 1, item 9)")
+
+    def log_prob(self, X, y, f):
+        """log p(y|f), per point."""
+        raise NotImplementedError("only the Gaussian likelihood's log density is ported "
+                                  "(ROADMAP queue 1, item 9)")
+
+    def variational_expectation(self, X, y, mu, var, weights=None):
+        """∫ log p(y|f) N(f|mu, var) df, summed over the points (each scaled
+        by `weights` (N,) when given)."""
+        raise NotImplementedError("only the Gaussian likelihood's variational expectation is "
+                                  "ported; quadrature is ROADMAP queue 1, item 9")
+
+
+def _weighted_sum(p, weights):
+    """Sum of per-point terms p (N, 1), each scaled by weights (N,) when
+    given (JAX: gpr/likelihood._weighted_sum)."""
+    if weights is None:
+        return torch.sum(p)
+    return torch.sum(p * weights.reshape(-1, 1))
 
 
 class GaussianLikelihood(Likelihood):
@@ -38,6 +60,17 @@ class GaussianLikelihood(Likelihood):
         if self.output_dims is None or s.ndim != 1:
             return s
         return s[X[:, 0].long()][:, None]
+
+    def log_prob(self, X, y, f):
+        s = self._scale_per_point(X)
+        return -0.5 * (np.log(2.0 * np.pi) + 2.0 * torch.log(s) + ((y - f) / s) ** 2)
+
+    def variational_expectation(self, X, y, mu, var, weights=None):
+        """Closed form (JAX: gpr/likelihood.py:289-294)."""
+        s2 = self._scale_per_point(X) ** 2
+        p = -((y - mu) ** 2 + var) / s2
+        p = p - np.log(2.0 * np.pi) - torch.log(s2)
+        return 0.5 * _weighted_sum(p, weights)
 
     def predict(self, X, mu, var, ci=None, sigma=None):
         if ci is None and sigma is None:

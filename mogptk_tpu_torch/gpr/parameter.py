@@ -86,10 +86,16 @@ def _align(value, shape, what):
 
 class Parameter(nn.Module):
     """A trainable parameter with optional bounds. The constrained value is
-    `param()`; the unconstrained value is the nn.Parameter `param.raw`."""
+    `param()`; the unconstrained value is the nn.Parameter `param.raw`.
+    `name` is an explicit name (the JAX package's, e.g. "induction_points"),
+    else gpr.convert.parameter_names gives "<OwnerClass>.<attribute>".
+    `num_parameters` is the count of free values it contributes (BIC, AIC):
+    its size, less what a model fixes (the inducing points' channel IDs,
+    the upper triangle of a Cholesky factor), as in the JAX package."""
 
-    def __init__(self, value, lower=None, upper=None, prior=None, train=True):
+    def __init__(self, value, lower=None, upper=None, prior=None, train=True, name=None):
         super().__init__()
+        self.name = name
         if prior is not None:
             raise NotImplementedError("parameter priors are not ported yet")
         value = np.asarray(value.detach().cpu() if torch.is_tensor(value) else value,
@@ -99,6 +105,7 @@ class Parameter(nn.Module):
         self.transform = None
         self.raw = nn.Parameter(torch.empty(value.shape, dtype=config.dtype),
                                 requires_grad=bool(train))
+        self.num_parameters = int(np.prod(value.shape)) if value.ndim else 1
         self.assign(value, lower=lower, upper=upper)
 
     @property

@@ -6,10 +6,11 @@ reference mogptk/model.py:76-1037. Training runs gpr.train (torch.optim, one
 synchronizing callback per step); prediction runs the gpr model's predict_y
 on its device and hands numpy back. Ported: the `Exact` selector
 (closed-form gradient by default, probe-trace with trace_probes),
-the `Iterative` selector (MOSM only), save/LoadModel, the metrics and the
-plots. Not ported yet: the sparse selectors (construction raises
-NotImplementedError naming the ROADMAP item), sampling, and the XLA
-compilation-cache priming (`precompile`, which has no counterpart here).
+the `Iterative` selector (MOSM only), the sparse and variational selectors
+(`Snelson`, `OpperArchambeau`, `Titsias`, `Hensman`; Gaussian likelihood),
+save/LoadModel, the metrics and the plots. Not ported yet: sampling, and
+the XLA compilation-cache priming (`precompile`, which has no counterpart
+here).
 """
 import inspect
 import logging
@@ -69,29 +70,75 @@ def _noise(selector, kernel, y_err):
     return variance, data_variance
 
 
-class _Unported:
-    """An inference selector that is not ported yet: constructing it raises."""
-    item = None
+class Snelson:
+    """Snelson & Ghahramani FITC inference selector (JAX:
+    mogptk_tpu/model.py:107-126)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("%s inference is not ported yet (ROADMAP queue 1, item %d)"
-                                  % (type(self).__name__, self.item))
+    def __init__(self, inducing_points=10, init_inducing_points="grid", variance=None,
+                 jitter=1e-6):
+        self.inducing_points = inducing_points
+        self.init_inducing_points = init_inducing_points
+        self.variance = variance
+        self.jitter = jitter
+
+    def _build(self, kernel, x, y, y_err=None, mean=None, device=None):
+        variance = self.variance
+        if variance is None:
+            variance = [1.0] * kernel.output_dims if kernel.output_dims is not None else 1.0
+        return gpr.Snelson(kernel, x, y, Z=self.inducing_points,
+                           Z_init=self.init_inducing_points, variance=variance,
+                           jitter=self.jitter, mean=mean, device=device)
 
 
-class Snelson(_Unported):
-    item = 7
+class OpperArchambeau:
+    """Opper & Archambeau variational inference selector (JAX:
+    mogptk_tpu/model.py:128-138); the Gaussian likelihood only."""
+
+    def __init__(self, likelihood=None, jitter=1e-6):
+        self.likelihood = likelihood
+        self.jitter = jitter
+
+    def _build(self, kernel, x, y, y_err=None, mean=None, device=None):
+        return gpr.OpperArchambeau(kernel, x, y, likelihood=self.likelihood,
+                                   jitter=self.jitter, mean=mean, device=device)
 
 
-class OpperArchambeau(_Unported):
-    item = 7
+class Titsias:
+    """Titsias collapsed sparse variational inference selector (JAX:
+    mogptk_tpu/model.py:141-155)."""
+
+    def __init__(self, inducing_points=10, init_inducing_points="grid", variance=1.0,
+                 jitter=1e-6):
+        self.inducing_points = inducing_points
+        self.init_inducing_points = init_inducing_points
+        self.variance = variance
+        self.jitter = jitter
+
+    def _build(self, kernel, x, y, y_err=None, mean=None, device=None):
+        return gpr.Titsias(kernel, x, y, Z=self.inducing_points,
+                           Z_init=self.init_inducing_points, variance=self.variance,
+                           jitter=self.jitter, mean=mean, device=device)
 
 
-class Titsias(_Unported):
-    item = 7
+class Hensman:
+    """Hensman SVGP inference selector (JAX: mogptk_tpu/model.py:193-212):
+    SparseHensman with inducing points, Hensman without; the Gaussian
+    likelihood only."""
 
+    def __init__(self, inducing_points=None, init_inducing_points="grid", likelihood=None,
+                 jitter=1e-6):
+        self.inducing_points = inducing_points
+        self.init_inducing_points = init_inducing_points
+        self.likelihood = likelihood
+        self.jitter = jitter
 
-class Hensman(_Unported):
-    item = 7
+    def _build(self, kernel, x, y, y_err=None, mean=None, device=None):
+        if self.inducing_points is None:
+            return gpr.Hensman(kernel, x, y, likelihood=self.likelihood, jitter=self.jitter,
+                               mean=mean, device=device)
+        return gpr.SparseHensman(kernel, x, y, Z=self.inducing_points,
+                                 Z_init=self.init_inducing_points, likelihood=self.likelihood,
+                                 jitter=self.jitter, mean=mean, device=device)
 
 
 class Iterative:
@@ -230,7 +277,7 @@ class Model:
                 p.raw.copy_(q.raw)
 
     def num_parameters(self):
-        return sum(p.raw.numel() for p in self.parameters() if p.train)
+        return sum(p.num_parameters for p in self.parameters() if p.train)
 
     def num_training_points(self):
         return sum(len(channel.get_train_data()[1]) for channel in self.dataset)

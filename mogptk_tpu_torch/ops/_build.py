@@ -8,6 +8,13 @@ and flags>/ (the compiler's register and spill report goes to build.log
 beside it); ctypes loads it. Each C entry point launches on the stream it is
 given and returns its cudaError_t; `check` turns a nonzero code into an
 exception. Nothing is built when this module is imported.
+
+The dtype route. Every kernel takes float32. A wrapper given a float64
+tensor, on the card as on the CPU, runs its kernel's plain PyTorch twin on
+that tensor's device (`runs_plain`, the one place that decides it) and
+counts no launch: float64 on the card is plain torch, as
+gpr.config.use_double_precision says. Any other type on the card, and any
+float32 input the kernel does not take, raises.
 """
 import ctypes
 import functools
@@ -37,22 +44,25 @@ _c_int = ctypes.c_int
 
 # C signatures of csrc/*.cu, every pointer and the stream as void*
 SIGNATURES = {
-    # x1, c1, x2, c2, stats, out, N, M, O, Q, D, stream
-    "mosm_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int, _c_int, _c_int, _c_ptr],
+    # x1, c1, x2, c2, stats, out, N, M, O, Q, D, generic, stream
+    "mosm_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
     # L, S, n, r0, B, stream
     "s_panel_f32": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_ptr],
     # L, S, Ljj, inv, n, r0, B, zero_upper, stream
     "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
-    # x, c, stats, out, N, O, Q, D, tile, band, stream
-    "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_ptr],
-    # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, stream
-    "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr],
-    # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, S, P, M, Q, D, stream
-    "mosm_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_ptr],
+    # x, c, stats, out, N, O, Q, D, tile, band, generic, stream
+    "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_int,
+                                           _c_ptr],
+    # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, generic, stream
+    "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
+    # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, S, P, M, Q, D, generic, inputs,
+    # rowpart, colpart, tiles, nrt, nct, dx1, dx2, stream
+    "mosm_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_int, _c_int]
+                         + [_c_ptr] * 3 + [_c_int, _c_int] + [_c_ptr] * 3,
     # L, invs, V, Z, X, n, B, R, stream
     "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
-    # x, c, stats, V, out, N, R, O, Q, D, stream
-    "mosm_matvec_f32": [_c_ptr] * 5 + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    # x, c, stats, V, out, N, R, O, Q, D, generic, stream
+    "mosm_matvec_f32": [_c_ptr] * 5 + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr],
 }
 
 
@@ -142,6 +152,14 @@ def check(err, name):
     if err != 0:
         msg = library().mogptk_error_string(err).decode()
         raise RuntimeError("CUDA kernel %s failed: cudaError_t %d (%s)" % (name, err, msg))
+
+
+def runs_plain(tensor):
+    """True when a kernel wrapper given `tensor` runs the kernel's plain
+    twin instead of the kernel: a CPU tensor, or a float64 tensor on any
+    device (the dtype route of this module's docstring). A float32 CUDA
+    tensor launches the kernel."""
+    return tensor.device.type == "cpu" or tensor.dtype == torch.float64
 
 
 def stream_ptr(tensor):

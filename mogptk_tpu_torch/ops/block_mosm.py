@@ -23,12 +23,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .mosm_gram import mosm_gram, mosm_gram_pairstats_plain, stats_table, check_gram_inputs
+from .mosm_gram import (mosm_gram, mosm_gram_pairstats_plain, stats_table, check_gram_inputs,
+                        generic_flag)
 
 # tile edge of the band-lower Gram's tile list (its band and every channel
 # count are multiples of it), and of the low-rank VJP's tile list
 TILE = 512
 BWD_TILE = 256
+LOWRANK_MAX_CHUNK = 64   # columns of A and B that K-lowrank-vjp stages at a time
 
 _two_pi = 2.0 * np.pi
 
@@ -112,7 +114,7 @@ def mosm_gram_sorted_lower(x, counts, st3, st2, band=1024):
 
     Returns None unless every count, N and the band are multiples of TILE and
     the band divides N; callers then take mosm_gram_sorted. CPU: the plain
-    twin (unwritten tiles NaN). CUDA: float32, one launch of
+    twin (unwritten tiles NaN), as in float64. float32 CUDA: one launch of
     csrc/mosm_gram.cu mosm_gram_lower_f32, or raises."""
     counts = tuple(int(n) for n in counts)
     n = int(sum(counts))
@@ -120,7 +122,7 @@ def mosm_gram_sorted_lower(x, counts, st3, st2, band=1024):
             or x.shape[0] != n):
         return None
     c = channel_ids(counts, x.device)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return mosm_gram_sorted_lower_plain(x, c, st3, st2, band)
     O, _, Q, D, _ = st3.shape
     stats = stats_table(st3, st2)
@@ -128,7 +130,7 @@ def mosm_gram_sorted_lower(x, counts, st3, st2, band=1024):
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     err = _build.library().mosm_gram_lower_f32(
         x.data_ptr(), c.data_ptr(), stats.data_ptr(), out.data_ptr(), n, O, Q, D, TILE, band,
-        _build.stream_ptr(x))
+        generic_flag("forward", st3), _build.stream_ptr(x))
     _build.check(err, "mosm_gram_lower_f32")
     mosm_gram_sorted_lower.launches += 1
     return out
@@ -237,15 +239,24 @@ def _pad_channels(a, counts, T):
     return torch.cat(pieces).contiguous()
 
 
+def lowrank_chunk(R):
+    """The columns of A and B that K-lowrank-vjp stages in shared memory at a
+    time for rank R: min(R, 64). The kernel accumulates the cotangent tile
+    over ceil(R / chunk) chunks in order, so it takes any R."""
+    if R < 1:
+        raise ValueError("the rank R must be at least 1")
+    return min(int(R), LOWRANK_MAX_CHUNK)
+
+
 def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
     """Cotangents (dst3, dst2) of the pair statistics for dK = A·Bᵀ, without
     forming dK, for channel-sorted x (N, D) with per-channel `counts` and A,
-    B (N, R). Rows of lower pairs (a > b) stay zero: each upper pair's rows
-    carry both of its blocks. CPU: the plain twin. CUDA: float32, one call of
-    csrc/mosm_lowrank_vjp.cu (the tile kernel and its per-pair reduction),
-    or raises."""
+    B (N, R), any R. Rows of lower pairs (a > b) stay zero: each upper pair's
+    rows carry both of its blocks. CPU or float64: the plain twin. float32
+    CUDA: one call of csrc/mosm_lowrank_vjp.cu (the tile kernel, R in chunks
+    of lowrank_chunk(R) columns, and its per-pair reduction), or raises."""
     counts = tuple(int(n) for n in counts)
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return mosm_lowrank_vjp_plain(x, counts, st3, st2, A, B)
     O, _, Q, D, _ = st3.shape
     R = A.shape[1]
@@ -264,7 +275,8 @@ def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
         err = _build.library().mosm_lowrank_vjp_f32(
             idx.data_ptr(), xp.data_ptr(), ap.data_ptr(), bp.data_ptr(), stats.data_ptr(),
             partial.data_ptr(), pairs.data_ptr(), out.data_ptr(), idx_np.shape[0],
-            pairs_np.shape[0], Q, D, R, _build.stream_ptr(x))
+            pairs_np.shape[0], Q, D, R, lowrank_chunk(R), generic_flag("backward", st3),
+            _build.stream_ptr(x))
         _build.check(err, "mosm_lowrank_vjp_f32")
         mosm_lowrank_vjp_sorted.launches += 1
     return (out[:, :3 * Q * D].reshape(O, O, Q, D, 3), out[:, 3 * Q * D:].reshape(O, O, Q, 2))

@@ -57,9 +57,10 @@ def col_write_plain(L, S, Ljj, inv, j, B, zero_upper=True):
 
 
 def s_panel(L, S, j, B):
-    """Step 1 for block column j, into S's first n − j·B rows. CPU: plain
-    twin. CUDA: csrc/blocked_cholesky.cu s_panel_f32, or raises."""
-    if L.device.type == "cpu":
+    """Step 1 for block column j, into S's first n − j·B rows. CPU or
+    float64: plain twin. float32 CUDA: csrc/blocked_cholesky.cu s_panel_f32,
+    or raises."""
+    if _build.runs_plain(L):
         return s_panel_plain(L, S, j, B)
     _check_shapes("s_panel", L, S, B)
     _build.require_cuda_inputs("s_panel", floats=(L, S))
@@ -70,9 +71,9 @@ def s_panel(L, S, j, B):
 
 
 def col_write(L, S, Ljj, inv, j, B, zero_upper=True):
-    """Step 3 for block column j. CPU: plain twin. CUDA:
+    """Step 3 for block column j. CPU or float64: plain twin. float32 CUDA:
     csrc/blocked_cholesky.cu col_write_f32, or raises."""
-    if L.device.type == "cpu":
+    if _build.runs_plain(L):
         return col_write_plain(L, S, Ljj, inv, j, B, zero_upper)
     _check_shapes("col_write", L, S, B)
     if inv is None:

@@ -22,8 +22,8 @@ MAX_RHS = 64
 def fused_cho_solve(L, invs, B):
     """X = (L Lᵀ)⁻¹ B. L (n, n) lower factor (strict upper ignored), invs
     (n/Bs, Bs, Bs) lower diagonal-block inverses, B (n, r) with r ≤ 64.
-    CPU: the plain twin. CUDA: float32, or raises."""
-    if L.device.type == "cpu":
+    CPU or float64: the plain twin. float32 CUDA: the kernel, or raises."""
+    if _build.runs_plain(L):
         return blocked_cho_solve(L, B, invs=invs)
     n = L.shape[0]
     nb, Bs = invs.shape[0], invs.shape[-1]

@@ -1,7 +1,8 @@
 """Dense linear algebra of the exact-GP path, and the training LMLs.
 
 JAX counterpart: mogptk_tpu/ops/linalg.py (`cholesky` :19-59,
-`jittered_cholesky` :94-160, `solve_triangular` :287-296, `cholesky_solve`
+`jittered_cholesky` :94-260 with the jitter ladder, `solve_triangular`
+:287-296, `cholesky_solve`
 :307-339, `_stoch_lowrank` :391-396, `_dense_lml_cotangents` :425-496,
 `lml_quadform_logdet_shifted` :553-576,
 `lml_quadform_logdet_stochastic_shifted` :579-606, `lml_chol_fused`
@@ -9,8 +10,7 @@ JAX counterpart: mogptk_tpu/ops/linalg.py (`cholesky` :19-59,
 factorization routes to ops/blocked_cholesky (the hand-written kernels on
 CUDA) by gpr.config.blocked_cholesky_enabled, else to torch.linalg.cholesky.
 A solve given the panel inverses goes to ops/fused_solve (the K-solve kernel
-on CUDA); the other solves are torch.linalg calls. The jitter ladder is not
-ported.
+on CUDA); the other solves are torch.linalg calls.
 """
 import torch
 
@@ -43,23 +43,101 @@ def cholesky(K, diag_shift=None, return_panel_invs=False, zero_upper=True):
     return (L, None) if return_panel_invs else L
 
 
-def jittered_cholesky(K, jitter=None, extra_diag=None):
+def jittered_cholesky(K, jitter=None, extra_diag=None, ladder=None, ladder_base=None):
     """Cholesky factor of K + diag(extra_diag) + jitter·mean(diag(K) + extra_diag)·I.
 
     jitter is relative, as in the reference (mogptk/gpr/model.py:242-244);
-    extra_diag (n,) rides the factorization as a vector diagonal shift.
-    K may be overwritten (blocked path)."""
-    shift = extra_diag
-    if jitter is not None:
-        d = torch.diagonal(K) if extra_diag is None else torch.diagonal(K) + extra_diag
-        rel = jitter * torch.mean(d)
-        shift = rel if extra_diag is None else extra_diag + rel
-    return cholesky(K, diag_shift=shift)
+    extra_diag (n,) rides the factorization as a vector diagonal shift. K
+    may be overwritten (blocked path) unless the ladder runs.
+
+    ladder > 0 (None: gpr.config.jitter_ladder) retries an unusable factor,
+    one with a NaN or with min|Lii|/max|Lii| < 1000·eps(dtype), with the
+    relative jitter rung_base·10^k at rung k = 1 … ladder, where rung_base is
+    `jitter`, else `ladder_base`, else 1e-8 (JAX: ops/linalg.jittered_cholesky
+    and _ladder_cholesky). A barely successful factor matters as much as a
+    NaN: its backward contains L⁻¹, and the gradient overflows first. The
+    gradient flows through the returned factor only (Murray's explicit
+    Cholesky backward, _LadderCholesky), so a failed rung never poisons it;
+    the relative-jitter shift carries no gradient, as in the JAX ladder. Each
+    factor's check is read on the host: one synchronization per
+    factorization, and one more per rung that fires. Rungs that fire are
+    counted in jittered_cholesky.rungs."""
+    from ..gpr.config import config
+    ladder = config.jitter_ladder if ladder is None else int(ladder)
+    if ladder <= 0:
+        shift = extra_diag
+        if jitter is not None:
+            d = torch.diagonal(K) if extra_diag is None else torch.diagonal(K) + extra_diag
+            rel = jitter * torch.mean(d)
+            shift = rel if extra_diag is None else extra_diag + rel
+        return cholesky(K, diag_shift=shift)
+    rung_base = jitter if jitter else (ladder_base if ladder_base else 1e-8)
+    extra = K.new_zeros(0) if extra_diag is None else extra_diag
+    return _LadderCholesky.apply(K, extra, jitter, ladder, rung_base)
 
 
-def solve_triangular(L, B):
-    """Solve L X = B for lower-triangular L (only its lower triangle is read)."""
-    return torch.linalg.solve_triangular(L, B, upper=False)
+jittered_cholesky.rungs = 0
+
+
+def _unusable(L, tol):
+    """NaN anywhere, or min|Lii| <= tol·max|Lii| (one host read)."""
+    d = torch.diagonal(L).abs()
+    return bool(torch.isnan(L).any() | (d.min() <= tol * d.max()))
+
+
+class _LadderCholesky(torch.autograd.Function):
+    """The jitter-laddered factor (jittered_cholesky with ladder > 0).
+    Forward: factor with the base shift, then retry rung by rung while the
+    factor is unusable. Backward, from the returned factor L alone (JAX:
+    ops/linalg._ladder_bwd): dK = ½(G + Gᵀ), G = L⁻ᵀ Φ(Lᵀ tril(gL)) L⁻¹ with
+    Φ the lower triangle with its diagonal halved; d extra = diag(dK)."""
+
+    @staticmethod
+    def forward(ctx, K, extra, base, ladder, rung_base):
+        from ..gpr.config import blocked_cholesky_enabled
+        K = K.detach()
+        e = extra.detach() if extra.numel() else None
+        md = torch.mean(torch.diagonal(K) if e is None else torch.diagonal(K) + e)
+        tol = 1000.0 * torch.finfo(K.dtype).eps
+
+        def shift(rel):
+            if rel is None:
+                return e
+            return rel * md if e is None else e + rel * md
+
+        # the blocked route factors in place: each attempt gets its own copy
+        inplace = blocked_cholesky_enabled(K.shape[0], K.device, K.dtype)
+
+        def factor(rel):
+            return cholesky(K.clone() if inplace else K, diag_shift=shift(rel))
+
+        L = factor(base if base else None)
+        for k in range(1, ladder + 1):
+            if not _unusable(L, tol):
+                break
+            jittered_cholesky.rungs += 1
+            L = factor(rung_base * 10.0 ** k)
+        ctx.has_extra = e is not None
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, gL):
+        L, = ctx.saved_tensors
+        Lt = torch.tril(L)
+        middle = torch.tril(Lt.mT @ torch.tril(gL))
+        middle.diagonal().mul_(0.5)
+        T1 = torch.linalg.solve_triangular(Lt.mT, middle, upper=True)
+        G = torch.linalg.solve_triangular(Lt.mT, T1.mT, upper=True).mT
+        dK = 0.5 * (G + G.mT)
+        dextra = torch.diagonal(dK).clone() if ctx.has_extra else None
+        return dK, dextra, None, None, None
+
+
+def solve_triangular(L, B, lower=True):
+    """Solve L X = B for triangular L (only its lower triangle is read when
+    lower, its upper triangle otherwise)."""
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 
 def cholesky_solve(L, B, invs=None):

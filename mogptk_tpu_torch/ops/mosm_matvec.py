@@ -14,7 +14,7 @@ kernel (float32, FP32 FFMA, no TF32) or raises.
 import torch
 
 from . import _build
-from .mosm_gram import mosm_gram_pairstats_plain, stats_table, check_gram_inputs
+from .mosm_gram import mosm_gram_pairstats_plain, stats_table, check_gram_inputs, generic_flag
 
 PLAIN_ROWS = 2048    # rows of the Gram the plain twin forms at a time
 MAX_R = 2048         # columns of V one launch takes
@@ -35,9 +35,9 @@ def mosm_matvec(x, c, st3, st2, V):
     """K(x, x)·V for the MOSM Gram of the pair statistics (st3, st2), with
     x (N, D), channel IDs c (N,) int32 and V (N, R). Not differentiable: the
     iterative engine calls it inside the forward of its autograd Function.
-    CPU: the plain twin. CUDA: float32 and contiguous; one launch of
+    CPU or float64: the plain twin. float32 CUDA, contiguous: one launch of
     csrc/mosm_matvec.cu per 2,048 columns of V, or raises."""
-    if x.device.type == "cpu":
+    if _build.runs_plain(x):
         return mosm_matvec_plain(x, c, st3, st2, V)
     O, _, Q, D, _ = st3.shape
     N, R = V.shape
@@ -54,7 +54,7 @@ def mosm_matvec(x, c, st3, st2, V):
                                                        device=x.device)
         err = _build.library().mosm_matvec_f32(
             x.data_ptr(), c.data_ptr(), stats.data_ptr(), Vg.data_ptr(), og.data_ptr(),
-            N, r1 - r0, O, Q, D, _build.stream_ptr(x))
+            N, r1 - r0, O, Q, D, generic_flag("forward", st3), _build.stream_ptr(x))
         _build.check(err, "mosm_matvec_f32")
         mosm_matvec.launches += 1
         if og is not out:

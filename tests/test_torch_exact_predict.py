@@ -97,9 +97,11 @@ def _jax_answers():
     for Xq in _queries():
         mu, var, bands = jax_reference.jit(predict)(jnp.asarray(Xq))
         out.append((np.asarray(mu), np.asarray(var), [np.asarray(b) for b in bands]))
+    full = [np.asarray(a) for a in jax_reference.jit(lambda q: jm.predict_f(q, full=True))(
+        jnp.asarray(_queries()[0]))]
     # loss() is the jitted −LML − log prior, and there are no priors; the
     # eager log_marginal_likelihood() costs seconds of op-by-op dispatch
-    return out, float(-jm.loss())
+    return out, float(-jm.loss()), full
 
 
 @pytest.fixture
@@ -124,7 +126,7 @@ def test_predict_and_lml_match_jax(port_config, jax_results, blocked):
         tgpr.use_blocked_cholesky(True, block_size=64)
     _, tm = _models()
     assert tm._channel_counts == (N_PER,) * CHANNELS
-    answers, lml = jax_results
+    answers, lml, _ = jax_results
     before = _launches()
     for Xq, (jmu, jvar, jbands) in zip(_queries(), answers):
         tmu, tvar = tm.predict_f(Xq)
@@ -137,6 +139,24 @@ def test_predict_and_lml_match_jax(port_config, jax_results, blocked):
     np.testing.assert_allclose(float(tm.log_marginal_likelihood()), lml, rtol=RTOL)
     # CPU tensors never launch a kernel
     assert _launches() == before
+
+
+@pytest.mark.parametrize("blocked", [False, True], ids=["dense", "blocked64"])
+def test_predict_f_full_matches_jax(port_config, jax_results, blocked):
+    """predict_f(full=True): the mean and the (M, M) posterior covariance
+    against the JAX package's, rtol 1e-7, atol 1e-12; its diagonal is
+    predict_f's variance."""
+    if blocked:
+        tgpr.use_blocked_cholesky(True, block_size=64)
+    _, tm = _models()
+    jmu, jcov = jax_results[2]
+    Xq = _queries()[0]
+    mu, cov = tm.predict_f(Xq, full=True)
+    assert cov.shape == (Xq.shape[0], Xq.shape[0])
+    np.testing.assert_allclose(mu.numpy(), jmu, rtol=RTOL, atol=1e-12)
+    np.testing.assert_allclose(cov.numpy(), jcov, rtol=RTOL, atol=1e-12)
+    torch.testing.assert_close(torch.diagonal(cov), tm.predict_f(Xq)[1][:, 0],
+                               rtol=1e-10, atol=1e-12)
 
 
 def test_parameters_carry_across(port_config):

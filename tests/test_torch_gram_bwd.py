@@ -1,6 +1,7 @@
 """The MOSM Gram's backward in mogptk_tpu_torch against the JAX package: the
-plain twin of K-gram-bwd (TPU kernels B2 and C1b), the MosmGram autograd
-Function, and K⁻¹ from the Cholesky factor (blocked_tri_inverse,
+plain twin of K-gram-bwd (TPU kernels B2 and C1b) with its parameter and
+input halves, the MosmGram autograd Function, the choice of kernel
+instance, and K⁻¹ from the Cholesky factor (blocked_tri_inverse,
 spd_inverse_from_factor). On CPU tensors the port runs the plain twins; the
 JAX side runs its Pallas kernels in interpret mode, as its own tests do on the
 CPU. float64, rtol 1e-7 (XLA-CPU's exp is only ~1e-8 accurate even in
@@ -150,11 +151,154 @@ def test_kernel_gram_is_a_mosm_gram_function(shuffle):
 
 
 def test_gram_inputs_that_need_a_gradient_raise():
-    x = torch.zeros((4, 1), dtype=torch.float64, requires_grad=True)
-    c = torch.zeros(4, dtype=torch.int32)
-    st3, st2 = torch.ones((1, 1, 1, 1, 3)), torch.ones((1, 1, 1, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tmg.mosm_gram(x, c, x.detach(), c, st3, st2)
+    """Inputs that need a gradient get one through MosmGram (trained
+    inducing points), where the Gram raised before the input half was
+    ported; only the input that asks gets a cotangent."""
+    rng = np.random.RandomState(5)
+    x = torch.as_tensor(rng.rand(4, 1), dtype=torch.float64).requires_grad_()
+    x2 = torch.as_tensor(rng.rand(3, 1), dtype=torch.float64)
+    c, c2 = torch.zeros(4, dtype=torch.int32), torch.zeros(3, dtype=torch.int32)
+    st3 = torch.as_tensor([[[[[0.5, 0.3, 0.1]]]]], dtype=torch.float64)
+    st2 = torch.as_tensor([[[[1.2, 0.05]]]], dtype=torch.float64)
+    K = tmg.mosm_gram(x, c, x2, c2, st3, st2)
+    K.sum().backward()
+    xr = x.detach().clone().requires_grad_()
+    tmg.mosm_gram_pairstats_plain(xr, c, x2, c2, st3, st2).sum().backward()
+    torch.testing.assert_close(x.grad, xr.grad, rtol=1e-12, atol=0)
+    assert x2.grad is None
+
+
+# (row counts of x1, column counts of x2, Q, D, layout): inducing-point
+# shapes against data channel-sorted, permuted and square (x1 is x2), and a
+# D = 2 case with one channel empty on the column side
+INPUT_CASES = [((6, 5, 7), (40, 33, 50), 2, 1, "sorted"),
+               ((6, 5, 7), (40, 33, 50), 2, 1, "permuted"),
+               ((6, 5, 7), (40, 33, 50), 2, 1, "square"),
+               ((5, 6, 4), (30, 0, 26), 2, 2, "permuted")]
+
+
+def _input_setup(c1s, c2s, Q, D, seed, layout):
+    """x1 (Z-like), x2 (X-like) with their channels, parameters and a dense
+    cotangent g; layout "sorted", "permuted" (both sides shuffled) or
+    "square" (x1 is x2, g (M, M))."""
+    rng = np.random.RandomState(seed)
+    O = len(c1s)
+
+    def side(counts):
+        n = sum(counts)
+        x = np.sort(rng.rand(n, D) * 5, axis=0)
+        c = np.repeat(np.arange(O), counts).astype(np.int32)
+        if layout == "permuted":
+            perm = rng.permutation(n)
+            x, c = x[perm], c[perm]
+        return x, c
+
+    x1, c1 = side(c1s)
+    x2, c2 = (x1, c1) if layout == "square" else side(c2s)
+    params = (0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+              0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))
+    g = rng.randn(x1.shape[0], x2.shape[0])
+    return x1, c1, x2, c2, params, float((2 * np.pi) ** (D / 2)), g
+
+
+def _jax_input_vjp(x1, c1, x2, c2, params, twopi, g, square):
+    """(dx1, dx2, dparams) of Σ K∘g through the JAX package's Pallas
+    mosm_gram with input_grads=True (C1b's backward with its input half,
+    interpret mode); square: one x for both sides, its two cotangents
+    summed by jax.vjp."""
+    c1j, c2j, gj = jnp.asarray(c1), jnp.asarray(c2), jnp.asarray(g)
+
+    def vjp(gj, a, b, *p):
+        if square:
+            out = jax.vjp(lambda x, *q: jpm.mosm_gram(x, c1j, x, c1j, *q, twopi, True, True),
+                          a, *p)[1](gj)
+            return (out[0], out[0] * 0) + tuple(out[1:])
+        return jax.vjp(lambda x, y, *q: jpm.mosm_gram(x, c1j, y, c2j, *q, twopi, True, True),
+                       a, b, *p)[1](gj)
+
+    return [np.asarray(a) for a in jax_reference.jit(vjp)(
+        gj, jnp.asarray(x1), jnp.asarray(x2), *map(jnp.asarray, params))]
+
+
+@pytest.mark.parametrize("c1s,c2s,Q,D,layout", INPUT_CASES)
+def test_gram_bwd_input_half_matches_jax_and_autograd(c1s, c2s, Q, D, layout, interpret_pallas):
+    """mosm_gram_bwd's plain twin with inputs=3: dx1 (row sums) and dx2
+    (column sums, negated) beside the unchanged parameter half, against the
+    JAX Pallas backward with input_grads=True and against torch autograd of
+    Σ K∘g through mosm_gram_pairstats_plain; for x1 is x2, the MosmGram
+    Function's gradient of its one input (dx1 + dx2) too. rtol 1e-7, atol
+    1e-12 of each output's scale."""
+    square = layout == "square"
+    x1, c1, x2, c2, params, twopi, g = _input_setup(c1s, c2s, Q, D, 17 + D, layout)
+    ref_jax = _jax_input_vjp(x1, c1, x2, c2, params, twopi, g, square)
+    tp = list(map(_t, params))
+    st3, st2 = tbm.mosm_pair_stats(*tp, twopi)
+    c1t, c2t = torch.as_tensor(c1), torch.as_tensor(c2)
+    dst3, dst2, dx1, dx2 = tmg.mosm_gram_bwd(_t(x1), c1t, _t(x2), c2t, st3, st2, _t(g),
+                                             inputs=3)
+    a1, a2 = _t(x1).requires_grad_(), _t(x2).requires_grad_()
+    K = tmg.mosm_gram_pairstats_plain(a1, c1t, a2, c2t, st3, st2)
+    ref_ag = torch.autograd.grad(torch.sum(K * _t(g)), (a1, a2))
+    got_p = tbm.pair_stats_vjp(tp, twopi, dst3, dst2)
+    if square:
+        xs = _t(x1).requires_grad_()
+        ps = [p.clone().requires_grad_() for p in tp]
+        Ks = tmg.mosm_gram(xs, c1t, xs, c1t, *tbm.mosm_pair_stats(*ps, twopi))
+        fn = torch.autograd.grad(torch.sum(Ks * _t(g)), [xs] + ps)
+        scale = float(np.abs(ref_jax[0]).max())
+        np.testing.assert_allclose(fn[0].numpy(), ref_jax[0], rtol=RTOL, atol=1e-12 * scale,
+                                   err_msg="dx of x1 is x2")
+        np.testing.assert_allclose((dx1 + dx2).numpy(), ref_jax[0], rtol=RTOL,
+                                   atol=1e-12 * scale, err_msg="dx1 + dx2")
+        for name, a, rj in zip(NAMES, fn[1:], ref_jax[2:]):
+            np.testing.assert_allclose(a.numpy(), rj, rtol=RTOL,
+                                       atol=1e-12 * float(np.abs(rj).max()), err_msg=name)
+    else:
+        for name, a, rj, ra in (("dx1", dx1, ref_jax[0], ref_ag[0]),
+                                ("dx2", dx2, ref_jax[1], ref_ag[1])):
+            scale = float(np.abs(rj).max())
+            np.testing.assert_allclose(a.numpy(), rj, rtol=RTOL, atol=1e-12 * scale, err_msg=name)
+            np.testing.assert_allclose(a.numpy(), ra.numpy(), rtol=RTOL, atol=1e-12 * scale,
+                                       err_msg=name)
+        for name, a, rj in zip(NAMES, got_p, ref_jax[2:]):
+            np.testing.assert_allclose(a.numpy(), rj, rtol=RTOL,
+                                       atol=1e-12 * float(np.abs(rj).max()), err_msg=name)
+    for name, a, ra in (("dx1", dx1, ref_ag[0]), ("dx2", dx2, ref_ag[1])):
+        torch.testing.assert_close(a, ra, rtol=RTOL, atol=1e-12 * float(ra.abs().max()),
+                                   msg=name)
+
+
+def test_kernel_instance_choice():
+    """Which compiled instance takes a shape, decided on the host: the
+    forward kernels' unrolled instance needs D <= 8 and the O²·(3QD + 2Q)
+    float32 pair table within 48 KB of shared memory, else the generic one
+    (runtime D, the table read from global memory); the backward kernels'
+    unrolled instance needs Q <= 4 and D <= 2."""
+    assert tmg.kernel_instance("forward", 4, 2, 1) == "unrolled"
+    assert tmg.kernel_instance("forward", 4, 2, 8) == "unrolled"
+    assert tmg.kernel_instance("forward", 1, 1, 9) == "generic"
+    # O = 20, Q = 4, D = 2: 400 pairs of 32 floats, 51,200 bytes
+    assert tmg.kernel_instance("forward", 20, 4, 2) == "generic"
+    assert tmg.kernel_instance("forward", 19, 4, 2) == "unrolled"
+    assert tmg.kernel_instance("backward", 20, 4, 2) == "unrolled"
+    assert tmg.kernel_instance("backward", 3, 5, 3) == "generic"
+    assert tmg.kernel_instance("backward", 3, 4, 3) == "generic"
+    assert tmg.kernel_instance("backward", 3, 5, 1) == "generic"
+    st3 = torch.zeros((3, 3, 5, 3, 3))
+    assert tmg.generic_flag("backward", st3) == 1 and tmg.generic_flag("forward", st3) == 0
+    with pytest.raises(ValueError):
+        tmg.kernel_instance("sideways", 1, 1, 1)
+
+
+def test_input_half_tile_table():
+    """The input half's reduction order: the work-list index of every tile
+    (ti, tj), rows and columns over the present channels' tiles."""
+    counts1, counts2 = (300, 0, 256), (10, 20, 0)
+    idx, _ = tmg._gram_layout(counts1, counts2, 256)
+    tab = tmg._tile_table(idx, counts1, counts2, 256)
+    assert tab.shape == (3, 2) and (tab >= 0).all()
+    for s, (ti, tj, _) in enumerate(idx.tolist()):
+        assert tab[ti, tj] == s
 
 
 def test_gram_layout():

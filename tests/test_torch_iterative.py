@@ -383,8 +383,10 @@ def _jax_extras(jm):
     try:
         out["readout"] = _jax_readout(jm)
         out["Xq"] = np.asarray(jm.X)[::5]
-        out["predict"] = tuple(np.asarray(a) for a in jax_reference.jit(
-            lambda q: jm.predict_f(q, block_size=7))(out["Xq"]))
+        out["predict"], out["predict_full"] = (
+            tuple(np.asarray(a) for a in pair) for pair in jax_reference.jit(
+                lambda q: (jm.predict_f(q, block_size=7),
+                           jm.predict_f(q, full=True, block_size=7)))(out["Xq"]))
         out["diag"] = _jax_diagnostics(jm, 6)
     finally:
         jgpr.use_pallas(None)
@@ -621,6 +623,21 @@ def test_predict_f_in_blocks_matches_jax(jax_sorted_extras):
     mu, var = tm.predict_f(out["Xq"], block_size=7)
     _close(mu, out["predict"][0], "mean", atol_rel=1e-10)
     _close(var, out["predict"][1], "variance", atol_rel=1e-10)
+
+
+def test_predict_f_full_matches_jax(jax_sorted_extras):
+    """predict_f(full=True) over the same 24 query points: the mean and the
+    (24, 24) posterior covariance, atol 1e-10 of the mean's scale and 1e-9
+    of the covariance's (Kss − Kfsᵀ·CG(Kfs): the rounding of the two CG
+    runs, 24 columns wide, differs by ~2e-10 of the scale in entries near
+    0); its diagonal is the blocked variance."""
+    out = jax_sorted_extras
+    tm = _port_gpr(out["model"], _top(T).gpr.kernel)
+    mu, cov = tm.predict_f(out["Xq"], full=True, block_size=7)
+    assert cov.shape == (24, 24)
+    _close(mu, out["predict_full"][0], "mean", atol_rel=1e-10)
+    _close(cov, out["predict_full"][1], "covariance", atol_rel=1e-9)
+    _close(torch.diagonal(cov), out["predict"][1][:, 0], "diagonal", atol_rel=1e-9)
 
 
 def test_cg_diagnostics_match_jax(jax_sorted_extras):

@@ -34,7 +34,7 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
             "import mogptk_tpu_torch.ops.block_mosm, mogptk_tpu_torch.ops.blocked_cholesky\n"
             "import mogptk_tpu_torch.model, mogptk_tpu_torch.models.mosm, mogptk_tpu_torch.init\n"
             "import mogptk_tpu_torch.gpr.iterative, mogptk_tpu_torch.ops.iterative\n"
-            "import mogptk_tpu_torch.ops.mosm_matvec\n"
+            "import mogptk_tpu_torch.ops.mosm_matvec, mogptk_tpu_torch.gpr.model\n"
             "bad = [m for m in ('jax', 'pandas', 'matplotlib') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -43,7 +43,8 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
 def test_kernel_sources_and_nvcc_command():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["blocked_cholesky.cu", "fused_cho_solve.cu", "mosm_gram.cu",
-                     "mosm_gram_bwd.cu", "mosm_lowrank_vjp.cu", "mosm_matvec.cu"]
+                     "mosm_gram_bwd.cu", "mosm_gram_bwd_inputs.cu", "mosm_lowrank_vjp.cu",
+                     "mosm_matvec.cu"]
     compiles, link = _build.nvcc_commands("/tmp/out.so")
     # one compile per source, all into the one library
     assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == _build.sources()
@@ -54,6 +55,44 @@ def test_kernel_sources_and_nvcc_command():
     assert link[4:] == [cmd[cmd.index("-o") + 1] for cmd in compiles]
     # one source hash per set of sources and flags
     assert _build.source_hash() == _build.source_hash()
+
+
+def test_lowrank_vjp_takes_any_rank_in_chunks():
+    """K-lowrank-vjp stages at most 64 columns of A and B at a time and
+    accumulates the cotangent tile over the chunks inside the block: the
+    chunk for rank R is min(R, 64), so R = probes + 1 >= 65 runs in
+    ceil(R / 64) chunks where the kernel once refused it."""
+    assert [tbm.lowrank_chunk(R) for R in (1, 17, 64, 65, 129, 1025)] == [1, 17, 64, 64, 64, 64]
+    with pytest.raises(ValueError):
+        tbm.lowrank_chunk(0)
+
+
+def test_float64_routes_to_the_plain_twins_on_any_device():
+    """The one dtype route (ops/_build.runs_plain): float64 runs the plain
+    twin on the tensor's own device and counts no launch; float32 off the
+    CPU goes to the kernel, which needs a CUDA tensor and raises otherwise.
+    Shown on the meta device, which stands in for the card here."""
+    meta = torch.device("meta")
+    assert _build.runs_plain(torch.empty(2, dtype=torch.float64, device=meta))
+    assert _build.runs_plain(torch.empty(2, dtype=torch.float32))
+    assert not _build.runs_plain(torch.empty(2, dtype=torch.float32, device=meta))
+    O, Q, D, n = 2, 2, 1, 6
+    c = torch.zeros(n, dtype=torch.int32, device=meta)
+    for dtype in (torch.float64, torch.float32):
+        x = torch.empty((n, D), dtype=dtype, device=meta)
+        st3 = torch.empty((O, O, Q, D, 3), dtype=dtype, device=meta)
+        st2 = torch.empty((O, O, Q, 2), dtype=dtype, device=meta)
+        V = torch.empty((n, 3), dtype=dtype, device=meta)
+        calls = [lambda: tmg.mosm_gram(x, c, x, c, st3, st2),
+                 lambda: tmv.mosm_matvec(x, c, st3, st2, V)]
+        before = (tmg.mosm_gram.launches, tmv.mosm_matvec.launches)
+        for call in calls:
+            if dtype == torch.float64:
+                assert call().device == meta
+            else:
+                with pytest.raises(ValueError, match="must be on"):
+                    call()
+        assert (tmg.mosm_gram.launches, tmv.mosm_matvec.launches) == before
 
 
 @pytest.mark.cuda
@@ -257,3 +296,136 @@ def test_cuda_matvec_matches_plain_twin():
             torch.cuda.synchronize()
             assert torch.equal(got, again)
             assert bool(((got - twin).abs() <= tol).all())
+
+
+def _mosm_case(rng, O, Q, D, dev, dtype=torch.float32):
+    params = [torch.as_tensor(p, dtype=dtype, device=dev) for p in (
+        0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+        0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))]
+    return params, float((2 * np.pi) ** (D / 2))
+
+
+@pytest.mark.cuda
+def test_cuda_gram_bwd_input_half_matches_plain_twin():
+    """K-gram-bwd's input half (dx1, dx2) and its parameter half against the
+    plain twin on the card, float32: inducing-point-like rows (channel-sorted,
+    ragged) against unsorted columns, the same permuted, x1 is x2 through
+    MosmGram's autograd (dx1 + dx2), and the generic instance (Q = 5,
+    D = 3). Tolerance: no more than 2x the float32 twin's error against a
+    float64 twin on the same inputs, plus 1e-5 relative (summation order).
+    A repeated call is bit-identical (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(4)
+    O = 3
+    for Q, D, layout in ((2, 1, "sorted"), (2, 1, "permuted"), (2, 2, "square"),
+                         (5, 3, "sorted")):
+        counts = (40, 33, 50)
+        M = sum(counts)
+        x1 = torch.as_tensor(np.sort(rng.rand(M, D) * 20, axis=0), dtype=torch.float32,
+                             device=dev)
+        c1 = tbm.channel_ids(counts, dev)
+        if layout == "permuted":
+            perm = torch.as_tensor(rng.permutation(M), device=dev)
+            x1, c1 = x1[perm].contiguous(), c1[perm].contiguous()
+        if layout == "square":
+            x2, c2 = x1, c1
+        else:
+            x2 = torch.as_tensor(rng.rand(700, D) * 20, dtype=torch.float32, device=dev)
+            c2 = torch.as_tensor(rng.randint(0, O, 700), dtype=torch.int32, device=dev)
+        params, twopi = _mosm_case(rng, O, Q, D, dev)
+        st3, st2 = tbm.mosm_pair_stats(*params, twopi)
+        g = torch.as_tensor(rng.randn(x1.shape[0], x2.shape[0]), dtype=torch.float32, device=dev)
+        launches = (tmg.mosm_gram_bwd.launches, tmg.mosm_gram_bwd.input_launches)
+        got = tmg.mosm_gram_bwd(x1, c1, x2, c2, st3, st2, g, inputs=3)
+        again = tmg.mosm_gram_bwd(x1, c1, x2, c2, st3, st2, g, inputs=3)
+        assert (tmg.mosm_gram_bwd.launches, tmg.mosm_gram_bwd.input_launches) == (
+            launches[0], launches[1] + 2)
+        twin = tmg.mosm_gram_bwd_plain(x1, c1, x2, c2, st3, st2, g, inputs=3)
+        ref = tmg.mosm_gram_bwd_plain(x1.double(), c1, x2.double(), c2, st3.double(),
+                                      st2.double(), g.double(), inputs=3)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        for k, name in enumerate(("dst3", "dst2", "dx1", "dx2")):
+            assert _rel_err(got[k:k + 1], ref[k:k + 1]) <= \
+                2 * _rel_err(twin[k:k + 1], ref[k:k + 1]) + 1e-5, (layout, name)
+        if layout == "square":
+            xs = x1.clone().requires_grad_()
+            K = tmg.mosm_gram(xs, c1, xs, c1, st3, st2)
+            (dx,) = torch.autograd.grad(torch.sum(K * g), xs)
+            torch.testing.assert_close(dx, got[2] + got[3], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_take_every_shape_and_float64():
+    """The repairs on the card: K-lowrank-vjp at R = 65 and 129 (two and
+    three chunks) and in its generic instance (Q = 5, D = 3), against a
+    float64 twin as above; K-gram and K-matvec in their generic instance
+    for O = 20, Q = 4, D = 2 (a 51 KB pair table, read from global memory)
+    and for D = 9, against their plain twins (2e-4·max|K|, K-matvec with
+    the float32 summation bound of N terms added); and a float64 MOSM Exact
+    model on the card (the plain twins, no launch) against the same model on
+    the CPU, rtol 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mogptk_tpu_torch import gpr
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(6)
+    counts = (300, 1, 257)
+    n = sum(counts)
+    for Q, D, R in ((2, 1, 65), (2, 1, 129), (5, 3, 17)):
+        x = torch.as_tensor(np.sort(rng.rand(n, D) * 20, axis=0), dtype=torch.float32, device=dev)
+        params, twopi = _mosm_case(rng, 3, Q, D, dev)
+        st3, st2 = tbm.mosm_pair_stats(*params, twopi)
+        A = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+        B = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+        got = tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B)
+        again = tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B)
+        twin = tbm.mosm_lowrank_vjp_plain(x, counts, st3, st2, A, B)
+        ref = tbm.mosm_lowrank_vjp_plain(x.double(), counts, st3.double(), st2.double(),
+                                         A.double(), B.double())
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        p64 = [p.double() for p in params]
+        assert _rel_err(tbm.pair_stats_vjp(params, twopi, *got),
+                        tbm.pair_stats_vjp(p64, twopi, *ref)) <= 2 * _rel_err(
+            tbm.pair_stats_vjp(params, twopi, *twin), tbm.pair_stats_vjp(p64, twopi, *ref)) + 1e-5
+    for O, Q, D in ((20, 4, 2), (2, 1, 9)):
+        assert tmg.kernel_instance("forward", O, Q, D) == "generic"
+        N = 2000
+        x = torch.as_tensor(rng.rand(N, D) * 10, dtype=torch.float32, device=dev)
+        c = torch.as_tensor(rng.randint(0, O, N), dtype=torch.int32, device=dev)
+        params, twopi = _mosm_case(rng, O, Q, D, dev)
+        st3, st2 = tbm.mosm_pair_stats(*params, twopi)
+        K = tmg.mosm_gram(x, c, x[:700], c[:700], st3, st2)
+        Kp = tmg.mosm_gram_pairstats_plain(x, c, x[:700], c[:700], st3, st2)
+        V = torch.as_tensor(rng.randn(N, 33), dtype=torch.float32, device=dev)
+        KV = tmv.mosm_matvec(x, c, st3, st2, V)
+        KVp = tmv.mosm_matvec_plain(x, c, st3, st2, V)
+        torch.cuda.synchronize()
+        kmax = float(Kp.abs().max())
+        assert float((K - Kp).abs().max()) <= 2e-4 * kmax, (O, Q, D)
+        tol = (2e-4 + N * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
+        assert bool(((KV - KVp).abs() <= tol).all()), (O, Q, D)
+
+    saved = gpr.config._dtype
+    gpr.use_double_precision()
+    try:
+        xs = [np.sort(rng.rand(300, 1) * 20, axis=0) for _ in range(3)]
+        ys = [np.sin(x) + 0.1 * rng.randn(300, 1) for x in xs]
+        out = []
+        for device in ("cpu", "cuda"):
+            _, X, Y = gpr.merge_data(xs, ys, device=device)
+            m = gpr.Exact(gpr.MultiOutputSpectralMixtureKernel(2, output_dims=3), X, Y,
+                          variance=0.1, device=device)
+            before = (tmg.mosm_gram.launches, tmg.mosm_gram_bwd.launches)
+            loss = m.loss()
+            loss.backward()
+            mu, var = m.predict_f(X[::7])
+            assert (tmg.mosm_gram.launches, tmg.mosm_gram_bwd.launches) == before
+            out.append([loss.detach(), mu, var] + [r.grad for r in m.trainable_raws()])
+        for a, b in zip(*out):
+            torch.testing.assert_close(b.cpu(), a, rtol=1e-9, atol=1e-12 * float(a.abs().max()))
+    finally:
+        gpr.config._dtype = saved

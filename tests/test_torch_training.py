@@ -208,8 +208,9 @@ def _small_model(trace_probes=PROBES, shuffle=False, device=None):
 def test_unported_configurations_raise():
     """What is not ported raises NotImplementedError naming its ROADMAP
     item: LBFGS, a mean function, the SM-model initialization and a sparse
-    inference selector. (The closed-form gradient and unsorted channels,
-    which raised here before, now train: test_torch_closed_form.py.)"""
+    model with a non-Gaussian likelihood. (The closed-form gradient,
+    unsorted channels and the sparse selectors, which raised here before,
+    now train: test_torch_closed_form.py, test_torch_sparse.py.)"""
     import mogptk_tpu_torch as mogptk
     with pytest.raises(NotImplementedError, match="LBFGS.*queue 1, item 8"):
         tgpr.train(_small_model(), method="LBFGS", iters=1)
@@ -221,8 +222,9 @@ def test_unported_configurations_raise():
     ds = mogptk.DataSet([x[:, 0] for x in xs], [y[:, 0] for y in ys])
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         mogptk.MOSM(ds, Q=2).init_parameters("SM", iters=1)
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        mogptk.MOSM(ds, Q=2, inference=mogptk.Titsias(inducing_points=8))
+    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+        mogptk.MOSM(ds, Q=2, inference=mogptk.Hensman(inducing_points=8,
+                                                      likelihood=tgpr.Likelihood()))
 
 
 def test_probes():
