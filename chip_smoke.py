@@ -45,7 +45,22 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   fired, predict_y latency for 4,096 points, the same model through
   mogptk_tpu_torch.MOSM with the Titsias selector; then Snelson,
   SparseHensman, Hensman and OpperArchambeau at N = 4,096 (1,024 for the
-  last two), each first step against float64 and three counted steps.
+  last two), each first step against float64 and three counted steps;
+- the other multi-output families (uMOSM, CSM with Rq = 2, CONV, MOHSM
+  under psd_safe, SM-LMC with Q = 2 and Rq = 2): K-fam-gram,
+  K-fam-gram-bwd, K-fam-matvec and K-fam-lowrank-vjp against their plain
+  twins at benchmarks/family_bench.py's configuration (2 channels x 2,048
+  points, N = 4,096; R = 1, 17, 33 and 65; channel-sorted and permuted
+  points; each repeat bit-identical), and for CSM and SM-LMC at bench.py's
+  full width (N = 16,384); each family through gpr.Exact at N = 4,096
+  (probe-trace and closed-form first steps against a float64 execution on
+  the card and the float32 twins, three counted Adam steps each, predict_y
+  of 1,024 points, family_bench.py's JSON keys); then at N = 16,384 the
+  SM_LMC named model through the user API (BNSE, train, predict, error),
+  gpr.Exact with the CSM kernel (both gradients, a 4,096-point request),
+  one ExactIterative step of it at the bench budget against its float64
+  execution, and the CSM, CONV and MOHSM named models (the dense
+  formulations) three steps each at N = 4,096.
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -483,6 +498,16 @@ def main():
     drive_other_sparse(gpr, _build, xs, ys, dev, smi)
     gpr.use_jitter_ladder(0)
     print("phases 12-15 (sparse inference) wall time: %.1f s" % (time.perf_counter() - t_sparse))
+    torch.cuda.empty_cache()
+
+    # -- phases 16-18: the other multi-output families -------------------------
+    t_fam = time.perf_counter()
+    fam_xs, fam_ys = drive_families(gpr, _build, dev, smi)
+    phase("phase 18: the families at bench.py's full width (N=%d)" % n)
+    fam_report, fam_launches = drive_families_full(gpr, _build, xs, ys, X, Y, reqs, fam_xs,
+                                                   fam_ys, dev, smi)
+    report.update(fam_report)
+    print("phases 16-18 (the other families) wall time: %.1f s" % (time.perf_counter() - t_fam))
 
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu"}
@@ -520,7 +545,26 @@ def main():
          "source": "mogptk_tpu_torch/csrc/mosm_gram_bwd.cu",
          "replaces": "mogptk_tpu/ops/pallas_mosm.py:274 (the input half of _bwd_kernel, :103-160)",
          "path": "sparse train", "launches": sparse_launches["mosm_gram_bwd_inputs"]},
+        {"name": "family_gram", "route": "cuda", "source": "mogptk_tpu_torch/csrc/family_gram.cu",
+         "replaces": "mogptk_tpu/ops/block_families.py:392; mogptk_tpu/ops/fused.py:386",
+         "path": "family train", "launches": fam_launches["family_gram"]},
+        {"name": "family_gram_bwd", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/family_gram_bwd.cu",
+         "replaces": "mogptk_tpu/ops/block_families.py:431",
+         "path": "family closed-form train", "launches": fam_launches["family_gram_bwd"]},
+        {"name": "family_matvec", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/family_matvec.cu",
+         "replaces": "mogptk_tpu/ops/block_families.py:504; mogptk_tpu/ops/block_families.py:525; "
+                     "mogptk_tpu/ops/fused.py:288",
+         "path": "family iterative train", "launches": fam_launches["family_matvec"]},
+        {"name": "family_lowrank_vjp", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/family_lowrank_vjp.cu",
+         "replaces": "mogptk_tpu/ops/block_families.py:590; mogptk_tpu/ops/fused.py:346",
+         "path": "family train", "launches": fam_launches["family_lowrank_vjp"]},
     ]
+    for k in kernels:
+        if k["launches"] < 1:
+            fail("%s was not launched on its main path" % k["name"])
     for k in kernels:
         r = report[k["name"]]
         k.update(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -818,11 +862,32 @@ def step_outputs(model):
     return out
 
 
-def three_ways(gpr, _build, model, rebuild, fn):
+@contextlib.contextmanager
+def family_twins(_build):
+    """Inside, the family kernels' wrappers (ops/block_families) run their
+    plain twins on the card; every other kernel launches as before."""
+    from mogptk_tpu_torch.ops import block_families as bf
+
+    class Plain:
+        runs_plain = staticmethod(lambda t: True)
+
+        def __getattr__(self, name):
+            return getattr(_build, name)
+
+    bf._build = Plain()
+    try:
+        yield
+    finally:
+        bf._build = _build
+
+
+def three_ways(gpr, _build, model, rebuild, fn, twins=plain_twins):
     """fn(model) through the kernels, through the float32 plain twins on the
-    card, and through a float64 copy (rebuild() under float64, then the
-    model's raws and relative jitter) on the card's float64 route; three
-    lists of float64 tensors, and the jitter rungs each execution fired."""
+    card (twins(_build): every kernel's, or with family_twins the family
+    kernels' only), and through a float64 copy (rebuild() under float64,
+    then the model's raws and relative jitter) on the card's float64 route;
+    three lists of float64 tensors, and the jitter rungs each execution
+    fired."""
     from mogptk_tpu_torch.ops import linalg as la
     rungs, outs = [], []
     for how in ("kernels", "twins", "float64"):
@@ -830,7 +895,7 @@ def three_ways(gpr, _build, model, rebuild, fn):
         if how == "kernels":
             out = fn(model)
         elif how == "twins":
-            with plain_twins(_build):
+            with twins(_build):
                 out = fn(model)
         else:
             raws = [r.detach().double().cpu().numpy() for r in model.raw_state()]
@@ -851,7 +916,8 @@ def three_ways(gpr, _build, model, rebuild, fn):
 
 def held(label, what, got, twin, ref, floor):
     """max |got − ref| <= 2·max |twin − ref| + floor·max |ref| over a group
-    of tensors; prints the reading and fails beyond it."""
+    of tensors; prints the reading and fails beyond it. Returns the two
+    distances and the limit."""
     scale = max(float(r.abs().max()) for r in ref)
     d_k = max(float((g - r).abs().max()) for g, r in zip(got, ref))
     d_t = max(float((t - r).abs().max()) for t, r in zip(twin, ref))
@@ -860,6 +926,7 @@ def held(label, what, got, twin, ref, floor):
           % (label, what, d_k, d_t, tol, scale))
     if not d_k <= tol:
         fail("%s: %s is further from float64 than twice the float32 twins" % (label, what))
+    return d_k, d_t, tol
 
 
 def check_sparse_first_step(gpr, _build, model, rebuild, label):
@@ -1272,11 +1339,11 @@ def first_step_parts(model, it):
     import torch
     lay = model._layout
     with torch.no_grad():
-        st3, st2, kdiag = model._stats()
-        st3, st2 = st3.detach(), st2.detach()
+        pack, kdiag = model._pack()
+        pack = tuple(t.detach() for t in pack)
         noise = model._noise_diag().detach()
-        matvec = it.make_matvec(lay["x"], lay["c"], st3, st2, lay.sort(noise))
-        L, s2 = model._factor(noise, st3, st2, kdiag, model.precond_rank)
+        matvec = it.make_matvec(model.family, lay["x"], lay["c"], pack, lay.sort(noise))
+        L, s2 = model._factor(noise, pack, kdiag, model.precond_rank)
         val, alpha, _, parts = it.lml_iter_value(matvec, L, s2, lay.sort(model.y), model._Z,
                                                  model._u0, model._u1, model.max_cg_iters,
                                                  model.cg_tol)
@@ -1485,7 +1552,7 @@ def readout_references(model, bm, mg, mv, terms, Z, rank, lanczos):
     from mogptk_tpu_torch.ops import iterative as ops_it
     lay = model._layout
     with torch.no_grad():
-        L, sigma2, st3, st2 = model._operator(rank)[2:]
+        L, sigma2, (st3, st2) = model._operator(rank)[2:]
         x, c = lay["x"], lay["c"]
         noise = lay.sort(model._noise_diag())
         Zs = lay.sort(Z)
@@ -2039,6 +2106,515 @@ def profile_step(model):
         for r, v in zip(raws, saved):
             r.copy_(v)
             r.grad = None
+
+
+# -- phases 16-18: the other multi-output families -----------------------------
+
+FAMILY_NAMES = ("umosm", "csm", "conv", "mohsm", "lmc_sm")
+FAM_CHANNELS, FAM_N_PER = 2, 2048     # benchmarks/family_bench.py: N = 4,096
+FAM_PROBES = 16
+FAM_RANKS = (1, 17, 33, 65)
+FAM_PREDICT = 1024
+FULL_FAMILIES = ("csm", "lmc_sm")     # phase 16 at bench.py's full width too
+
+
+def canary_data(gpr, dev):
+    """benchmarks/tpu_canary.py _data(2, 2048): 2 channels x 2,048 sorted
+    points on [0, 6]."""
+    rng = np.random.RandomState(0)
+    xs, ys = [], []
+    for j in range(FAM_CHANNELS):
+        x = np.sort(rng.uniform(0.0, 6.0, FAM_N_PER)).reshape(-1, 1)
+        xs.append(x)
+        ys.append((np.sin(1.2 * x[:, 0] + j) + 0.05 * rng.randn(FAM_N_PER)).reshape(-1, 1))
+    return xs, ys, gpr.merge_data(xs, ys, device=dev)
+
+
+def family_kernel(gpr, name, channels=FAM_CHANNELS):
+    """benchmarks/tpu_canary.py _family_kernel(name, RandomState(1),
+    channels): CSM with Rq = 2, SM-LMC with Q = 2 and Rq = 2, MOHSM under
+    psd_safe (as benchmarks/family_bench.py times it)."""
+    rng = np.random.RandomState(1)
+    if name == "umosm":
+        k = gpr.UncoupledMultiOutputSpectralKernel(output_dims=channels)
+        k.weight.assign(np.tril(0.5 + rng.rand(channels, channels)))
+        k.mean.assign(0.1 + 0.1 * rng.rand(channels, 1))
+        k.variance.assign(0.3 + 0.1 * rng.rand(channels, 1))
+    elif name == "csm":
+        k = gpr.CrossSpectralKernel(output_dims=channels, Rq=2)
+        k.mean.assign(0.1 + 0.1 * rng.rand(1))
+        k.variance.assign(0.3 + 0.1 * rng.rand(1))
+        k.amplitude.assign(0.5 + rng.rand(channels, 2))
+    elif name == "conv":
+        k = gpr.GaussianConvolutionProcessKernel(output_dims=channels)
+        k.variance.assign(0.3 + 0.1 * rng.rand(channels, 1))
+    elif name == "lmc_sm":
+        spectral = [gpr.SpectralKernel(1) for _ in range(2)]
+        for kq in spectral:
+            kq.mean.assign(0.1 + 0.1 * rng.rand(1))
+            kq.variance.assign(0.3 + 0.1 * rng.rand(1))
+        k = gpr.LinearModelOfCoregionalizationKernel(spectral, output_dims=channels, Q=2, Rq=2)
+        k.weight.assign(0.3 + 0.5 * rng.rand(channels, 2, 2))
+    else:
+        k = gpr.MultiOutputHarmonizableSpectralKernel(output_dims=channels, psd_safe=True)
+        k.mean.assign(0.1 + 0.1 * rng.rand(channels, 1))
+        k.variance.assign(0.9 + 0.2 * rng.rand(channels, 1))
+        k.lengthscale.assign(0.25 + 0.1 * rng.rand(channels))
+    return k
+
+
+def family_ops(family, D, kind):
+    """FP32 operations of one element of a family's Gram (a transcendental
+    function counted as one, as gram_ops does): its value chain (kind
+    "value"), or with kind "grad" that chain, one more per sine and four per
+    scalar of the pack (csrc/family_element.cuh)."""
+    name, statics = family
+    A = statics[0] if name in ("csm", "lmc_sm") else 0
+    value = {"umosm": 6 * D + 7, "mohsm": 10 * D + 9, "csm": 5 * D + 2 + 5 * A,
+             "conv": 4 * D + 3, "lmc_sm": A * (8 * D + 2)}[name]
+    if kind == "value":
+        return value
+    S = {"umosm": 3 * D + 2, "csm": 2 * D + 2 * A, "conv": D + 1, "mohsm": 4 * D + 3,
+         "lmc_sm": A + 2 * A * D}[name]
+    sines = {"umosm": 1, "mohsm": 1, "csm": A, "conv": 0, "lmc_sm": A * D}[name]
+    return value + sines + 4 * S
+
+
+def fam_chain(pack, params, dpack):
+    """The parameters' cotangents (float64) of a pack cotangent, through the
+    family's pack function (the chain the training paths apply)."""
+    import torch
+    return [g.double() for g in torch.autograd.grad(pack, params, dpack.to(pack.dtype),
+                                                    retain_graph=True)]
+
+
+def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=None):
+    """Phase 16 for one family at one size: K-fam-gram, K-fam-gram-bwd,
+    K-fam-matvec (R = 1, 17, 33, 65) and K-fam-lowrank-vjp (the same R)
+    against their plain twins, on channel-sorted points and on the same
+    points permuted; each repeat bit-identical. The backward kernels are
+    held as parameter cotangents against a float64 twin (twice the float32
+    twin's distance plus 1e-5 of the scale); K-fam-gram within 2e-4·max|K|
+    of its twin (float32 cosines of arguments of tens of radians, FMA
+    contraction); K-fam-matvec against a float64 twin within twice the
+    float32 twin plus 1e-6 of max|K|·|V|. Where the twin of K-fam-gram-bwd
+    at full size takes seconds (slice_rows), it is compared on that many
+    rows of g and timed once at full size. Returns the report entries of the
+    last shapes checked: K-fam-gram and K-fam-gram-bwd on sorted points,
+    K-fam-matvec at R = 33 and K-fam-lowrank-vjp at R = 17 (the iterative and
+    probe-trace paths' ranks)."""
+    import torch
+    n, D = x.shape
+    params = kernel.trainable_raws()
+    pack = bf.family_pack(family, kernel._fused_params())
+    p, p64 = pack.detach(), pack.detach().double()
+    counts = tuple(int(k) for k in torch.bincount(c.long()).tolist())
+    xp, cp = x[perm].contiguous(), c[perm].contiguous()
+    rng = np.random.RandomState(9)
+    report = {}
+    # the twins at full width take seconds a call: one timed call each
+    preps, pwarm = (1, 0) if n > 8192 else (2, 1)
+    fwd_ops, bwd_ops = family_ops(family, D, "value"), family_ops(family, D, "grad")
+    with torch.no_grad():
+        for how, xx, cc in (("sorted", x, c), ("permuted", xp, cp)):
+            got = bf.family_gram(family, xx, cc, xx, cc, p)
+            twin = bf.family_gram_plain(family, xx, cc, xx, cc, p)
+            kmax = float(twin.abs().max())
+            err = float((got - twin).abs().max())
+            del got, twin
+            ms = median_ms(lambda: bf.family_gram(family, xx, cc, xx, cc, p), reps=5)
+            pms = median_ms(lambda: bf.family_gram_plain(family, xx, cc, xx, cc, p), reps=preps,
+                            warmup=pwarm)
+            bnd = bound(4 * n * n, n * n * fwd_ops)
+            print("K-fam-gram %s %s %dx%d: max_abs_err %.3e (tol %.3e), kernel %.3f ms, plain "
+                  "%.3f ms, bound %.3f ms (%s)" % ((label, how, n, n, err, 2e-4 * kmax, ms, pms)
+                                                   + bnd))
+            if not err <= 2e-4 * kmax:
+                fail("K-fam-gram %s %s disagrees with its plain twin" % (label, how))
+            if how == "sorted":
+                report["family_gram"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                             library_ms=None, bound=bnd)
+    for how, xx, cc in (("sorted", x, c), ("permuted", xp, cp)):
+        cts = counts if how == "sorted" else None
+        G = torch.as_tensor(rng.randn(n, n), dtype=torch.float32, device=x.device)
+        got = bf.family_gram_bwd(family, xx, cc, xx, cc, p, G, cts, cts)
+        again = bf.family_gram_bwd(family, xx, cc, xx, cc, p, G, cts, cts)
+        if not torch.equal(got, again):
+            fail("K-fam-gram-bwd %s %s: a repeated call differs" % (label, how))
+        rows = n if slice_rows is None else slice_rows
+        sl = slice(0, rows)
+        x1, c1, Gs = xx[sl].contiguous(), cc[sl].contiguous(), G[sl].contiguous()
+        got_s = got if rows == n else bf.family_gram_bwd(family, x1, c1, xx, cc, p, Gs)
+        k = fam_chain(pack, params, got_s)
+        t = fam_chain(pack, params, bf.family_gram_bwd_plain(family, x1, c1, xx, cc, p, Gs))
+        r = fam_chain(pack, params, bf.family_gram_bwd_plain(
+            family, x1.double(), c1, xx.double(), cc, p64, Gs.double()))
+        d_k, d_t, tol = held("K-fam-gram-bwd %s %s" % (label, how), "parameter cotangents", k, t,
+                             r, 1e-5)
+        ms = median_ms(lambda: bf.family_gram_bwd(family, xx, cc, xx, cc, p, G, cts, cts), reps=5)
+        pms = median_ms(lambda: bf.family_gram_bwd_plain(family, xx, cc, xx, cc, p, G),
+                        reps=preps, warmup=pwarm)
+        bnd = bound(4 * n * n, n * n * bwd_ops)
+        print("K-fam-gram-bwd %s %s %dx%d%s: parameter cotangents vs float64 %.3e (twin %.3e, tol "
+              "%.3e), bit-identical repeat, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+              % ((label, how, n, n, "" if rows == n else " (compared on %d rows)" % rows, d_k,
+                  d_t, tol, ms, pms) + bnd))
+        if how == "sorted":
+            report["family_gram_bwd"] = dict(max_abs_err=max(float((a - b).abs().max())
+                                                             for a, b in zip(k, t)),
+                                             ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
+        del G, Gs, got, again, got_s
+    with torch.no_grad():
+        for R in FAM_RANKS:
+            V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
+            for how, xx, cc, VV in (("sorted", x, c, V), ("permuted", xp, cp, V[perm].contiguous())):
+                got = bf.family_matvec(family, xx, cc, p, VV)
+                if not torch.equal(got, bf.family_matvec(family, xx, cc, p, VV)):
+                    fail("K-fam-matvec %s %s R=%d: a repeated call differs" % (label, how, R))
+                twin = bf.family_matvec_plain(family, xx, cc, p, VV)
+                ref = bf.family_matvec_plain(family, xx.double(), cc, p64, VV.double())
+                scale = max(float((bf.family_gram_plain(family, xx[r0:r0 + 2048], cc[r0:r0 + 2048],
+                                                        xx, cc, p).abs() @ VV.abs()).max())
+                            for r0 in range(0, n, 2048))
+                d_k = float((got.double() - ref).abs().max())
+                d_t = float((twin.double() - ref).abs().max())
+                tol = 2 * d_t + 1e-6 * scale
+                if not d_k <= tol:
+                    fail("K-fam-matvec %s %s R=%d is further from float64 (%.3e) than twice its "
+                         "twin (%.3e)" % (label, how, R, d_k, d_t))
+                ms = median_ms(lambda: bf.family_matvec(family, xx, cc, p, VV), reps=5)
+                pms = median_ms(lambda: bf.family_matvec_plain(family, xx, cc, p, VV), reps=preps,
+                                warmup=pwarm)
+                lms = median_ms(lambda: torch.matmul(bf.family_gram(family, xx, cc, xx, cc, p), VV),
+                                reps=3)
+                bnd = bound(4 * (n * (D + 1) + 2 * n * R), n * n * (fwd_ops + 2 * R))
+                print("K-fam-matvec %s %s N=%d R=%d: vs float64 %.3e (twin %.3e, tol %.3e), "
+                      "bit-identical repeat, kernel %.3f ms, plain %.3f ms, K-fam-gram + "
+                      "torch.matmul %.3f ms, bound %.3f ms (%s)"
+                      % ((label, how, n, R, d_k, d_t, tol, ms, pms, lms) + bnd))
+                if how == "sorted" and R == 33:
+                    report["family_matvec"] = dict(max_abs_err=float((got - twin).abs().max()),
+                                                   ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+                del got, twin, ref
+    for R in FAM_RANKS:
+        A = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
+        B = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
+        got = bf.family_lowrank_vjp_sorted(family, x, counts, p, A, B)
+        if not torch.equal(got, bf.family_lowrank_vjp_sorted(family, x, counts, p, A, B)):
+            fail("K-fam-lowrank-vjp %s R=%d: a repeated call differs" % (label, R))
+        k = fam_chain(pack, params, got)
+        t = fam_chain(pack, params, bf.family_lowrank_vjp_plain(family, x, counts, p, A, B))
+        r = fam_chain(pack, params, bf.family_lowrank_vjp_plain(family, x.double(), counts, p64,
+                                                                A.double(), B.double()))
+        d_k, d_t, tol = held("K-fam-lowrank-vjp %s R=%d" % (label, R), "parameter cotangents", k,
+                             t, r, 1e-5)
+        ms = median_ms(lambda: bf.family_lowrank_vjp_sorted(family, x, counts, p, A, B), reps=5)
+        pms = median_ms(lambda: bf.family_lowrank_vjp_plain(family, x, counts, p, A, B),
+                        reps=preps, warmup=pwarm)
+        # the function needs each of the N(N+1)/2 upper elements once: 4R
+        # FMAs for g (both directions; 2R on the diagonal) and its element
+        # derivatives
+        upper = n * (n + 1) // 2
+        bnd = bound(4 * n * (2 * R + D), upper * (4 * R + bwd_ops))
+        print("K-fam-lowrank-vjp %s N=%d R=%d: parameter cotangents vs float64 %.3e (twin %.3e, "
+              "tol %.3e), bit-identical repeat, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+              % ((label, n, R, d_k, d_t, tol, ms, pms) + bnd))
+        if R == 17:
+            report["family_lowrank_vjp"] = dict(max_abs_err=max(float((a - b).abs().max())
+                                                                for a, b in zip(k, t)),
+                                                ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
+        del A, B, got
+    torch.cuda.empty_cache()
+    return report
+
+
+def family_counters():
+    from mogptk_tpu_torch.ops import block_families as bf
+    from mogptk_tpu_torch.ops import blocked_cholesky as bc, fused_solve as fs
+    return {"family_gram": bf.family_gram, "family_gram_bwd": bf.family_gram_bwd,
+            "family_matvec": bf.family_matvec, "family_lowrank_vjp": bf.family_lowrank_vjp_sorted,
+            "s_panel": bc.s_panel, "col_write": bc.col_write, "fused_cho_solve": fs.fused_cho_solve}
+
+
+PROBE_WANT = {"family_gram": (1, 1), "family_lowrank_vjp": (1, 1), "family_gram_bwd": (0, 0),
+              "family_matvec": (0, 0)}
+CLOSED_WANT = {"family_gram": (1, 1), "family_gram_bwd": (1, 1), "family_lowrank_vjp": (0, 0),
+               "family_matvec": (0, 0)}
+
+
+@contextlib.contextmanager
+def gram_last_bit(seed):
+    """Inside, the family kernels' plain Gram differs from its value by
+    about one unit in the last place at random entries (+1, 0 or -1 times
+    |K|·2⁻²⁴, seeded): as far as K-fam-gram is from its twin (phase 16)."""
+    import torch
+    from mogptk_tpu_torch.ops import block_families as bf
+    orig = bf.family_gram_plain
+    gens = {}
+
+    def perturbed(*args):
+        K = orig(*args)
+        if K.device not in gens:
+            gens[K.device] = torch.Generator(device=K.device).manual_seed(seed)
+        sign = torch.randint(-1, 2, K.shape, generator=gens[K.device], device=K.device).to(K.dtype)
+        return K + sign * K.abs() * 2.0 ** -24
+
+    bf.family_gram_plain = perturbed
+    try:
+        yield
+    finally:
+        bf.family_gram_plain = orig
+
+
+def fam_first_step(gpr, _build, model, rebuild, label):
+    """The model's first step (loss and every raw's gradient) through the
+    kernels against a float64 execution on the card, then once more for a
+    bit-identical loss and gradient. Returns the first loss.
+
+    The float32 yardstick is the execution with the family kernels' plain
+    twins; it runs the blocked Cholesky's kernels as the kernels' execution
+    does (they sum their panels in another order than their twins, cuBLAS,
+    and are held in phases 2-5), so the two differ only in the family
+    kernels. The kernels' execution must be at most twice as far from
+    float64 as the twins', plus twice the spread that the Gram's last bit
+    alone causes (the twins' execution again with gram_last_bit), plus 1e-5
+    of the scale: at these conditions (κ ~ 1e4) one unit in the last place
+    of the Gram, which K-fam-gram may differ from its twin by, moves a
+    float32 first step by as much as the kernels do."""
+    import torch
+    first = step_outputs(model)
+    (got, twin, ref), _ = three_ways(gpr, _build, model, rebuild, step_outputs,
+                                     twins=family_twins)
+    with family_twins(_build), gram_last_bit(11):
+        bit = [t.double() for t in step_outputs(model)]
+    print("%s first step: loss %.6f (float64 %.6f)" % (label, float(got[0]), float(ref[0])))
+    if not all(torch.equal(a.double(), b) for a, b in zip(first, got)):
+        fail("%s: the first step's executions differ" % label)
+    for what, sl in (("loss", slice(0, 1)), ("gradient", slice(1, None))):
+        scale = max(float(r.abs().max()) for r in ref[sl])
+        spread = max(float((b - t).abs().max()) for b, t in zip(bit[sl], twin[sl]))
+        print("%s %s: the Gram's last bit moves the twins' execution by %.4e" % (label, what,
+                                                                                 spread))
+        held(label, what, got[sl], twin[sl], ref[sl], 1e-5 + 2 * spread / scale)
+    if not all(torch.equal(a, b) for a, b in zip(step_outputs(model), first)):
+        fail("%s: a repeated first step gave another loss or gradient" % label)
+    return float(first[0])
+
+
+def drive_family_exact(gpr, _build, name, X, Y, dev, smi, Xq=None, kernel_fn=None):
+    """Phase 17 (and 18 for CSM at full width) for one family: gpr.Exact
+    with trace_probes=16 (the fused LML: K-fam-gram, K-spanel, K-colwrite,
+    K-solve, K-fam-lowrank-vjp) and closed-form (K-fam-gram, the inverse,
+    K-fam-gram-bwd), each first step against float64 and the float32 twins,
+    then three counted Adam steps each; predict_y of Xq; the Gram's forward
+    time. Returns (gram_fwd_ms, probe_step_ms, launches of the probe-trace
+    and the closed-form runs)."""
+    import torch
+    kernel_fn = kernel_fn or (lambda: family_kernel(gpr, name))
+    counters = family_counters()
+    n = X.shape[0]
+    out = {}
+    for how, probes in (("probe-trace", FAM_PROBES), ("closed-form", None)):
+        model = gpr.Exact(kernel_fn(), X, Y, variance=0.1, trace_probes=probes, device=dev)
+        if (model._fused_static() is None) == bool(probes):
+            fail("%s %s: the fused probe-trace LML did not engage as it should" % (name, how))
+        Z = model.probes
+
+        def rebuild():
+            return gpr.Exact(kernel_fn(), X.double(), Y.double(), variance=0.1, device=dev,
+                             probes=None if Z is None else Z.double())
+
+        label = "%s %s N=%d" % (name, how, n)
+        loss1 = fam_first_step(gpr, _build, model, rebuild, label)
+        want = dict(PROBE_WANT if probes else CLOSED_WANT)
+        want.update({"s_panel": (1, None), "col_write": (1, None), "fused_cho_solve": (0, None)})
+        for f in counters.values():
+            f.launches = 0
+        out[how] = train_and_count(gpr, model, counters, want, loss1, label, smi)
+        if probes:
+            step_ms = train_ms(gpr, model)
+            with torch.no_grad():
+                gram_ms = median_ms(lambda: model.kernel.K_sorted(model.X, model._channel_counts),
+                                    reps=5)
+            if Xq is not None:
+                model.predict_y(Xq, sigma=2)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                mu, lo, up = model.predict_y(Xq, sigma=2)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t)
+                if not (bool(torch.isfinite(mu).all()) and bool((lo < mu).all())
+                        and bool((mu < up).all())):
+                    fail("%s: predict_y gave a non-finite answer or bands that do not bracket it"
+                         % label)
+                print("%s predict_y of %d points: %.2f ms" % (label, Xq.shape[0], ms))
+        del model
+        torch.cuda.empty_cache()
+    return gram_ms, step_ms, out["probe-trace"], out["closed-form"]
+
+
+def train_ms(gpr, model, steps=5):
+    """Median ms of `steps` further Adam steps (host clock between the
+    trainer's synchronizing callbacks), as family_bench.py's probe_step_ms
+    (LML, gradient and the Adam update)."""
+    import torch
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpr.train(model, method="Adam", lr=1e-3, iters=steps,
+              callback=lambda i, v: stamps.append(time.perf_counter()))
+    return 1e3 * float(np.median(np.diff([t0] + stamps)[1:]))
+
+
+def family_requests(dev, m=FAM_PREDICT):
+    """m query points over the channels of the canary data, x in [0, 6.6]."""
+    import torch
+    rng = np.random.RandomState(7)
+    per = m // FAM_CHANNELS
+    return torch.as_tensor(np.concatenate([np.stack([np.full(per, float(j)),
+                                                     np.sort(rng.uniform(0.0, 6.6, per))], axis=1)
+                                           for j in range(FAM_CHANNELS)]),
+                           dtype=torch.float32, device=dev)
+
+
+def drive_families(gpr, _build, dev, smi):
+    """Phases 16 and 17: each family's four kernels against their twins at
+    family_bench.py's configuration (N = 4,096), then gpr.Exact on each;
+    prints family_bench.py's JSON line per family."""
+    import torch
+    from mogptk_tpu_torch.ops import block_families as bf
+    xs, ys, (_, X, Y) = canary_data(gpr, dev)
+    perm = torch.as_tensor(np.random.RandomState(5).permutation(X.shape[0]), device=dev)
+    phase("phase 16: the family kernels against their twins (N=%d)" % X.shape[0])
+    for name in FAMILY_NAMES:
+        kernel = family_kernel(gpr, name).to(dev)
+        c, x = kernel._split(X)
+        check_family_kernels(gpr, bf, kernel.family, kernel, x, c, perm, "%s N=%d" % (name,
+                                                                                   X.shape[0]))
+    phase("phase 17: the five families through gpr.Exact (N=%d)" % X.shape[0])
+    Xq = family_requests(dev)
+    for name in FAMILY_NAMES:
+        gram_ms, step_ms, _, _ = drive_family_exact(gpr, _build, name, X, Y, dev, smi, Xq)
+        print(json.dumps({"family": name, "n": int(X.shape[0]), "gram_fwd_ms": gram_ms,
+                          "probe_step_ms": step_ms}))
+    return xs, ys
+
+
+def drive_families_full(gpr, _build, xs16, ys16, X16, Y16, reqs, fam_xs, fam_ys, dev, smi):
+    """Phase 18 at bench.py's full width (4 x 4,096 points, N = 16,384):
+    the kernels of CSM and SM-LMC against their twins (phase 16's checks);
+    the SM_LMC named model through the user API; gpr.Exact with
+    CrossSpectralKernel(Rq=2), probe-trace and closed-form, and a 4,096-point
+    predict request; one ExactIterative step of the CSM at the bench budget
+    against its float64 execution; then the CSM, CONV and MOHSM named models
+    (MixtureKernel: the dense formulations, as in the JAX package) three
+    steps each at N = 4,096. Returns (the kernels' report entries, the
+    launches of the main path: the CSM's probe-trace and closed-form steps
+    and the iterative step)."""
+    import torch
+    import mogptk_tpu_torch as mogptk
+    from mogptk_tpu_torch.ops import block_families as bf
+    n = X16.shape[0]
+    perm = torch.as_tensor(np.random.RandomState(5).permutation(n), device=dev)
+    report = {}
+    for name in FULL_FAMILIES:
+        kernel = family_kernel(gpr, name, channels=CHANNELS).to(dev)
+        c, x = kernel._split(X16)
+        rep = check_family_kernels(gpr, bf, kernel.family, kernel, x, c, perm,
+                                   "%s N=%d" % (name, n), slice_rows=2048)
+        if name == "csm":
+            report = rep
+
+    counters = family_counters()
+    phase("phase 18: SM_LMC through the user API (N=%d)" % n)
+    ds = mogptk.DataSet([xc[:, 0] for xc in xs16], [yc[:, 0] for yc in ys16])
+    api = mogptk.SM_LMC(ds, Q=2, Rq=2)
+    if api.gpr.X.device.type != dev.type or api.gpr.kernel.family is None:
+        fail("SM_LMC did not build its block-engine kernel on the card")
+    t = time.perf_counter()
+    api.init_parameters("BNSE", iters=20)
+    torch.cuda.synchronize()
+    print("SM_LMC.init_parameters('BNSE', iters=20): %.2f s" % (time.perf_counter() - t))
+    for f in counters.values():
+        f.launches = 0
+    losses, _ = api.train(method="Adam", lr=0.01, iters=TRAIN_STEPS)
+    raised = {k: f.launches for k, f in counters.items()}
+    print("SM_LMC.train(Adam, lr=0.01, iters=%d): losses %s, step ms %s, launches %s"
+          % (TRAIN_STEPS, np.round(losses, 4).tolist(), np.round(1e3 * np.diff(api.times), 2)
+             .tolist(), raised))
+    if not np.all(np.isfinite(losses)):
+        fail("SM_LMC.train gave a non-finite loss")
+    if raised["family_gram_bwd"] != TRAIN_STEPS or raised["family_gram"] < TRAIN_STEPS:
+        fail("SM_LMC.train did not go through K-fam-gram and K-fam-gram-bwd once a step")
+    _, Mu, Lo, Up = api.predict()
+    if not all(np.all(np.isfinite(m)) and np.all(lo < m) and np.all(m < up)
+               for m, lo, up in zip(Mu, Lo, Up)):
+        fail("SM_LMC.predict: a non-finite answer or bands that do not bracket it")
+    mae = api.error("MAE")
+    print("SM_LMC.predict() and error('MAE') = %.6f" % mae)
+    if not np.isfinite(mae):
+        fail("SM_LMC.error is not finite")
+    del api
+    torch.cuda.empty_cache()
+
+    phase("phase 18: CrossSpectralKernel(Rq=2) through gpr.Exact (N=%d)" % n)
+    csm = lambda: family_kernel(gpr, "csm", channels=CHANNELS)
+    _, step_ms, probe_launches, closed_launches = drive_family_exact(
+        gpr, _build, "csm", X16, Y16, dev, smi, reqs["c"], kernel_fn=csm)
+    print("csm N=%d: probe-trace step %.2f ms" % (n, step_ms))
+
+    phase("phase 18: one ExactIterative step of the CSM at the bench budget (N=%d)" % n)
+    model = gpr.ExactIterative(csm(), X16, Y16, device=dev, **ITER_SETTINGS)
+
+    def rebuild():
+        return gpr.ExactIterative(csm(), X16.double(), Y16.double(), device=dev,
+                                  probes=model._Z.double(),
+                                  p_normals=(model._u0.double(), model._u1.double()),
+                                  **ITER_SETTINGS)
+
+    for f in counters.values():
+        f.launches = 0
+    fam_first_step(gpr, _build, model, rebuild, "csm ExactIterative N=%d" % n)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for f in counters.values():
+        f.launches = 0
+    losses, _ = gpr.train(model, method="Adam", lr=1e-3, iters=1)
+    torch.cuda.synchronize()
+    iter_launches = {k: f.launches for k, f in counters.items()}
+    print("csm ExactIterative step: loss %.4f, %.2f ms, launches %s"
+          % (losses[0], 1e3 * (time.perf_counter() - t), iter_launches))
+    if iter_launches["family_matvec"] < 1 or iter_launches["family_lowrank_vjp"] != 1:
+        fail("the iterative step did not go through K-fam-matvec and K-fam-lowrank-vjp")
+    del model
+    torch.cuda.empty_cache()
+
+    phase("phase 18: the CSM, CONV and MOHSM named models (N=%d)" % (FAM_CHANNELS * FAM_N_PER))
+    ds4 = mogptk.DataSet([xc[:, 0] for xc in fam_xs], [yc[:, 0] for yc in fam_ys])
+    # MOHSM trains from its constructor's draws: its LS estimate on these
+    # 2,048 closely spaced points per channel puts spectral means near 1e7,
+    # where the float32 cosines are noise and the factor fails
+    for which, build, init in (("CSM", lambda: mogptk.CSM(ds4, Q=2, Rq=2), "LS"),
+                               ("CONV", lambda: mogptk.CONV(ds4, Q=2), "LS"),
+                               ("MOHSM", lambda: mogptk.MOHSM(ds4, P=1, Q=2, psd_safe=True),
+                                None)):
+        gpr.set_seed(0)
+        m = build()
+        if init:
+            m.init_parameters(init)
+        losses, _ = m.train(method="Adam", lr=0.01, iters=TRAIN_STEPS)
+        print("%s (init %s) train: losses %s, step ms %s"
+              % (which, init or "by the constructor", np.round(losses, 4).tolist(),
+                 np.round(1e3 * np.diff(m.times), 2).tolist()))
+        if not np.all(np.isfinite(losses)):
+            fail("%s.train gave a non-finite loss" % which)
+        del m
+        torch.cuda.empty_cache()
+    launches = {"family_gram": probe_launches["family_gram"],
+                "family_lowrank_vjp": probe_launches["family_lowrank_vjp"],
+                "family_gram_bwd": closed_launches["family_gram_bwd"],
+                "family_matvec": iter_launches["family_matvec"]}
+    return report, launches
 
 
 def event_ms(fn):

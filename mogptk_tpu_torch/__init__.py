@@ -4,11 +4,11 @@ The port of mogptk_tpu (JAX on a TPU) to PyTorch on an NVIDIA H100. JAX
 counterpart: mogptk_tpu/__init__.py. This package imports torch and never
 jax; pandas and matplotlib are imported lazily, inside the functions that
 load data frames or draw, never when the package is imported. It covers the
-MOSM quick start (DataSet → MOSM → init_parameters → train → predict) on exact
-inference with the closed-form or the probe-trace gradient, the iterative
-engine, and the sparse and variational inference schemes (Snelson, Titsias,
-Hensman, OpperArchambeau) with the Gaussian likelihood; see README.md,
-"PyTorch/CUDA port".
+quick start (DataSet → MOSM, CSM, SM_LMC, CONV or MOHSM → init_parameters →
+train → predict) on exact inference with the closed-form or the probe-trace
+gradient, the iterative engine, and the sparse and variational inference
+schemes (Snelson, Titsias, Hensman, OpperArchambeau) with the Gaussian
+likelihood; see README.md, "PyTorch/CUDA port".
 """
 from . import gpr
 from .gpr import (config, set_seed, use_single_precision, use_double_precision,
@@ -25,4 +25,4 @@ from .dataset import DataSet, LoadCSV, LoadDataFrame
 from .init import BNSE
 from .model import (Model, Exact, Snelson, OpperArchambeau, Titsias, Hensman,
                     Iterative, LoadModel)
-from .models import MOSM
+from .models import MOSM, CSM, SM_LMC, CONV, MOHSM

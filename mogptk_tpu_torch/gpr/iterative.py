@@ -5,22 +5,23 @@ JAX counterpart: mogptk_tpu/gpr/iterative.py (`_lml_iter` :77-338,
 `ExactIterative` :341-673). The LML's quadratic form comes from one batched
 preconditioned CG, its log-determinant from the Lanczos quadrature that CG's
 own coefficients define, and the gradient from the probe-trace identity with
-a low-rank cotangent dK = A·Bᵀ that is never formed. On CUDA tensors every
-product K·V goes through the hand-written K-matvec kernel
-(ops/mosm_matvec.py), the cotangent through K-lowrank-vjp
-(ops/block_mosm.mosm_lowrank_vjp_sorted), and the preconditioner's pivot rows
-and predict's cross-Gram through K-gram (ops/mosm_gram.mosm_gram); on CPU
-tensors their plain twins run.
+a low-rank cotangent dK = A·Bᵀ that is never formed. The kernel is one of
+the block-engine families (`_family_of`: MOSM, uMOSM, CSM, CONV, MOHSM,
+SM-LMC), whose pack (ops/block_families.pack_of) the engine's kernels take.
+On CUDA tensors every product K·V goes through the hand-written K-matvec or
+K-fam-matvec kernel, the cotangent through K-lowrank-vjp or
+K-fam-lowrank-vjp, and the preconditioner's pivot rows and predict's
+cross-Gram through K-gram or K-fam-gram (ops/block_families.matvec_of,
+lowrank_vjp_of, gram_of); on CPU tensors their plain twins run.
 
 Channel order: the JAX package runs unsorted channel IDs through its generic
 one-hot kernels. Here the rows are put in channel order once, at
 construction (a stable sort), the sorted kernels run, and α, the predictions
 and the cotangents of y and the noise are put back in the caller's order.
 The pivoted Cholesky factor is built in the caller's order, so that argmax's
-ties break as in the JAX package, and then permuted. Only the MOSM family is
-ported (the other families are ROADMAP queue 1, item 6); the ring mesh and
-the row mask of mesh sharding are item 10; sub-float32 dtypes are not
-ported.
+ties break as in the JAX package, and then permuted. The ring mesh and the
+row mask of mesh sharding are ROADMAP queue 1, item 10; sub-float32 dtypes
+are not ported.
 
 Random draws: the JAX package draws its Rademacher probes from
 PRNGKey(seed + 1), the normal draws of its preconditioner probes from
@@ -35,11 +36,9 @@ import torch
 
 from .model import Model, generator, rademacher
 from .likelihood import GaussianLikelihood
-from .multioutput import MultiOutputSpectralMixtureKernel
 from .config import config
-from ..ops.block_mosm import mosm_pair_stats, mosm_lowrank_vjp_sorted
-from ..ops.mosm_gram import mosm_gram, channel_counts
-from ..ops.mosm_matvec import mosm_matvec
+from ..ops.block_families import pack_of, gram_of, matvec_of, lowrank_vjp_of
+from ..ops.mosm_gram import channel_counts
 from ..ops.iterative import (cg_solve, cg_logdet_quadrature, woodbury_m_inv,
                              preconditioned_slq_terms, pivoted_cholesky)
 
@@ -53,20 +52,39 @@ def _as_draws(a, shape, dtype, device, what):
     return a
 
 
-def make_matvec(x, c, st3, st2, noise):
-    """V -> (K + diag(noise))·V for the MOSM Gram of (x, c), K-matvec on
-    CUDA tensors, its plain twin on the CPU."""
+def _family_of(kernel):
+    """The kernel's fused-family id (name, statics) (JAX:
+    gpr/iterative._family_of); ValueError for a kernel without a block
+    engine."""
+    family = getattr(kernel, "family", None)
+    if family is None:
+        raise ValueError("ExactIterative supports the fused multi-output spectral families "
+                         "(MOSM, MOSM-Q, uMOSM, CSM, CONV, MOHSM, SM-LMC); use Exact for "
+                         "other kernels")
+    return family
+
+
+def _fused_kernel_params(kernel):
+    """The parameter tuple of the family's pack (JAX:
+    gpr/iterative._fused_kernel_params)."""
+    return kernel._fused_params()
+
+
+def make_matvec(family, x, c, pack, noise):
+    """V -> (K + diag(noise))·V for the family's Gram of (x, c), K-matvec or
+    K-fam-matvec on CUDA tensors, the plain twin on the CPU."""
     def matvec(V):
-        return mosm_matvec(x, c, st3, st2, V) + noise[:, None] * V
+        return matvec_of(family, x, c, pack, V) + noise[:, None] * V
     return matvec
 
 
-def pivoted_factor(x, c, kdiag, st3, st2, rank):
+def pivoted_factor(family, x, c, kdiag, pack, rank):
     """Rank-`rank` partial pivoted Cholesky factor of the noiseless Gram of
-    (x, c) in that row order, each pivot row one K-gram call of one row."""
+    (x, c) in that row order, each pivot row one K-gram (K-fam-gram) call of
+    one row."""
     def K_row(i):
         i1 = i.reshape(1)
-        return mosm_gram(x.index_select(0, i1), c.index_select(0, i1), x, c, st3, st2)[0]
+        return gram_of(family, x.index_select(0, i1), c.index_select(0, i1), x, c, pack)[0]
     return pivoted_cholesky(kdiag, K_row, x.shape[0], rank)
 
 
@@ -105,41 +123,42 @@ def lml_iter_value(matvec, L, sigma2, y, Z, u0, u1, max_cg, tol):
 
 
 class _LmlIter(torch.autograd.Function):
-    """−½ yᵀK̃⁻¹y − ½ log det K̃ for K̃ = K(st3, st2) + diag(noise), the
+    """−½ yᵀK̃⁻¹y − ½ log det K̃ for K̃ = K(pack) + diag(noise), the
     iterative estimate (JAX: the custom_vjp `_lml_iter`).
 
     Forward: the pivoted preconditioner, one batched CG on [y, Z, z] and
     the quadrature, all under no autograd. Backward: dK = A·Bᵀ with
-    A = ½g[α, −U/R], B = [α, Z] goes to K-lowrank-vjp in channel order
-    (dst3, dst2, which autograd chains through mosm_pair_stats); the
-    cotangents of the noise diagonal, rowsum(A∘B), and of y, −gα, are put
-    back in the caller's order. dK's parameter cotangent is the same when
-    rows and columns are permuted together, so the sorted kernel serves
-    unsorted data."""
+    A = ½g[α, −U/R], B = [α, Z] goes to K-lowrank-vjp (K-fam-lowrank-vjp)
+    in channel order (the pack's cotangents, which autograd chains through
+    the pack function); the cotangents of the noise diagonal, rowsum(A∘B),
+    and of y, −gα, are put back in the caller's order. dK's parameter
+    cotangent is the same when rows and columns are permuted together, so
+    the sorted kernel serves unsorted data."""
 
     @staticmethod
-    def forward(ctx, model, noise, y, st3, st2, kdiag):
-        noise, y, st3, st2 = (t.detach() for t in (noise, y, st3, st2))
-        lay = model._layout
-        matvec = make_matvec(lay["x"], lay["c"], st3, st2, lay.sort(noise))
-        L, sigma2 = model._factor(noise, st3, st2, kdiag, model.precond_rank)
+    def forward(ctx, model, noise, y, kdiag, *pack):
+        noise, y = noise.detach(), y.detach()
+        pack = tuple(t.detach() for t in pack)
+        lay, family = model._layout, model.family
+        matvec = make_matvec(family, lay["x"], lay["c"], pack, lay.sort(noise))
+        L, sigma2 = model._factor(noise, pack, kdiag, model.precond_rank)
         val, alpha, U, _ = lml_iter_value(matvec, L, sigma2, lay.sort(y), model._Z, model._u0,
                                           model._u1, model.max_cg_iters, model.cg_tol)
         ctx.model = model
-        ctx.save_for_backward(alpha, U, st3, st2)
+        ctx.save_for_backward(alpha, U, *pack)
         return val
 
     @staticmethod
     def backward(ctx, g):
         model = ctx.model
         lay = model._layout
-        alpha, U, st3, st2 = ctx.saved_tensors
+        alpha, U, *pack = ctx.saved_tensors
         A = (0.5 * g) * torch.cat([alpha, -U / model.num_probes], dim=1)
         B = torch.cat([alpha, model._Z], dim=1)
-        dst3, dst2 = mosm_lowrank_vjp_sorted(lay["x"], lay["counts"], st3, st2, A, B)
+        dpack = lowrank_vjp_of(model.family, lay["x"], lay["counts"], pack, A, B)
         dnoise = lay.unsort(torch.sum(A * B, dim=1))
         dy = lay.unsort(-g * alpha)
-        return None, dnoise, dy, dst3, dst2, None
+        return (None, dnoise, dy, None) + tuple(dpack)
 
 
 class _Layout(dict):
@@ -156,7 +175,7 @@ class _Layout(dict):
 
 class ExactIterative(Model):
     """Exact GP regression with iterative (CG and Lanczos) inference, for
-    the MOSM kernel (JAX: gpr.ExactIterative).
+    the block-engine families (JAX: gpr.ExactIterative).
 
     - the LML's quadratic form: batched CG (`max_cg_iters`, `cg_tol`),
       preconditioned by a rank-`precond_rank` pivoted Cholesky factor;
@@ -179,9 +198,7 @@ class ExactIterative(Model):
     def __init__(self, kernel, X, y, variance=1.0, data_variance=None, jitter=1e-8, mean=None,
                  max_cg_iters=100, cg_tol=1e-5, num_probes=16, lanczos_iters=32, seed=0,
                  precond_rank=64, device=None, probes=None, p_normals=None):
-        if not isinstance(kernel, MultiOutputSpectralMixtureKernel):
-            raise NotImplementedError("ExactIterative is ported for the MOSM kernel only; the other "
-                                      "families are not ported yet (ROADMAP queue 1, item 6)")
+        family = _family_of(kernel)
         if config.dtype not in (torch.float32, torch.float64):
             raise NotImplementedError("ExactIterative runs in float32 or float64; sub-float32 "
                                       "precision is not ported")
@@ -190,6 +207,7 @@ class ExactIterative(Model):
         if 1 < variance.ndim or (variance.ndim == 1 and variance.shape[0] != channels):
             raise ValueError("variance must be float or have shape (channels,)")
         super().__init__(kernel, X, y, GaussianLikelihood(np.sqrt(variance)), jitter, mean, device)
+        self.family = family
         n = self.X.shape[0]
         if data_variance is not None:
             data_variance = torch.as_tensor(data_variance, dtype=config.dtype,
@@ -248,35 +266,34 @@ class ExactIterative(Model):
             diag = diag + self.data_variance
         return diag + self.jitter
 
-    def _stats(self):
-        """The pair statistics (differentiable) and the Gram's diagonal in
-        the caller's order (detached; it only picks pivots)."""
-        params = self.kernel._params()
-        st3, st2 = mosm_pair_stats(*params, self.kernel.twopi)
+    def _pack(self):
+        """The engine's pack (differentiable) and the Gram's diagonal in the
+        caller's order (detached; it only picks pivots)."""
         lay = self._layout
-        return st3, st2, self.kernel.K_mo_diag(lay["c_orig"], lay["x_orig"]).detach()
+        return (pack_of(self.family, _fused_kernel_params(self.kernel)),
+                self.kernel.K_mo_diag(lay["c_orig"], lay["x_orig"]).detach())
 
-    def _factor(self, noise, st3, st2, kdiag, rank):
+    def _factor(self, noise, pack, kdiag, rank):
         """(L, σ̄²): the rank-`rank` pivoted factor in channel order (None for
         rank 0) and the mean noise, from the caller's order."""
         sigma2 = torch.mean(noise)
         if not rank:
             return None, sigma2
         lay = self._layout
-        L = pivoted_factor(lay["x_orig"], lay["c_orig"], kdiag, st3, st2, rank)
+        L = pivoted_factor(self.family, lay["x_orig"], lay["c_orig"], kdiag, pack, rank)
         return lay.sort(L), sigma2
 
     def _operator(self, rank):
-        """(matvec, M_inv or None, L, σ̄², st3, st2) at the current
-        parameters, detached."""
-        st3, st2, kdiag = self._stats()
-        st3, st2 = st3.detach(), st2.detach()
+        """(matvec, M_inv or None, L, σ̄², pack) at the current parameters,
+        detached."""
+        pack, kdiag = self._pack()
+        pack = tuple(t.detach() for t in pack)
         noise = self._noise_diag().detach()
         lay = self._layout
-        matvec = make_matvec(lay["x"], lay["c"], st3, st2, lay.sort(noise))
-        L, sigma2 = self._factor(noise, st3, st2, kdiag, rank)
+        matvec = make_matvec(self.family, lay["x"], lay["c"], pack, lay.sort(noise))
+        L, sigma2 = self._factor(noise, pack, kdiag, rank)
         M_inv = None if L is None else woodbury_m_inv(L, sigma2)[0]
-        return matvec, M_inv, L, sigma2, st3, st2
+        return matvec, M_inv, L, sigma2, pack
 
     @torch.no_grad()
     def cg_diagnostics(self):
@@ -294,8 +311,8 @@ class ExactIterative(Model):
     def log_marginal_likelihood(self):
         """The training-path LML estimate, differentiable in the raws."""
         self._check_unported()
-        st3, st2, kdiag = self._stats()
-        val = _LmlIter.apply(self, self._noise_diag(), self._residual_y(), st3, st2, kdiag)
+        pack, kdiag = self._pack()
+        val = _LmlIter.apply(self, self._noise_diag(), self._residual_y(), kdiag, *pack)
         return val - self.log_marginal_likelihood_constant
 
     @torch.no_grad()
@@ -330,7 +347,7 @@ class ExactIterative(Model):
         # K-matvec is FP32 FFMA on every path: the readout's full-precision
         # operator is the training operator (the JAX package switches its
         # matvec to precision "highest" here)
-        matvec, M_inv, L, sigma2, _, _ = self._operator(rank)
+        matvec, M_inv, L, sigma2, _ = self._operator(rank)
         y = lay.sort(self._residual_y())
         # restarted CG in chunks of 48 iterations with a warm start, as the
         # JAX package runs it: a restart recomputes the residual and resets
@@ -376,14 +393,14 @@ class ExactIterative(Model):
         self._check_unported()
         X = self._check_input(X)
         lay = self._layout
-        matvec, M_inv, _, _, st3, st2 = self._operator(self.precond_rank)
+        matvec, M_inv, _, _, pack = self._operator(self.precond_rank)
         y = lay.sort(self._residual_y())
         alpha, _ = cg_solve(matvec, y, max_iters=self.max_cg_iters, tol=self.cg_tol, M_inv=M_inv)
         cs, xs = self.kernel._split(X)
 
         def cross(cb, xb):
             # K(X_train in channel order, X block): (N, B)
-            return mosm_gram(lay["x"], lay["c"], xb, cb, st3, st2, lay["counts"], None)
+            return gram_of(self.family, lay["x"], lay["c"], xb, cb, pack, lay["counts"], None)
 
         if full:
             Kfs = cross(cs, xs)

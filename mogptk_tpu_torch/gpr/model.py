@@ -9,7 +9,8 @@ JAX counterpart: mogptk_tpu/gpr/model.py (`init_inducing_points` :36-97,
 prior, the noise diagonal, `predict_f(full=)`/`predict_y` on the unmasked
 single-device branch, and every model's differentiable objective: the exact
 LML with the closed-form gradient or the probe-trace gradient (`trace_probes`;
-on channel-sorted data the fused path ops/linalg.lml_chol_fused), and the
+on channel-sorted data with a block-engine kernel the fused path
+ops/linalg.lml_chol_fused), and the
 sparse models' ELBOs and LML, whose trained inducing points Z get their
 gradient from the Gram's input cotangents (ops/mosm_gram.MosmGram, the
 K-gram-bwd kernel on the card). The sparse and variational models take the
@@ -20,7 +21,9 @@ through ops/linalg.jittered_cholesky, with the jitter ladder when
 gpr.use_jitter_ladder asks for it.
 
 On channel-sorted data the exact Gram goes through the K-gram kernel in one
-launch (training: K-gram-lower, only the tiles the factorization reads), and
+launch (training: K-gram-lower, only the tiles the factorization reads; the
+other block-engine families: K-fam-gram, and K-fam-gram-bwd or
+K-fam-lowrank-vjp in the backward), and
 on CUDA float32 with n ≥ 4096 and n a multiple of 512 the factorization goes
 through the K-spanel and K-colwrite kernels, the training solve through
 K-solve and its backward through K-lowrank-vjp (ops/). The sparse models'
@@ -36,7 +39,8 @@ from .module import Module
 from .kernel import Kernel
 from .likelihood import GaussianLikelihood
 from .config import config, resolve_device
-from ..ops.block_mosm import sorted_channel_counts, mosm_pair_stats
+from ..ops.block_families import pack_of
+from ..ops.block_mosm import sorted_channel_counts
 from ..ops.linalg import (jittered_cholesky, solve_triangular, cholesky_solve, lml_chol_fused,
                           lml_quadform_logdet_shifted, lml_quadform_logdet_stochastic_shifted)
 from .parameter import Parameter
@@ -281,13 +285,17 @@ class Exact(Model):
 
     def _fused_static(self):
         """Static id of the fused probe-trace LML (ops/linalg.lml_chol_fused),
-        (family, counts, R), or None unless the data are channel-sorted (for
-        the MOSM kernel, the one with a sorted Gram) and trace_probes is set (JAX:
-        Exact._fused_static; the port has no Pallas switch, row mask, Gram
-        sharding, jitter ladder or Gram storage format to gate on)."""
+        (family, counts, R), or None unless the data are channel-sorted, the
+        kernel has a block engine (MOSM, uMOSM, CSM, CONV, MOHSM, SM-LMC) and
+        trace_probes is set (JAX: Exact._fused_static; the port has no
+        Pallas switch, row mask, Gram sharding, jitter ladder or Gram storage
+        format to gate on)."""
         if not self.trace_probes or self._channel_counts is None:
             return None
-        return (self.kernel.family, self._channel_counts, self.trace_probes)
+        family = getattr(self.kernel, "family", None)
+        if family is None:
+            return None
+        return (family, self._channel_counts, self.trace_probes)
 
     def _noise_diag(self, add_jitter=False):
         """The (N,) diagonal added to the Gram: likelihood noise per channel,
@@ -317,9 +325,9 @@ class Exact(Model):
         static = self._fused_static()
         if static is not None:
             _, x = self.kernel._split(self.X)
-            st3, st2 = mosm_pair_stats(*self.kernel._params(), self.kernel.twopi)
+            pack = pack_of(static[0], self.kernel._fused_params())
             diag = self._noise_diag(add_jitter=True)
-            val = lml_chol_fused(static, x, diag, self._residual_y(), st3, st2, self.probes)
+            val = lml_chol_fused(static, x, diag, self._residual_y(), pack, self.probes)
             return val - self.log_marginal_likelihood_constant
         y = self._residual_y()
         K = self._Kff()

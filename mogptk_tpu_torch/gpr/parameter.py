@@ -152,9 +152,10 @@ class Parameter(nn.Module):
             return Softplus(lower=upper, beta=-0.1)
         return None
 
-    def assign(self, value=None, lower=None, upper=None):
-        """Assign a constrained value and/or new bounds; unspecified fields
-        are kept. The value is clamped to the bounds, then inverted."""
+    def assign(self, value=None, lower=None, upper=None, train=None):
+        """Assign a constrained value and/or new bounds, and optionally the
+        train flag; unspecified fields are kept. The value is clamped to the
+        bounds, then inverted."""
         if value is None:
             value = self.numpy().astype(np.float64)
         else:
@@ -179,3 +180,5 @@ class Parameter(nn.Module):
         with torch.no_grad():
             self.raw.copy_(torch.as_tensor(raw, dtype=self.raw.dtype))
         self.lower, self.upper, self.transform = lower, upper, transform
+        if train is not None:
+            self.train = train

@@ -6,7 +6,7 @@ reference mogptk/model.py:76-1037. Training runs gpr.train (torch.optim, one
 synchronizing callback per step); prediction runs the gpr model's predict_y
 on its device and hands numpy back. Ported: the `Exact` selector
 (closed-form gradient by default, probe-trace with trace_probes),
-the `Iterative` selector (MOSM only), the sparse and variational selectors
+the `Iterative` selector (the block-engine families), the sparse and variational selectors
 (`Snelson`, `OpperArchambeau`, `Titsias`, `Hensman`; Gaussian likelihood),
 save/LoadModel, the metrics and the plots. Not ported yet: sampling, and
 the XLA compilation-cache priming (`precompile`, which has no counterpart
@@ -144,7 +144,7 @@ class Hensman:
 class Iterative:
     """Iterative exact inference selector: CG and Lanczos quadrature, no
     Cholesky factor and no Gram formed (JAX: mogptk_tpu/model.py:157-190);
-    the MOSM kernel only so far."""
+    MOSM, uMOSM, CSM, CONV, MOHSM and SM-LMC kernels."""
 
     def __init__(self, variance=None, data_variance=None, jitter=1e-8, max_cg_iters=100,
                  cg_tol=1e-5, num_probes=16, lanczos_iters=32, precond_rank=64):

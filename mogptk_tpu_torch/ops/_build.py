@@ -63,6 +63,14 @@ SIGNATURES = {
     "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
     # x, c, stats, V, out, N, R, O, Q, D, generic, stream
     "mosm_matvec_f32": [_c_ptr] * 5 + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    # x1, c1, x2, c2, stats, out, N, M, O, S, D, A, fam, stream
+    "family_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64] + [_c_int] * 5 + [_c_ptr],
+    # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, T, P, M, S, D, A, fam, stream
+    "family_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64] + [_c_int] * 4 + [_c_ptr],
+    # x, c, stats, V, out, N, R, O, S, D, A, fam, stream
+    "family_matvec_f32": [_c_ptr] * 5 + [_c_i64] + [_c_int] * 6 + [_c_ptr],
+    # idx, x, A, B, stats, partial, pairs, out, T, P, R, RC, S, D, ncomp, fam, stream
+    "family_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 8 + [_c_ptr],
 }
 
 

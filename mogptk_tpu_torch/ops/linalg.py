@@ -5,8 +5,9 @@ JAX counterpart: mogptk_tpu/ops/linalg.py (`cholesky` :19-59,
 :287-296, `cholesky_solve`
 :307-339, `_stoch_lowrank` :391-396, `_dense_lml_cotangents` :425-496,
 `lml_quadform_logdet_shifted` :553-576,
-`lml_quadform_logdet_stochastic_shifted` :579-606, `lml_chol_fused`
-:650-715). The
+`lml_quadform_logdet_stochastic_shifted` :579-606, `_sorted_gram` and
+`lml_chol_fused` :611-715, whose `_sorted_lowrank_vjp` is
+ops/block_families.lowrank_vjp_of here). The
 factorization routes to ops/blocked_cholesky (the hand-written kernels on
 CUDA) by gpr.config.blocked_cholesky_enabled, else to torch.linalg.cholesky.
 A solve given the panel inverses goes to ops/fused_solve (the K-solve kernel
@@ -16,9 +17,9 @@ import torch
 
 from .blocked_cholesky import blocked_cholesky, effective_block
 from .blocked_trisolve import blocked_cho_solve, spd_inverse_from_factor
-from .block_mosm import (channel_ids, mosm_gram_sorted_lower, mosm_lowrank_vjp_sorted)
+from .block_families import gram_of, lowrank_vjp_of
+from .block_mosm import channel_ids, mosm_gram_sorted_lower
 from .fused_solve import MAX_RHS, fused_cho_solve
-from .mosm_gram import mosm_gram
 
 
 def cholesky(K, diag_shift=None, return_panel_invs=False, zero_upper=True):
@@ -257,65 +258,71 @@ def lml_quadform_logdet_stochastic_shifted(K, diag, y, Z):
     return LmlQuadformLogdetStochasticShifted.apply(K, diag, y, Z)
 
 
-def _sorted_gram(x, counts, st3, st2, lower_only):
-    """The channel-sorted MOSM Gram; lower_only asks for the band-lower
-    variant, legal only when the blocked factorization consumes it (the
-    band is tied to the factorization's panel width, as in the JAX
-    package's ops/linalg._sorted_gram)."""
+def _sorted_gram(family, x, counts, pack, lower_only):
+    """The channel-sorted Gram of the engine's pack (ops/block_families.
+    pack_of). For MOSM, lower_only asks for the band-lower variant, legal
+    only when the blocked factorization consumes it (the band is tied to
+    the factorization's panel width, as in the JAX package's
+    ops/linalg._sorted_gram); the other families have no band-lower variant
+    and build the full Gram (K-fam-gram), as the JAX package does."""
     from ..gpr.config import config
-    n = x.shape[0]
-    if lower_only:
-        band = effective_block(n, config.blocked_cholesky_block)
-        K = mosm_gram_sorted_lower(x, counts, st3, st2, band=band)
+    if family[0] == "mosm" and lower_only:
+        band = effective_block(x.shape[0], config.blocked_cholesky_block)
+        K = mosm_gram_sorted_lower(x, counts, *pack, band=band)
         if K is not None:
             return K
     c = channel_ids(counts, x.device)
-    return mosm_gram(x, c, x, c, st3, st2)
+    return gram_of(family, x, c, x, c, pack, counts, counts)
 
 
 class LmlCholFused(torch.autograd.Function):
-    """−Σ log diag(chol(K+D)) − ½ yᵀ(K+D)⁻¹y for the channel-sorted MOSM Gram
-    K of the pair statistics (st3, st2) and D = diag(`diag`) applied inside
-    the factorization; the probe-trace gradient (Hutchinson, R probes Z).
+    """−Σ log diag(chol(K+D)) − ½ yᵀ(K+D)⁻¹y for the channel-sorted Gram K
+    of a block engine's pack (MOSM's pair statistics (st3, st2), or a
+    family's (O, O, S) pack) and D = diag(`diag`) applied inside the
+    factorization; the probe-trace gradient (Hutchinson, R probes Z).
 
-    Forward: the Gram (band-lower on the blocked route), the blocked factor
-    with every panel inverse and zero_upper=False, one solve of (K+D)⁻¹[y, Z].
-    Backward: dK = A·Bᵀ with A = ½g[α, −U/R], B = [α, Z] goes straight to
-    the low-rank VJP (never forming dK), giving dst3/dst2; ddiag = Σ_r A∘B,
-    dy = −gα, dx = 0 (training inputs are constant, as in the JAX backward).
-    Autograd chains dst3/dst2 through mosm_pair_stats and ddiag through the
-    noise diagonal.
+    Forward: the Gram (MOSM: band-lower on the blocked route; the families:
+    the full Gram), the blocked factor with every panel inverse and
+    zero_upper=False, one solve of (K+D)⁻¹[y, Z]. Backward: dK = A·Bᵀ with
+    A = ½g[α, −U/R], B = [α, Z] goes straight to the engine's low-rank VJP
+    (K-lowrank-vjp or K-fam-lowrank-vjp, never forming dK), giving the
+    pack's cotangents; ddiag = Σ_r A∘B, dy = −gα, dx = 0 (training inputs
+    are constant, as in the JAX backward). Autograd chains the pack's
+    cotangents through its pack function and ddiag through the noise
+    diagonal.
     """
 
     @staticmethod
-    def forward(ctx, static, x, diag, y, st3, st2, Z):
-        _, counts, _ = static
+    def forward(ctx, static, x, diag, y, Z, *pack):
+        family, counts, _ = static
         from ..gpr.config import blocked_cholesky_enabled
-        x, diag, y, st3, st2 = (t.detach() for t in (x, diag, y, st3, st2))
+        x, diag, y = (t.detach() for t in (x, diag, y))
+        pack = tuple(t.detach() for t in pack)
         n = x.shape[0]
         lower_ok = blocked_cholesky_enabled(n, x.device, x.dtype)
-        K = _sorted_gram(x, counts, st3, st2, lower_only=lower_ok)
+        K = _sorted_gram(family, x, counts, pack, lower_only=lower_ok)
         val, _, _, AU = _chol_lml(K, diag, torch.cat([y, Z], dim=1))
         alpha, U = AU[:, :1], AU[:, 1:]
         ctx.static = static
-        ctx.save_for_backward(x, alpha, U, Z, st3, st2)
+        ctx.save_for_backward(x, alpha, U, Z, *pack)
         return val
 
     @staticmethod
     def backward(ctx, g):
-        _, counts, num_probes = ctx.static
-        x, alpha, U, Z, st3, st2 = ctx.saved_tensors
+        family, counts, num_probes = ctx.static
+        x, alpha, U, Z, *pack = ctx.saved_tensors
         A, B = _stoch_lowrank(alpha, U, Z, g, num_probes)
-        dst3, dst2 = mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B)
+        dpack = lowrank_vjp_of(family, x, counts, pack, A, B)
         ddiag = torch.sum(A * B, dim=1)
         dy = -g * alpha
         dx = torch.zeros_like(x) if ctx.needs_input_grad[1] else None
-        return None, dx, ddiag, dy, dst3, dst2, None
+        return (None, dx, ddiag, dy, None) + tuple(dpack)
 
 
-def lml_chol_fused(static, x, diag, y, st3, st2, Z):
+def lml_chol_fused(static, x, diag, y, pack, Z):
     """LmlCholFused.apply. static = (family, counts, num_probes): the family
-    id ("mosm", (twopi, True)), the per-channel counts tuple and R; x (N, D)
-    channel-sorted inputs, diag (N,), y (N, 1), st3/st2 the pair statistics,
-    Z (N, R) the probes."""
-    return LmlCholFused.apply(static, x, diag, y, st3, st2, Z)
+    id (name, statics), e.g. ("mosm", (twopi, True)), the per-channel counts
+    tuple and R; x (N, D) channel-sorted inputs, diag (N,), y (N, 1), pack
+    the engine's pack tuple (ops/block_families.pack_of), Z (N, R) the
+    probes."""
+    return LmlCholFused.apply(static, x, diag, y, Z, *pack)

@@ -655,7 +655,7 @@ def test_unported_configurations_raise():
     xs, ys, _, _ = _data()
     _, X, Y = tgpr.merge_data(xs, ys)
     k = tgpr.MultiOutputSpectralMixtureKernel(2, output_dims=3)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="use Exact for other kernels"):
         tgpr.ExactIterative(tgpr.SpectralKernel(), X[:, 1:], Y)
     m = tgpr.ExactIterative(k, X, Y, **SETTINGS)
     with pytest.raises(NotImplementedError, match="item 10"):

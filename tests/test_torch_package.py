@@ -35,6 +35,10 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
             "import mogptk_tpu_torch.model, mogptk_tpu_torch.models.mosm, mogptk_tpu_torch.init\n"
             "import mogptk_tpu_torch.gpr.iterative, mogptk_tpu_torch.ops.iterative\n"
             "import mogptk_tpu_torch.ops.mosm_matvec, mogptk_tpu_torch.gpr.model\n"
+            "import mogptk_tpu_torch.ops.block_families, mogptk_tpu_torch.gpr.multioutput\n"
+            "import mogptk_tpu_torch.gpr.kernel, mogptk_tpu_torch.models.csm\n"
+            "import mogptk_tpu_torch.models.sm_lmc, mogptk_tpu_torch.models.conv\n"
+            "import mogptk_tpu_torch.models.mohsm\n"
             "bad = [m for m in ('jax', 'pandas', 'matplotlib') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -42,9 +46,10 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
 
 def test_kernel_sources_and_nvcc_command():
     names = sorted(os.path.basename(p) for p in _build.sources())
-    assert names == ["blocked_cholesky.cu", "fused_cho_solve.cu", "mosm_gram.cu",
-                     "mosm_gram_bwd.cu", "mosm_gram_bwd_inputs.cu", "mosm_lowrank_vjp.cu",
-                     "mosm_matvec.cu"]
+    assert names == ["blocked_cholesky.cu", "family_gram.cu", "family_gram_bwd.cu",
+                     "family_lowrank_vjp.cu", "family_matvec.cu", "fused_cho_solve.cu",
+                     "mosm_gram.cu", "mosm_gram_bwd.cu", "mosm_gram_bwd_inputs.cu",
+                     "mosm_lowrank_vjp.cu", "mosm_matvec.cu"]
     compiles, link = _build.nvcc_commands("/tmp/out.so")
     # one compile per source, all into the one library
     assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == _build.sources()
@@ -429,3 +434,83 @@ def test_cuda_kernels_take_every_shape_and_float64():
             torch.testing.assert_close(b.cpu(), a, rtol=1e-9, atol=1e-12 * float(a.abs().max()))
     finally:
         gpr.config._dtype = saved
+
+
+def _family_kernels(rng, D, A, dev):
+    """One port kernel of each block family at input dims D (CSM with Rq = A
+    components, SM-LMC with Q = A), random parameters, on `dev`."""
+    from mogptk_tpu_torch import gpr
+    O = 3
+    ks = [gpr.UncoupledMultiOutputSpectralKernel(O, D), gpr.CrossSpectralKernel(O, D, Rq=A),
+          gpr.GaussianConvolutionProcessKernel(O, D),
+          gpr.MultiOutputHarmonizableSpectralKernel(O, D, psd_safe=True),
+          gpr.LinearModelOfCoregionalizationKernel([gpr.SpectralKernel(D) for _ in range(A)],
+                                                   output_dims=O, input_dims=D, Q=A, Rq=2)]
+    for k in ks:
+        with torch.no_grad():
+            for r in k.trainable_raws():
+                r.add_(0.3 * torch.as_tensor(rng.randn(*r.shape), dtype=r.dtype))
+        k.to(dev)
+    return ks
+
+
+@pytest.mark.cuda
+def test_cuda_family_kernels_match_plain_twins():
+    """K-fam-gram, K-fam-gram-bwd, K-fam-matvec and K-fam-lowrank-vjp for
+    every block family, unrolled (D = 1, 2 with 1 or 2 components) and
+    generic (D = 3 with 3 components) instances, on 300 points in 3
+    channels (counts 150, 1, 149, padded to 256-row tiles; the Gram on
+    random channel IDs), float32, against their plain twins. K-fam-gram
+    2e-4·max|K| and K-fam-matvec with the float32 summation bound of N terms
+    added; the two backward kernels through the pack to the parameters, at
+    most twice the float32 twin's distance from the float64 twin plus 1e-5
+    relative; each backward repeated bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mogptk_tpu_torch.ops import block_families as tbf
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(8)
+    counts = (150, 1, 149)
+    n = sum(counts)
+    c = tbm.channel_ids(counts, dev)
+    cr = torch.as_tensor(rng.randint(0, 3, n), dtype=torch.int32, device=dev)
+    for D, A in ((1, 1), (1, 2), (2, 2), (3, 3)):
+        x = torch.as_tensor(np.sort(rng.rand(n, D) * 10, axis=0), dtype=torch.float32, device=dev)
+        for k in _family_kernels(rng, D, A, dev):
+            family = k.family
+            raws = k.trainable_raws()
+            pack = tbf.family_pack(family, k._fused_params())
+            p = pack.detach()
+            K = tbf.family_gram(family, x, cr, x[:200], c[:200], p)
+            Kp = tbf.family_gram_plain(family, x, cr, x[:200], c[:200], p)
+            V = torch.as_tensor(rng.randn(n, 33), dtype=torch.float32, device=dev)
+            KV = tbf.family_matvec(family, x, c, p, V)
+            KVp = tbf.family_matvec_plain(family, x, c, p, V)
+            torch.cuda.synchronize()
+            kmax = float(Kp.abs().max())
+            assert float((K - Kp).abs().max()) <= 2e-4 * kmax, (family, D, A)
+            tol = (2e-4 + n * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
+            assert bool(((KV - KVp).abs() <= tol).all()), (family, D, A)
+
+            G = torch.as_tensor(rng.randn(n, n), dtype=torch.float32, device=dev)
+            Am = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
+            Bm = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
+            p64 = p.double()
+            runs = {
+                "gram_bwd": (lambda: tbf.family_gram_bwd(family, x, c, x, c, p, G, counts, counts),
+                             lambda: tbf.family_gram_bwd_plain(family, x, c, x, c, p, G),
+                             lambda: tbf.family_gram_bwd_plain(family, x.double(), c, x.double(),
+                                                               c, p64, G.double())),
+                "lowrank": (lambda: tbf.family_lowrank_vjp_sorted(family, x, counts, p, Am, Bm),
+                            lambda: tbf.family_lowrank_vjp_plain(family, x, counts, p, Am, Bm),
+                            lambda: tbf.family_lowrank_vjp_plain(family, x.double(), counts, p64,
+                                                                 Am.double(), Bm.double()))}
+            for what, (kernel, twin, ref) in runs.items():
+                got, again = kernel(), kernel()
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (what, family, D, A)
+                chain = lambda d: [g.double() for g in torch.autograd.grad(
+                    pack, raws, d.to(pack.dtype), retain_graph=True)]
+                r = chain(ref())
+                assert _rel_err(chain(got), r) <= 2 * _rel_err(chain(twin()), r) + 1e-5, \
+                    (what, family, D, A)
