@@ -60,7 +60,21 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   gpr.Exact with the CSM kernel (both gradients, a 4,096-point request),
   one ExactIterative step of it at the bench budget against its float64
   execution, and the CSM, CONV and MOHSM named models (the dense
-  formulations) three steps each at N = 4,096.
+  formulations) three steps each at N = 4,096;
+- the fused below-TRSM column loop and the block-lower syrk
+  (gpr.config.blocked_cholesky_fused_trsm and pallas_syrk): K-sdiag and
+  K-below-trsm at block column 16 of the bench factor, K-commit with and
+  without zeroing the strip, K-syrk on W = L⁻¹ of the bench factor, each
+  against its plain twin, the fused factor against the unfused one, and
+  every block column of the fused factor held to K-sdiag's and
+  K-below-trsm's summation bounds on its own left columns, which checks
+  each row-tile instance of K-below-trsm where the path runs it
+  (phase 19); then with both switches on the closed-form and the
+  probe-trace steps at full width through gpr.train, each first step
+  against the float64 reference of the switches-off step and its distance
+  from that step, and three counted Adam steps (phase 20: 31 K-sdiag, 30
+  K-below-trsm, 31 K-commit, one K-spanel and one K-colwrite a step, and
+  one K-syrk a closed-form step).
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -509,8 +523,18 @@ def main():
     report.update(fam_report)
     print("phases 16-18 (the other families) wall time: %.1f s" % (time.perf_counter() - t_fam))
 
+    # -- phases 19-20: the fused below-TRSM column loop and the block-lower syrk
+    t_fused = time.perf_counter()
+    phase("phase 19: K-sdiag, K-below-trsm, K-commit and K-syrk against their twins (N=%d)" % n)
+    report.update(check_fused_kernels(gpr, bm, bc, bt, X, Y, dev))
+    phase("phase 20: closed-form and probe-trace steps with fused_trsm and pallas_syrk on")
+    fused_launches = drive_fused_path(gpr, bm, bc, bt, fs, mg, X, Y, dev, smi)
+    print("phases 19-20 (fused below-TRSM loop, syrk) wall time: %.1f s"
+          % (time.perf_counter() - t_fused))
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
-               "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu"}
+               "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu",
+               "fused": "mogptk_tpu_torch/csrc/fused_trsm.cu"}
     kernels = [
         {"name": "mosm_gram", "route": "cuda", "source": sources["cuda_gram"],
          "replaces": "mogptk_tpu/ops/block_mosm.py:304; mogptk_tpu/ops/pallas_mosm.py:207",
@@ -561,6 +585,20 @@ def main():
          "source": "mogptk_tpu_torch/csrc/family_lowrank_vjp.cu",
          "replaces": "mogptk_tpu/ops/block_families.py:590; mogptk_tpu/ops/fused.py:346",
          "path": "family train", "launches": fam_launches["family_lowrank_vjp"]},
+        {"name": "s_diag", "route": "cuda", "source": sources["fused"],
+         "replaces": "mogptk_tpu/ops/blocked_cholesky.py:414",
+         "path": "closed-form train (fused_trsm)", "launches": fused_launches["s_diag"]},
+        {"name": "below_trsm", "route": "cuda", "source": sources["fused"],
+         "replaces": "mogptk_tpu/ops/blocked_cholesky.py:465; mogptk_tpu/ops/blocked_cholesky.py:504 "
+                     "(the rows below the diagonal block)",
+         "path": "closed-form train (fused_trsm)", "launches": fused_launches["below_trsm"]},
+        {"name": "col_commit", "route": "cuda", "source": sources["fused"],
+         "replaces": "mogptk_tpu/ops/blocked_cholesky.py:504 (the diagonal block); "
+                     "mogptk_tpu/ops/blocked_cholesky.py:540",
+         "path": "closed-form train (fused_trsm)", "launches": fused_launches["col_commit"]},
+        {"name": "syrk_lower", "route": "cuda", "source": "mogptk_tpu_torch/csrc/syrk_lower.cu",
+         "replaces": "mogptk_tpu/ops/blocked_trisolve.py:212",
+         "path": "closed-form train (pallas_syrk)", "launches": fused_launches["syrk_lower"]},
     ]
     for k in kernels:
         if k["launches"] < 1:
@@ -1868,10 +1906,20 @@ def drive_user_api(xs, ys, counters):
     del bnse
 
 
-def check_first_step(model, bm, mg, label):
+# each check_first_step's result by label: the loss, the gradient, the
+# float64 reference and the probes it was taken with
+FIRST_STEPS = {}
+# each train_and_count's median step ms by label
+STEP_MS = {}
+
+
+def check_first_step(model, bm, mg, label, like=None):
     """The model's first training step (loss and every raw's gradient)
     against float64_training_reference within κ·u, then once more for a
-    bit-identical loss and gradient. Returns the first loss."""
+    bit-identical loss and gradient. With `like`, the label of an earlier
+    check of a model with the same parameters, data and probes, its float64
+    reference is reused and the step's distance from that check's step is
+    printed. Returns the first loss."""
     import torch
     raws = model.trainable_raws()
     for r in raws:
@@ -1881,8 +1929,22 @@ def check_first_step(model, bm, mg, label):
     torch.cuda.synchronize()
     loss1 = float(loss.detach())
     grads1 = [r.grad.clone() for r in raws]
-    phase("%s: float64 reference of the first step" % label)
-    lml64, grads64, scale_lml = float64_training_reference(model, bm, mg)
+    if like is None:
+        phase("%s: float64 reference of the first step" % label)
+        ref = float64_training_reference(model, bm, mg)
+    else:
+        prev = FIRST_STEPS[like]
+        same_probes = (prev["probes"] is None) == (model.probes is None) and (
+            model.probes is None or torch.equal(prev["probes"], model.probes))
+        if not same_probes:
+            fail("%s: the probes differ from those of the %s step" % (label, like))
+        ref = prev["ref"]
+        print("%s first step vs the %s step: |dLML| %.3e, gradient max|d| %.3e"
+              % (label, like, abs(loss1 - prev["loss"]),
+                 max(float((g - h).abs().max()) for g, h in zip(grads1, prev["grads"]))))
+    lml64, grads64, scale_lml = ref
+    FIRST_STEPS[label] = dict(loss=loss1, grads=grads1, ref=ref,
+                              probes=None if model.probes is None else model.probes.clone())
     d_lml = abs(-loss1 - lml64)
     tol_lml = KAPPA_U * scale_lml
     g_scale = max(float(g.abs().max()) for g in grads64)
@@ -1937,6 +1999,7 @@ def train_and_count(gpr, model, counters, want, loss1, label, smi, steps=TRAIN_S
     if abs(losses[0] - loss1) > 0:
         fail("the first %s train step's loss differs from the checked first step" % label)
     med = float(np.median(step_ms[1:]))
+    STEP_MS[label] = med
     print("%s training: %d Adam steps at N=%d, median step %.2f ms, %.3f steps/s (%s)"
           % (label, steps, model.X.shape[0], med, 1e3 / med, smi.stdout.strip().splitlines()[0]))
     return launches
@@ -2615,6 +2678,324 @@ def drive_families_full(gpr, _build, xs16, ys16, X16, Y16, reqs, fam_xs, fam_ys,
                 "family_gram_bwd": closed_launches["family_gram_bwd"],
                 "family_matvec": iter_launches["family_matvec"]}
     return report, launches
+
+
+# -- phases 19-20: the fused below-TRSM column loop and the block-lower syrk ----
+
+FUSED_J = 16       # the block column whose kernels phase 19 holds to their twins
+
+
+def syrk_ops(n, block):
+    """FP32 operations of the block-lower half of WᵀW for lower-triangular
+    W at `block` granularity: element (a, b) sums k from max(a, b) to n."""
+    a = np.arange(n, dtype=np.float64)
+    below = 2 * (n - a) * (a + 1)                      # b <= a: max = a
+    end = (np.arange(n) // block + 1) * block          # b in (a, end of a's block)
+    # Σ_{b=a+1}^{end-1} 2(n - b)
+    cnt = end - 1 - a
+    above = 2 * (cnt * n - (a + 1 + end - 1) * cnt / 2)
+    return float(np.sum(below + above))
+
+
+def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
+    """Phase 19: K-sdiag, K-below-trsm and K-commit at block column
+    FUSED_J of the bench model's noisy Gram (left columns the real factor,
+    column j still K), K-syrk on W = L⁻¹ of the bench factor, each against
+    its plain twin; then the whole fused factor against the unfused one
+    and column by column (fused_by_column). Returns the report entries."""
+    import torch
+    report = {}
+    u = TWO_POW_M24
+    n, B = X.shape[0], 512
+    j = min(FUSED_J, n // B - 2)
+    r0 = j * B
+    m = n - r0
+    model = bench_model(gpr, X, Y, dev, None)
+    with torch.no_grad():
+        c, x = model.kernel._split(model.X)
+        params = model.kernel._params()
+        K = bm.mosm_gram_sorted(x, model._channel_counts, *params, model.kernel.twopi)
+        K.diagonal().add_(model._noise_diag(add_jitter=True))
+        Lfull = torch.linalg.cholesky(K)
+        buf = K.clone()
+        buf[:, :r0] = Lfull[:, :r0]
+        del model
+
+        C = buf[r0:r0 + B, :r0]
+        got, err, worst = sdiag_against_twin(bc, buf, j, B)
+        ref = bc.s_diag_plain(buf, j, B)
+        ms = median_ms(lambda: bc.s_diag(buf, j, B))
+        pms = median_ms(lambda: bc.s_diag_plain(buf, j, B))
+        lms = median_ms(lambda: torch.addmm(buf[r0:r0 + B, r0:r0 + B], C, C.T, alpha=-1.0))
+        bnd = sdiag_bound(r0, B)
+        print("K-sdiag j=%d (r0=%d, B=%d, %d k chunks): max_abs_err %.3e, worst err/bound %.3f, "
+              "kernel %.3f ms, plain %.3f ms, cuBLAS addmm %.3f ms, bound %.3f ms (%s; the lower "
+              "triangle, which is all cholesky_ex reads)"
+              % ((j, r0, B, -(-r0 // bc.SDIAG_K_CHUNK), err, worst, ms, pms, lms) + bnd))
+        if not worst <= 1.0:
+            fail("K-sdiag disagrees with its plain twin beyond the summation bound")
+        if not torch.equal(bc.s_diag(buf, j, B), got):
+            fail("a repeated K-sdiag gave another result")
+        report["s_diag"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+
+        # the panel step as the factorization takes it (the noise is in K)
+        Ljj = torch.linalg.cholesky(ref).contiguous()
+        inv = torch.linalg.solve_triangular(Ljj, torch.eye(B, device=dev), upper=False).contiguous()
+        err, worst, untouched, _ = below_trsm_against_twin(bc, buf, inv, j, B)
+        A = buf[r0 + B:, :r0]
+        Kb = buf[r0 + B:, r0:r0 + B]
+        Lt = buf.clone()
+        ms = median_ms(lambda: bc.below_trsm(Lt, inv, j, B))
+        pms = median_ms(lambda: bc.below_trsm_plain(Lt, inv, j, B))
+        invT = inv.T.contiguous()
+        lms = median_ms(lambda: torch.addmm(Kb, A, C.T, alpha=-1.0) @ invT)
+        del Lt
+        rows = m - B
+        bnd = bound(4 * (rows * r0 + B * r0 + 2 * rows * B + B * B),
+                    2 * rows * B * r0 + 2 * rows * B * B)
+        tr = below_trsm_tile(rows)
+        print("K-below-trsm j=%d (%d rows below, k=%d, row tile %d: %d blocks): max_abs_err %.3e, "
+              "worst err/bound %.3f, kernel %.3f ms, plain %.3f ms, cuBLAS addmm then @ invT "
+              "(two calls) %.3f ms, bound %.3f ms (%s)"
+              % ((j, rows, r0, tr, rows // tr, err, worst, ms, pms, lms) + bnd))
+        if not worst <= 1.0 or not untouched:
+            fail("K-below-trsm disagrees with its plain twin or wrote outside column j's rows below")
+        report["below_trsm"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+
+        for zero_upper in (True, False):
+            L1, L2 = buf.clone(), buf.clone()
+            bc.col_commit(L1, Ljj, j, B, zero_upper)
+            bc.col_commit_plain(L2, Ljj, j, B, zero_upper)
+            err = float((L1 - L2).abs().max())
+            exact = torch.equal(L1, L2)
+            del L2
+            ms = median_ms(lambda: bc.col_commit(L1, Ljj, j, B, zero_upper))
+            pms = median_ms(lambda: bc.col_commit_plain(L1, Ljj, j, B, zero_upper))
+
+            def library():
+                L1[r0:r0 + B, r0:r0 + B].copy_(Ljj)
+                if zero_upper:
+                    L1[r0:r0 + B, r0 + B:].zero_()
+
+            lms = median_ms(library)
+            del L1
+            bnd = bound(4 * (2 * B * B + (B * (n - r0 - B) if zero_upper else 0)), 0)
+            print("K-commit j=%d zero_upper=%s: max_abs_err %.3e (exact: %s), kernel %.3f ms, "
+                  "plain %.3f ms, copy_ + zero_ %.3f ms, bound %.3f ms (%s)"
+                  % ((j, zero_upper, err, exact, ms, pms, lms) + bnd))
+            if not exact:
+                fail("K-commit is not an exact copy of its plain twin")
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+            report["col_commit" if zero_upper else "col_commit (zero_upper=False)"] = entry
+        del buf, A, Kb, C
+
+        # K-syrk on W = L⁻¹ of the bench factor
+        Lfull = torch.tril(Lfull)
+        W = bt.blocked_tri_inverse(Lfull, block_size=B, invs=bt.panel_inverses(Lfull, B))
+        got = bt.syrk_lower(W, B)
+        ref = bt.syrk_lower_plain(W, B)
+        nrm = torch.linalg.vector_norm(W, dim=0)
+        err, worst = 0.0, 0.0
+        for i in range(n // B):       # block row by block row: the block-lower part only
+            rs, cs = slice(i * B, (i + 1) * B), slice(0, (i + 1) * B)
+            d = (got[rs, cs] - ref[rs, cs]).abs()
+            err = max(err, float(d.max()))
+            worst = max(worst, float((d / (2 * (n + 1) * u * torch.outer(nrm[rs], nrm[cs]))).max()))
+        again = bt.syrk_lower(W, B)
+        same = all(torch.equal(again[i * B:(i + 1) * B, :(i + 1) * B], got[i * B:(i + 1) * B, :(i + 1) * B])
+                   for i in range(n // B))
+        del got, ref, again
+        ms = median_ms(lambda: bt.syrk_lower(W, B), reps=5)
+        # the plain twin is the port's torch.matmul row-block loop, which is
+        # also the library yardstick: timed once, reported as both
+        pms = lms = median_ms(lambda: bt.syrk_lower_plain(W, B), reps=5)
+        # W's lower triangle read once, the block-lower output written once
+        bnd = bound(4 * (n * (n + 1) // 2 + n * (n + B) // 2), syrk_ops(n, B))
+        print("K-syrk n=%d, block %d: max_abs_err %.3e, worst err/bound %.3f (2(n+1)u‖W_a‖‖W_b‖), "
+              "repeat bit-identical: %s, kernel %.3f ms, plain twin = library (the torch.matmul "
+              "row-block loop) %.3f ms, bound %.3f ms (%s)" % ((n, B, err, worst, same, ms, pms) + bnd))
+        if not worst <= 1.0 or not same:
+            fail("K-syrk disagrees with its plain twin or is not bit-identical when repeated")
+        report["syrk_lower"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+        del W, Lfull
+
+        # the whole factor, fused against unfused
+        outs, times = {}, {}
+        for name, fused in (("unfused (K-spanel + K-colwrite)", False),
+                            ("fused (K-sdiag + K-below-trsm + K-commit)", True)):
+            t = []
+            for _ in range(3):
+                A = K.clone()
+                t.append(event_ms(lambda: bc.blocked_cholesky(A, B, fused_trsm=fused)))
+            outs[fused] = torch.tril(A)
+            times[name] = float(np.median(t))
+            del A
+        d = float((outs[True] - outs[False]).abs().max())
+        print("factorization n=%d, fused against unfused: max|dL| %.3e (max|L| %.3f); %s"
+              % (n, d, float(outs[False].abs().max()),
+                 ", ".join("%s %.2f ms" % kv for kv in times.items())))
+        if not d <= KAPPA_U * float(outs[False].abs().max()):
+            fail("the fused factor is further from the unfused one than κu of its scale")
+        del outs
+        F, invs = bc.blocked_cholesky(K.clone(), B, fused_trsm=True, return_panel_invs=True)
+        fused_by_column(bc, K, F, invs, B)
+        del F, invs, K
+    torch.cuda.empty_cache()
+    return report
+
+
+def sdiag_bound(r0, B):
+    """K-sdiag's bound at r0 = j·B: its consumers (the diagonal shift and
+    torch.linalg.cholesky_ex) read the lower triangle of S_jj only, so the
+    function is B(B+1)/2 elements of 2·r0 flops each, reading C and K's
+    lower triangle once and writing S_jj's once."""
+    tri = B * (B + 1) // 2
+    return bound(4 * (B * r0 + 2 * tri), 2 * tri * r0)
+
+
+def sdiag_against_twin(bc, buf, j, B):
+    """K-sdiag and its plain twin on buf at block column j: (the kernel's
+    S_jj, max_abs_err, worst err/bound). Bound: 2·(r0+1)·u·(|C||C|ᵀ +
+    |K_jj|), the summation-order bound of two float32 sums of length r0."""
+    r0 = j * B
+    C = buf[r0:r0 + B, :r0]
+    got = bc.s_diag(buf, j, B)
+    diff = (got - bc.s_diag_plain(buf, j, B)).abs()
+    tol = 2 * (r0 + 1) * TWO_POW_M24 * (C.abs() @ C.abs().T + buf[r0:r0 + B, r0:r0 + B].abs())
+    return got, float(diff.max()), err_over_bound(diff, tol)
+
+
+def below_trsm_against_twin(bc, buf, inv, j, B):
+    """K-below-trsm and its plain twin, each on its own copy of buf, at
+    block column j: (max_abs_err, worst err/bound, whether the kernel wrote
+    nothing outside column j's rows below, the kernel's rows). Bound: S =
+    K_below − A·Cᵀ to 2·(r0+1)·u·(|A||C|ᵀ + |K_below|), carried through
+    invᵀ, plus 2·(B+1)·u·|S||inv|ᵀ for the product with invᵀ."""
+    import torch
+    u = TWO_POW_M24
+    r0 = j * B
+    L1, L2 = buf.clone(), buf.clone()
+    bc.below_trsm(L1, inv, j, B)
+    bc.below_trsm_plain(L2, inv, j, B)
+    C, A, Kb = buf[r0:r0 + B, :r0], buf[r0 + B:, :r0], buf[r0 + B:, r0:r0 + B]
+    ainv = inv.abs().T
+    tol = (2 * (r0 + 1) * u * (A.abs() @ C.abs().T + Kb.abs())) @ ainv \
+        + 2 * (B + 1) * u * ((Kb - A @ C.T).abs() @ ainv)
+    got = L1[r0 + B:, r0:r0 + B].clone()
+    diff = (got - L2[r0 + B:, r0:r0 + B]).abs()
+    L1[r0 + B:, r0:r0 + B] = L2[r0 + B:, r0:r0 + B]
+    return float(diff.max()), err_over_bound(diff, tol), torch.equal(L1, L2), got
+
+
+def err_over_bound(diff, tol):
+    """max(diff / tol), an entry that is exactly right counting 0 where its
+    bound is 0 too (the Gram underflows to 0 for far-apart points)."""
+    import torch
+    return float(torch.where(diff == 0, 0.0, diff / tol).max())
+
+
+def below_trsm_tile(rows):
+    """The row tile csrc/fused_trsm.cu below_trsm_f32 picks for `rows` rows
+    below the diagonal block: the widest whose count fills 132 SMs once."""
+    return next(4 * rpt for rpt in (8, 4, 2, 1) if rows // (4 * rpt) >= 132 or rpt == 1)
+
+
+def fused_by_column(bc, K, F, invs, B):
+    """Every block column j > 0 of the fused factor F of K (and invs, its
+    panel inverses) held to the kernels' summation bounds: on K with F's
+    left columns, K-sdiag and K-below-trsm against their twins, the
+    kernels' S_jj factor and rows bit-identical to F's (the same launches on
+    the same inputs), so every K-below-trsm instance (row tile 32, 16, 8, 4)
+    is checked where the main path runs it. Then K-below-trsm against the
+    unfused pair (K-spanel + K-colwrite) that it replaces, CUDA-event medians
+    of 3 on the same buffer (their times do not depend on the values)."""
+    import torch
+    n = K.shape[0]
+    S = torch.empty((n, B), device=K.device)
+    rows, sums, worst, bad = [], [0.0, 0.0], {}, []
+    if torch.triu(F, 1).any():
+        bad.append("the strict upper triangle is not zero")
+    for j in range(1, n // B):
+        r0 = j * B
+        buf = K.clone()
+        buf[:, :r0] = F[:, :r0]
+        Sjj, _, s_worst = sdiag_against_twin(bc, buf, j, B)
+        if not s_worst <= 1.0:
+            bad.append("j=%d: K-sdiag err/bound %.3f" % (j, s_worst))
+        if not torch.equal(F[r0:r0 + B, r0:r0 + B], torch.linalg.cholesky_ex(Sjj)[0]):
+            bad.append("j=%d: the diagonal block is not the factor of K-sdiag's S_jj" % j)
+        w = worst.setdefault("K-sdiag", [0.0, []])
+        w[0], w[1] = max(w[0], s_worst), w[1] + [j]
+        if j == n // B - 1:       # the last column has no rows below
+            break
+        below = n - r0 - B
+        tile = below_trsm_tile(below)
+        err, t_worst, untouched, got = below_trsm_against_twin(bc, buf, invs[j], j, B)
+        if not t_worst <= 1.0 or not untouched:
+            bad.append("j=%d: K-below-trsm err/bound %.3f, wrote outside its rows: %s"
+                       % (j, t_worst, not untouched))
+        if not torch.equal(got, F[r0 + B:, r0:r0 + B]):
+            bad.append("j=%d: the rows below are not K-below-trsm's on the same inputs" % j)
+        w = worst.setdefault("K-below-trsm row tile %d" % tile, [0.0, []])
+        w[0], w[1] = max(w[0], t_worst), w[1] + [j]
+        del got
+        fused = median_ms(lambda: bc.below_trsm(buf, invs[j], j, B), reps=3, warmup=1)
+        unfused = median_ms(lambda: (bc.s_panel(buf, S, j, B),
+                                     bc.col_write(buf, S, invs[j], invs[j], j, B, False)),
+                            reps=3, warmup=1)
+        sums[0] += fused
+        sums[1] += unfused
+        rows.append("j=%d: %d rows, tile %d, %d blocks, err/bound %.3f, %.3f vs %.3f ms"
+                    % (j, below, tile, below // tile, t_worst, fused, unfused))
+        del buf
+    print("the fused factor by column, each kernel against its twin on the factor's own left "
+          "columns (worst err/bound, columns): %s" % "; ".join(
+              "%s %.3f at j=%d..%d" % (k, v[0], v[1][0], v[1][-1]) for k, v in worst.items()))
+    print("K-below-trsm by column (%s) against K-spanel + K-colwrite: %s; sum %.2f ms vs %.2f ms"
+          % ("row tile, blocks on 132 SMs", "; ".join(rows), sums[0], sums[1]))
+    if bad:
+        fail("the fused factor by column: " + "; ".join(bad))
+    del S
+
+
+def drive_fused_path(gpr, bm, bc, bt, fs, mg, X, Y, dev, smi):
+    """Phase 20: with gpr.config.blocked_cholesky_fused_trsm and pallas_syrk
+    on, the closed-form and the probe-trace steps at full width through
+    gpr.train: each first step against the float64 reference of phases 7
+    and 5 (the same model, data and probes) and its distance from their
+    switches-off step, then three counted Adam steps. Restores both
+    switches. Returns the closed-form run's launches."""
+    import torch
+    cfg = gpr.config
+    common = {"s_panel": bc.s_panel, "col_write": bc.col_write, "s_diag": bc.s_diag,
+              "below_trsm": bc.below_trsm, "col_commit": bc.col_commit,
+              "syrk_lower": bt.syrk_lower, "fused_cho_solve": fs.fused_cho_solve}
+    nb = X.shape[0] // 512
+    fused_want = {"s_panel": (1, 1), "col_write": (1, 1), "s_diag": (nb - 1, nb - 1),
+                  "below_trsm": (nb - 2, nb - 2), "col_commit": (nb - 1, nb - 1),
+                  "fused_cho_solve": (1, None)}
+    runs = (("closed-form", None, {"mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd},
+             {"mosm_gram": (1, 1), "mosm_gram_bwd": (1, 1), "syrk_lower": (1, 1)}),
+            ("probe-trace", PROBES, {"mosm_gram_lower": bm.mosm_gram_sorted_lower,
+                                     "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted},
+             {"mosm_gram_lower": (1, 1), "mosm_lowrank_vjp": (1, 1), "syrk_lower": (0, 0)}))
+    cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = True
+    launches = {}
+    try:
+        for like, probes, extra, want in runs:
+            label = like + " fused"
+            model = bench_model(gpr, X, Y, dev, probes)
+            loss1 = check_first_step(model, bm, mg, label, like=like)
+            counters = dict(common, **extra)
+            launches[like] = train_and_count(gpr, model, counters, dict(fused_want, **want), loss1,
+                                             label, smi)
+            print("%s median step: %.2f ms with both switches on, %.2f ms off (phase %d)"
+                  % (like, STEP_MS[label], STEP_MS[like], 7 if probes is None else 5))
+            del model
+            torch.cuda.empty_cache()
+    finally:
+        cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = False
+    return launches["closed-form"]
 
 
 def event_ms(fn):

@@ -29,6 +29,18 @@ class Config:
             and n a multiple of blocked_cholesky_block), True/False to force.
         jitter_ladder: rungs of ops/linalg.jittered_cholesky's retry ladder
             (0, the default, disables it; use_jitter_ladder).
+        blocked_cholesky_fused_trsm: the fused below-TRSM column pipeline in
+            the blocked factor of the three training LMLs (ops/linalg
+            _chol_lml): per block column after the first, K-sdiag, the panel
+            factor and inverse, K-below-trsm and K-commit on the card, so the
+            panel below the diagonal block never goes to device memory.
+            Default False, as in the JAX package; predict and the jitter
+            ladder keep the unfused factor either way.
+        pallas_syrk: the closed-form gradient's K⁻¹ = WᵀW through K-syrk
+            (ops/blocked_trisolve.syrk_lower, one launch for the block-lower
+            half) instead of the row-block torch.matmul loop. Default False,
+            as in the JAX package. Both names are the JAX package's, so
+            scripts written for it carry over.
     """
 
     def __init__(self):
@@ -42,6 +54,8 @@ class Config:
         self.blocked_cholesky_block = 512
         self.blocked_cholesky_min_n = 4096
         self.jitter_ladder = 0
+        self.blocked_cholesky_fused_trsm = False
+        self.pallas_syrk = False
 
     @property
     def dtype(self):

@@ -50,6 +50,14 @@ SIGNATURES = {
     "s_panel_f32": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_ptr],
     # L, S, Ljj, inv, n, r0, B, zero_upper, stream
     "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
+    # L, part, out, n, r0, B, k_chunk, stream
+    "s_diag_f32": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_i64, _c_i64, _c_ptr],
+    # L, inv, n, r0, B, stream
+    "below_trsm_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_i64, _c_ptr],
+    # L, Ljj, n, r0, B, zero_upper, stream
+    "col_commit_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
+    # W, out, n, block, stream
+    "syrk_lower_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_ptr],
     # x, c, stats, out, N, O, Q, D, tile, band, generic, stream
     "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_int,
                                            _c_ptr],

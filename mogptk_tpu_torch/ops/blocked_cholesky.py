@@ -1,5 +1,6 @@
-"""Left-looking blocked Cholesky, in place, with the K-spanel and K-colwrite
-kernels' wrappers and their plain PyTorch twins.
+"""Left-looking blocked Cholesky, in place, with the K-spanel, K-colwrite,
+K-sdiag, K-below-trsm and K-commit kernels' wrappers and their plain PyTorch
+twins.
 
 JAX counterpart: mogptk_tpu/ops/blocked_cholesky.py (`blocked_cholesky`
 :642-856, `effective_block` :624-639). Per block column j (r0 = j·B):
@@ -14,11 +15,20 @@ JAX counterpart: mogptk_tpu/ops/blocked_cholesky.py (`blocked_cholesky`
    right of the diagonal block zeroed (`col_write`; the JAX Pallas kernels
    `_col_strip_write`, and `_panel_write` when zero_upper is off).
 
+The fused below-TRSM variant (`fused_trsm`, JAX :751-779) runs every block
+column after the first as: S_jj = K_jj − C·Cᵀ, C = L[r0:r0+B, :r0]
+(`s_diag`, JAX `_s_diag_pallas`); step 2; the rows below finished in one
+pass, (K_below − L[r0+B:, :r0]·Cᵀ)·invᵀ written straight into column j
+(`below_trsm`, JAX `_below_trsm_pallas` and the below half of
+`_col_commit`), so S below the diagonal block never goes to device memory;
+then Ljj into the diagonal block and, with zero_upper, the strip zeroed
+(`col_commit`, JAX `_col_commit` and `_upper_zero_impl`). Block column 0
+takes steps 1-3, as in the JAX package.
+
 The factor is built in the buffer that holds K: K is overwritten. When n is
 not a multiple of the block, K is copied into a padded buffer with an
-identity tail first, and K itself is left as it was. The fused below-TRSM
-variant (`fused_trsm`) is not ported. Steps 1 and 3 read and write the same
-buffer and run on one stream in order.
+identity tail first, and K itself is left as it was. Every step reads and
+writes the same buffer and runs on one stream in order.
 """
 import torch
 
@@ -94,14 +104,120 @@ s_panel.launches = 0
 col_write.launches = 0
 
 
+# k columns per block of K-sdiag's split sum (its partials are summed in a
+# fixed order, so repeats are bit-identical)
+SDIAG_K_CHUNK = 512
+# the blocks the fused kernels take on the card: K-below-trsm keeps whole
+# B-wide rows of the accumulator on chip, 4 or 8 columns a thread
+FUSED_BLOCKS = (256, 512)
+
+
+def fused_applicable(L, B):
+    """Whether blocked_cholesky(fused_trsm=True) takes the fused column loop
+    for this buffer: always for the plain twins; on the card for a block in
+    FUSED_BLOCKS (the JAX package's gate is its own tiling's, B a multiple
+    of 512). Otherwise the unfused loop."""
+    return _build.runs_plain(L) or B in FUSED_BLOCKS
+
+
+def s_diag_plain(L, j, B):
+    """S_jj = L[r0:r0+B, r0:r0+B] − C·Cᵀ with C = L[r0:r0+B, :r0], where the
+    diagonal block still holds K; a new (B, B) tensor."""
+    r0 = j * B
+    C = L[r0:r0 + B, :r0]
+    return L[r0:r0 + B, r0:r0 + B] - C @ C.T
+
+
+def below_trsm_plain(L, inv, j, B):
+    """L[r0+B:, r0:r0+B] = (K_below − L[r0+B:, :r0]·Cᵀ)·invᵀ in place, with
+    K_below the rows below the diagonal block of column j (still K) and
+    inv = Ljj⁻¹."""
+    r0 = j * B
+    C = L[r0:r0 + B, :r0]
+    below = L[r0 + B:, r0:r0 + B]
+    below.copy_((below - L[r0 + B:, :r0] @ C.T) @ inv.T)
+
+
+def col_commit_plain(L, Ljj, j, B, zero_upper=True):
+    """L[r0:r0+B, r0:r0+B] = Ljj and, with zero_upper, the strip of block
+    row j right of it zeroed."""
+    r0 = j * B
+    L[r0:r0 + B, r0:r0 + B] = Ljj
+    if zero_upper:
+        L[r0:r0 + B, r0 + B:] = 0
+
+
+def s_diag(L, j, B):
+    """S_jj for block column j > 0, a new (B, B) tensor. CPU or float64:
+    plain twin. float32 CUDA: csrc/fused_trsm.cu s_diag_f32, or raises."""
+    if _build.runs_plain(L):
+        return s_diag_plain(L, j, B)
+    _check_fused("s_diag", L, j, B)
+    _build.require_cuda_inputs("s_diag", floats=(L,))
+    splits = -(-j * B // SDIAG_K_CHUNK)
+    out = torch.empty((B, B), dtype=L.dtype, device=L.device)
+    part = torch.empty((splits, B, B), dtype=L.dtype, device=L.device)
+    err = _build.library().s_diag_f32(L.data_ptr(), part.data_ptr(), out.data_ptr(), L.shape[0],
+                                      j * B, B, SDIAG_K_CHUNK, _build.stream_ptr(L))
+    _build.check(err, "s_diag_f32")
+    s_diag.launches += 1
+    return out
+
+
+def below_trsm(L, inv, j, B):
+    """Finish the rows of block column j below its diagonal block, in place,
+    for 0 < j < n/B − 1. CPU or float64: plain twin. float32 CUDA:
+    csrc/fused_trsm.cu below_trsm_f32, or raises."""
+    if _build.runs_plain(L):
+        return below_trsm_plain(L, inv, j, B)
+    _check_fused("below_trsm", L, j, B)
+    if inv.shape != (B, B) or (j + 1) * B >= L.shape[0]:
+        raise ValueError("below_trsm: inv must be (B, B) and column j must have rows below")
+    _build.require_cuda_inputs("below_trsm", floats=(L, inv))
+    if L.data_ptr() % 16 or inv.data_ptr() % 16:
+        raise ValueError("below_trsm: L and inv must start on 16 bytes (float4 loads)")
+    err = _build.library().below_trsm_f32(L.data_ptr(), inv.data_ptr(), L.shape[0], j * B, B,
+                                          _build.stream_ptr(L))
+    _build.check(err, "below_trsm_f32")
+    below_trsm.launches += 1
+
+
+def col_commit(L, Ljj, j, B, zero_upper=True):
+    """Write Ljj into the diagonal block of column j and, with zero_upper,
+    zero the strip right of it. CPU or float64: plain twin. float32 CUDA:
+    csrc/fused_trsm.cu col_commit_f32, or raises."""
+    if _build.runs_plain(L):
+        return col_commit_plain(L, Ljj, j, B, zero_upper)
+    _check_fused("col_commit", L, j, B)
+    if Ljj.shape != (B, B):
+        raise ValueError("col_commit: Ljj must be (B, B)")
+    _build.require_cuda_inputs("col_commit", floats=(L, Ljj))
+    err = _build.library().col_commit_f32(L.data_ptr(), Ljj.data_ptr(), L.shape[0], j * B, B,
+                                          int(bool(zero_upper)), _build.stream_ptr(L))
+    _build.check(err, "col_commit_f32")
+    col_commit.launches += 1
+
+
+s_diag.launches = 0
+below_trsm.launches = 0
+col_commit.launches = 0
+
+
 def _check_shapes(name, L, S, B):
     n = L.shape[0]
     if L.shape != (n, n) or n % B or S.shape != (n, B):
         raise ValueError("%s: L must be (n, n) and S (n, B) with B dividing n" % name)
 
 
+def _check_fused(name, L, j, B):
+    n = L.shape[0]
+    if L.shape != (n, n) or n % B or not 0 < j < n // B or B not in FUSED_BLOCKS:
+        raise ValueError("%s: L must be (n, n), B one of %s dividing n, and 0 < j < n/B"
+                         % (name, FUSED_BLOCKS))
+
+
 def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
-                     return_panel_invs=False):
+                     return_panel_invs=False, fused_trsm=False):
     """Lower Cholesky factor of K + diag(diag_shift), blocked by columns.
 
     Args:
@@ -117,6 +233,9 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
             diagonal blocks may hold anything (the band-lower Gram,
             ops/block_mosm.mosm_gram_sorted_lower).
         return_panel_invs: also return the inverses of the diagonal blocks.
+        fused_trsm: the fused below-TRSM column loop (module docstring) for
+            every block column after the first, where fused_applicable
+            says so; the same factor up to rounding.
 
     Returns the (n, n) factor, or with return_panel_invs (L, invs): invs is
     an (n/B, B, B) tensor, one lower inverse per block column in solve order,
@@ -150,14 +269,19 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
     if return_panel_invs and npad == n:
         invs = torch.empty((nb, B, B), dtype=K.dtype, device=K.device)
     failed = torch.zeros((), dtype=torch.bool, device=K.device)
+    fused = fused_trsm and fused_applicable(L, B)
     for j in range(nb):
         r0 = j * B
-        s_panel(L, S, j, B)
-        Sjj = S[:B]
+        if fused and j > 0:
+            Sjj = s_diag(L, j, B)
+        else:
+            s_panel(L, S, j, B)
+            Sjj = S[:B]
         if shift is not None:
             Sjj = Sjj + torch.diag(shift[r0:r0 + B])
         Ljj, info = torch.linalg.cholesky_ex(Sjj)
-        # no host sync: a failed block poisons it and, through S, every later one
+        # no host sync: a failed block poisons it and, through the rows
+        # below it, every later one
         failed = failed | (info != 0)
         Ljj = torch.where(failed, torch.full_like(Ljj, float("nan")), Ljj).contiguous()
         inv = None
@@ -165,6 +289,11 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
             inv = torch.linalg.solve_triangular(Ljj, eye, upper=False).contiguous()
             if invs is not None:
                 invs[j] = inv
-        col_write(L, S, Ljj, inv, j, B, zero_upper)
+        if fused and j > 0:
+            if j < nb - 1:
+                below_trsm(L, inv, j, B)
+            col_commit(L, Ljj, j, B, zero_upper)
+        else:
+            col_write(L, S, Ljj, inv, j, B, zero_upper)
     L = L[:n, :n] if npad != n else L
     return (L, invs) if return_panel_invs else L

@@ -10,10 +10,17 @@ inverse. Only L's strictly lower blocks and the inverses are read (the upper
 sweep reads Lᵀ as a view of the same lower blocks), so L's strict upper
 triangle may hold anything. n must be a multiple of the block. The products
 are plain large GEMMs (torch.matmul, full float32 on the card: TF32 stays
-off); the JAX package's Pallas syrk (`syrk_lower`, default off and TPU only)
-is not on this path.
+off), except the block-lower half of WᵀW in spd_inverse_from_factor, which
+gpr.config.pallas_syrk sends to the K-syrk kernel (`syrk_lower`, JAX
+`syrk_lower` :200-241 and its gate `_syrk_lower_applicable`).
 """
 import torch
+
+from . import _build
+
+# the output tile of K-syrk: the block of the block-lower half it fills must
+# be a multiple of it
+SYRK_TILE = 128
 
 
 def panel_inverses(L, block_size=512):
@@ -86,21 +93,68 @@ def blocked_tri_inverse(L, block_size=1024, invs=None):
     return W
 
 
+def syrk_lower_plain(W, block):
+    """The block-lower half of WᵀW for lower-triangular W (strict upper
+    zero), at `block` granularity: block row i is one GEMM,
+    out[i, :i+1] = W[i:, i]ᵀ·W[i:, :i+1] (the rows above i add nothing).
+    Diagonal blocks come out whole; the strict upper blocks are left
+    unwritten."""
+    n = W.shape[-1]
+    out = torch.empty_like(W)
+    for i in range(n // block):
+        r0 = i * block
+        torch.matmul(W[r0:, r0:r0 + block].T, W[r0:, :r0 + block], out=out[r0:r0 + block, :r0 + block])
+    return out
+
+
+def syrk_lower(W, block):
+    """syrk_lower_plain's result in one launch. CPU or float64: the plain
+    twin. float32 CUDA: csrc/syrk_lower.cu syrk_lower_f32, or raises."""
+    if _build.runs_plain(W):
+        return syrk_lower_plain(W, block)
+    n = W.shape[-1]
+    if W.shape != (n, n) or n % block or block % SYRK_TILE:
+        raise ValueError("syrk_lower: W must be (n, n) with the block dividing n and a multiple "
+                         "of %d" % SYRK_TILE)
+    _build.require_cuda_inputs("syrk_lower", floats=(W,))
+    if W.data_ptr() % 16:
+        raise ValueError("syrk_lower: W must start on 16 bytes (float4 loads)")
+    out = torch.empty_like(W)
+    err = _build.library().syrk_lower_f32(W.data_ptr(), out.data_ptr(), n, block,
+                                          _build.stream_ptr(W))
+    _build.check(err, "syrk_lower_f32")
+    syrk_lower.launches += 1
+    return out
+
+
+syrk_lower.launches = 0
+
+
+def _syrk_lower_applicable(W, block):
+    """K-syrk's gate (JAX: _syrk_lower_applicable): gpr.config.pallas_syrk
+    on, and a block that divides n; on the card a float32 W and a block that
+    is a multiple of SYRK_TILE as well (the twin takes any). The JAX
+    package's own gates (1024 | n, an even block count, bf16x3 precision,
+    the TPU backend) are its tiling's and are not carried over."""
+    from ..gpr.config import config
+    if not config.pallas_syrk or W.shape[-1] % block:
+        return False
+    return _build.runs_plain(W) or (W.dtype == torch.float32 and block % SYRK_TILE == 0)
+
+
 def spd_inverse_from_factor(L, block_size=1024, invs=None):
     """K⁻¹ = WᵀW from the lower Cholesky factor L of K, W = L⁻¹
-    (blocked_tri_inverse). Block row i of the lower triangle is one GEMM,
-    K⁻¹[i, :i+1] = W[i:, i]ᵀ·W[i:, :i+1] (W is lower, so the rows above i add
-    nothing): ≈ n³/6 multiply-adds. Each strict lower block row is then
-    mirrored into the upper blocks in place. ≈ n³/2 multiply-adds in all,
-    against ≈ n³ for a column-blocked double solve; W is freed before the
-    mirror."""
+    (blocked_tri_inverse). The block-lower half of WᵀW is syrk_lower's
+    (gpr.config.pallas_syrk: K-syrk on the card) or syrk_lower_plain's
+    row-block GEMMs, ≈ n³/6 multiply-adds either way. Each strict lower block
+    row is then mirrored into the upper blocks in place. ≈ n³/2 multiply-adds
+    in all, against ≈ n³ for a column-blocked double solve; W is freed before
+    the mirror."""
     n = L.shape[-1]
     W = blocked_tri_inverse(L, block_size=block_size, invs=invs)
     Bs = int(min(block_size, n)) if invs is None else invs.shape[-1]
-    Kinv = torch.empty_like(W)
-    for i in range(n // Bs):
-        r0 = i * Bs
-        torch.matmul(W[r0:, r0:r0 + Bs].T, W[r0:, :r0 + Bs], out=Kinv[r0:r0 + Bs, :r0 + Bs])
+    syrk = syrk_lower if _syrk_lower_applicable(W, Bs) else syrk_lower_plain
+    Kinv = syrk(W, Bs)
     del W
     for i in range(1, n // Bs):
         r0 = i * Bs

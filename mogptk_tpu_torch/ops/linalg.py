@@ -9,7 +9,9 @@ JAX counterpart: mogptk_tpu/ops/linalg.py (`cholesky` :19-59,
 `lml_chol_fused` :611-715, whose `_sorted_lowrank_vjp` is
 ops/block_families.lowrank_vjp_of here). The
 factorization routes to ops/blocked_cholesky (the hand-written kernels on
-CUDA) by gpr.config.blocked_cholesky_enabled, else to torch.linalg.cholesky.
+CUDA) by gpr.config.blocked_cholesky_enabled, else to torch.linalg.cholesky;
+the training LMLs ask for its fused below-TRSM loop (JAX :363, :381, :689),
+which gpr.config.blocked_cholesky_fused_trsm switches on.
 A solve given the panel inverses goes to ops/fused_solve (the K-solve kernel
 on CUDA); the other solves are torch.linalg calls.
 """
@@ -22,20 +24,24 @@ from .block_mosm import channel_ids, mosm_gram_sorted_lower
 from .fused_solve import MAX_RHS, fused_cho_solve
 
 
-def cholesky(K, diag_shift=None, return_panel_invs=False, zero_upper=True):
+def cholesky(K, diag_shift=None, return_panel_invs=False, zero_upper=True,
+             fused_trsm=False):
     """Lower Cholesky factor of K + diag(diag_shift) (scalar or (n,) vector).
 
     The blocked path overwrites K (see ops/blocked_cholesky); zero_upper=False
     leaves its strict upper undefined, for callers that read only the lower
     blocks. return_panel_invs=True returns (L, invs) with the diagonal-block
     inverses for cholesky_solve(invs=...), None where the blocked path did not
-    run or padded. Both paths return NaN instead of raising where K is not
-    positive definite, as the JAX package does."""
+    run or padded. fused_trsm asks the blocked path for its fused below-TRSM
+    column loop, taken when gpr.config.blocked_cholesky_fused_trsm is on too.
+    Both paths return NaN instead of raising where K is not positive
+    definite, as the JAX package does."""
     from ..gpr.config import config, blocked_cholesky_enabled
     if K.ndim == 2 and blocked_cholesky_enabled(K.shape[0], K.device, K.dtype):
         return blocked_cholesky(K, block_size=config.blocked_cholesky_block,
                                 diag_shift=diag_shift, zero_upper=zero_upper,
-                                return_panel_invs=return_panel_invs)
+                                return_panel_invs=return_panel_invs,
+                                fused_trsm=fused_trsm and config.blocked_cholesky_fused_trsm)
     if diag_shift is not None:
         K = K + torch.diag(torch.as_tensor(diag_shift, dtype=K.dtype, device=K.device)
                            .expand(K.shape[-1]))
@@ -165,10 +171,13 @@ def _stoch_lowrank(alpha, U, Z, g, num_probes):
 
 
 def _chol_lml(K, diag, rhs):
-    """Shared LML forward core: factor K + diag(diag) (the shift applied
-    inside the factorization, K overwritten on the blocked route), solve
-    rhs = [y, Z...] in one call. Returns (val, L, invs, K⁻¹rhs)."""
-    L, invs = cholesky(K, diag_shift=diag, return_panel_invs=True, zero_upper=False)
+    """Shared LML forward core of the three training LMLs: factor K +
+    diag(diag) (the shift applied inside the factorization, K overwritten on
+    the blocked route, which takes the fused below-TRSM loop when
+    gpr.config.blocked_cholesky_fused_trsm is on), solve rhs = [y, Z...] in
+    one call. Returns (val, L, invs, K⁻¹rhs)."""
+    L, invs = cholesky(K, diag_shift=diag, return_panel_invs=True, zero_upper=False,
+                       fused_trsm=True)
     X = cholesky_solve(L, rhs, invs=invs)
     val = -torch.sum(torch.log(torch.diagonal(L))) - 0.5 * torch.sum(rhs[:, :1] * X[:, :1])
     return val, L, invs, X

@@ -148,7 +148,7 @@ def _check_loss_and_grads(tm, loss, grads):
         np.testing.assert_allclose(r.grad.numpy(), g, rtol=RTOL, atol=1e-9 * scale, err_msg=name)
 
 
-@pytest.mark.parametrize("route", ["unblocked", "blocked"])
+@pytest.mark.parametrize("route", ["unblocked", "blocked", "fused"])
 @pytest.mark.parametrize("shuffle", [False, True], ids=["sorted", "shuffled"])
 def test_closed_form_loss_and_gradients_match_jax(shuffle, route, jax_sorted, jax_shuffled,
                                                   monkeypatch):
@@ -156,14 +156,23 @@ def test_closed_form_loss_and_gradients_match_jax(shuffle, route, jax_sorted, ja
     Gram, torch.linalg.cholesky_ex and torch.cholesky_inverse. Blocked
     (forced at block 40, which divides n = 120): the blocked factor with every
     panel inverse, the K-solve twin and K⁻¹ from the factor
-    (spd_inverse_from_factor). Either way the dense dK goes through
+    (spd_inverse_from_factor). Fused: the blocked route with
+    gpr.config.blocked_cholesky_fused_trsm and pallas_syrk on, so the factor
+    runs the K-sdiag, K-below-trsm (three block columns) and K-commit twins
+    and K⁻¹ the K-syrk twin. Either way the dense dK goes through
     MosmGram's backward, the K-gram-bwd twin."""
+    from mogptk_tpu_torch.ops import blocked_cholesky as tbc
+    from mogptk_tpu_torch.ops import blocked_trisolve as tbt
     jm, losses, grads, _ = jax_shuffled if shuffle else jax_sorted
     calls = []
-    twin = tmg.mosm_gram_bwd_plain
-    monkeypatch.setattr(tmg, "mosm_gram_bwd_plain", lambda *a: calls.append(1) or twin(*a))
-    if route == "blocked":
+    for mod, name in ((tmg, "mosm_gram_bwd_plain"), (tbc, "below_trsm_plain"),
+                      (tbt, "syrk_lower")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name: calls.append(_n) or _fn(*a))
+    cfg = tgpr.config
+    if route != "unblocked":
         tgpr.use_blocked_cholesky(True, block_size=40)
+    cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = route == "fused"
     try:
         tm = _port_model(shuffle, jm)
         assert tm._fused_static() is None and tm.trace_probes is None
@@ -171,7 +180,9 @@ def test_closed_form_loss_and_gradients_match_jax(shuffle, route, jax_sorted, ja
         _check_loss_and_grads(tm, losses[0], grads[0])
     finally:
         tgpr.use_blocked_cholesky(None)
-    assert calls == [1]
+        cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = False
+    want = ["below_trsm_plain", "syrk_lower"] if route == "fused" else []
+    assert sorted(calls) == sorted(want + ["mosm_gram_bwd_plain"])
 
 
 def test_probe_trace_gradient_on_shuffled_channels_matches_jax(jax_shuffled_probes):

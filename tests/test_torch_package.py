@@ -48,8 +48,9 @@ def test_kernel_sources_and_nvcc_command():
     names = sorted(os.path.basename(p) for p in _build.sources())
     assert names == ["blocked_cholesky.cu", "family_gram.cu", "family_gram_bwd.cu",
                      "family_lowrank_vjp.cu", "family_matvec.cu", "fused_cho_solve.cu",
-                     "mosm_gram.cu", "mosm_gram_bwd.cu", "mosm_gram_bwd_inputs.cu",
-                     "mosm_lowrank_vjp.cu", "mosm_matvec.cu"]
+                     "fused_trsm.cu", "mosm_gram.cu", "mosm_gram_bwd.cu",
+                     "mosm_gram_bwd_inputs.cu", "mosm_lowrank_vjp.cu", "mosm_matvec.cu",
+                     "syrk_lower.cu"]
     compiles, link = _build.nvcc_commands("/tmp/out.so")
     # one compile per source, all into the one library
     assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == _build.sources()
@@ -514,3 +515,69 @@ def test_cuda_family_kernels_match_plain_twins():
                 r = chain(ref())
                 assert _rel_err(chain(got), r) <= 2 * _rel_err(chain(twin()), r) + 1e-5, \
                     (what, family, D, A)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernels_match_plain_twins():
+    """K-sdiag, K-below-trsm, K-commit and K-syrk against their plain twins
+    on the card, float32, small shapes; K-sdiag and K-below-trsm at the
+    columns where each of K-below-trsm's row tiles runs. Tolerances: K-sdiag and
+    K-below-trsm's S 2·(k+1)·2⁻²⁴·(|C||C|ᵀ + |K|), the summation-order
+    bound of two float32 sums of length k, carried through invᵀ with
+    2·B·2⁻²⁴·|S||inv|ᵀ more; K-commit exact (a copy); K-syrk
+    2·(n+1)·2⁻²⁴·‖W_a‖‖W_b‖ (Cauchy-Schwarz on |W|ᵀ|W|). Then the fused
+    factor against the unfused one on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mogptk_tpu_torch.ops import blocked_trisolve as tbt
+    dev = torch.device("cuda")
+    u = 2.0 ** -24
+    rng = np.random.RandomState(2)
+    n = 5632
+    L = torch.as_tensor(rng.randn(n, n) / 8, dtype=torch.float32, device=dev)
+    # at n = 5,632 these columns run every K-below-trsm instance: row tile
+    # 32, 16, 8 and 4 (by the rows below) for B = 256 and for B = 512
+    for B, js in ((256, (1, 11, 15, 19)), (512, (1, 5, 7, 9))):
+        for j in js:
+            r0 = j * B
+            C = L[r0:r0 + B, :r0]
+            tolS = 2 * (r0 + 1) * u * (C.abs() @ C.abs().T + L[r0:r0 + B, r0:r0 + B].abs())
+            assert bool(((tbc.s_diag(L, j, B) - tbc.s_diag_plain(L, j, B)).abs() <= tolS).all())
+
+            Ljj = torch.tril(torch.rand(B, B, device=dev)) / B + torch.eye(B, device=dev)
+            inv = torch.linalg.solve_triangular(Ljj, torch.eye(B, device=dev),
+                                                upper=False).contiguous()
+            L1, L2 = L.clone(), L.clone()
+            tbc.below_trsm(L1, inv, j, B)
+            tbc.below_trsm_plain(L2, inv, j, B)
+            A = L[r0 + B:, :r0].abs()
+            S = L[r0 + B:, r0:r0 + B] - L[r0 + B:, :r0] @ C.T
+            tol = (2 * (r0 + 1) * u * (A @ C.abs().T + L[r0 + B:, r0:r0 + B].abs())) @ inv.abs().T \
+                + 2 * (B + 1) * u * (S.abs() @ inv.abs().T)
+            assert bool(((L1 - L2)[r0 + B:, r0:r0 + B].abs() <= tol + 1e-7).all()), (B, j)
+            L1[r0 + B:, r0:r0 + B] = L2[r0 + B:, r0:r0 + B]
+            assert torch.equal(L1, L2)                     # nothing else written
+            del L1, L2
+
+    for zero_upper in (True, False):
+        L1, L2 = L.clone(), L.clone()
+        tbc.col_commit(L1, Ljj, j, B, zero_upper)
+        tbc.col_commit_plain(L2, Ljj, j, B, zero_upper)
+        assert torch.equal(L1, L2)
+
+    W = torch.tril(torch.as_tensor(rng.randn(512, 512), dtype=torch.float32, device=dev))
+    nrm = torch.linalg.vector_norm(W, dim=0)
+    got, ref = tbt.syrk_lower(W, 256), tbt.syrk_lower_plain(W, 256)
+    for i in range(2):
+        for jj in range(i + 1):
+            blk = (slice(i * 256, (i + 1) * 256), slice(jj * 256, (jj + 1) * 256))
+            tol = 2 * 513 * u * torch.outer(nrm[blk[0]], nrm[blk[1]])
+            assert bool(((got[blk] - ref[blk]).abs() <= tol).all())
+
+    n = 1280
+    A = rng.randn(n, n) / np.sqrt(n)
+    K = torch.as_tensor(A @ A.T + 3.0 * np.eye(n), dtype=torch.float32, device=dev)
+    L0 = tbc.blocked_cholesky(K.clone(), block_size=256)
+    Lf = tbc.blocked_cholesky(K.clone(), block_size=256, fused_trsm=True)
+    torch.cuda.synchronize()
+    assert float((Lf - L0).abs().max()) <= 1e-4

@@ -159,15 +159,15 @@ def test_dense_route_loss_and_gradients_match_jax(jax_dense):
     _check_loss_and_grads(tm, losses[0], grads[0])
 
 
-def test_blocked_route_loss_and_gradients_match_jax(jax_blocked, monkeypatch):
-    """2 x 512 points with block 512: the band-lower Gram's twin (unwritten
-    tiles NaN), the blocked factor with zero_upper=False and every panel
-    inverse, the K-solve twin and the K-lowrank-vjp twin."""
+def _blocked_route(jax_blocked, monkeypatch, block, fused):
     jm, Z, losses, grads, _ = jax_blocked
-    tgpr.use_blocked_cholesky(True, block_size=512)
+    cfg = tgpr.config
+    tgpr.use_blocked_cholesky(True, block_size=block)
+    cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = fused
     calls = []
-    for mod, name in ((tbm, "mosm_gram_sorted_lower_plain"), (tbm, "mosm_lowrank_vjp_plain"),
-                      (tfs, "blocked_cho_solve")):
+    names = ["mosm_gram_sorted_lower_plain", "mosm_lowrank_vjp_plain", "blocked_cho_solve"]
+    for mod, name in ((tbm, names[0]), (tbm, names[1]), (tfs, names[2]),
+                      (tbc, "s_diag_plain"), (tbc, "below_trsm_plain"), (tbc, "col_commit_plain")):
         fn = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _fn=fn, _n=name, **k: calls.append(_n) or _fn(*a, **k))
     try:
@@ -175,8 +175,31 @@ def test_blocked_route_loss_and_gradients_match_jax(jax_blocked, monkeypatch):
         _check_loss_and_grads(tm, losses[0], grads[0])
     finally:
         tgpr.use_blocked_cholesky(None)
-    assert sorted(calls) == ["blocked_cho_solve", "mosm_gram_sorted_lower_plain",
-                             "mosm_lowrank_vjp_plain"]
+        cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = False
+    nb = 1024 // block
+    if block % tbm.TILE:     # no band-lower Gram at this band: the full Gram
+        names.remove("mosm_gram_sorted_lower_plain")
+    if fused:      # block columns 1 .. nb-1; rows below all but the last
+        names += ["s_diag_plain", "col_commit_plain"] * (nb - 1) + ["below_trsm_plain"] * (nb - 2)
+    assert sorted(calls) == sorted(names)
+
+
+def test_blocked_route_loss_and_gradients_match_jax(jax_blocked, monkeypatch):
+    """2 x 512 points with block 512: the band-lower Gram's twin (unwritten
+    tiles NaN), the blocked factor with zero_upper=False and every panel
+    inverse, the K-solve twin and the K-lowrank-vjp twin."""
+    _blocked_route(jax_blocked, monkeypatch, 512, fused=False)
+
+
+def test_blocked_fused_route_loss_and_gradients_match_jax(jax_blocked, monkeypatch):
+    """The same step with gpr.config.blocked_cholesky_fused_trsm and
+    pallas_syrk on, against the same JAX answers (block 512 there): block 256
+    here, so the factor has four block columns and runs the K-sdiag,
+    K-below-trsm and K-commit twins (the float64 answer does not depend on
+    the block). The band-lower Gram needs a band its 512-point tile divides,
+    so at this band the full Gram is built. K-syrk is not on the
+    probe-trace path."""
+    _blocked_route(jax_blocked, monkeypatch, 256, fused=True)
 
 
 def test_three_adam_steps_match_jax(jax_dense):
