@@ -74,7 +74,17 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   against the float64 reference of the switches-off step and its distance
   from that step, and three counted Adam steps (phase 20: 31 K-sdiag, 30
   K-below-trsm, 31 K-commit, one K-spanel and one K-colwrite a step, and
-  one K-syrk a closed-form step).
+  one K-syrk a closed-form step);
+- the JAX module ops/pallas_mosm.py's surface (phase 21): the port's
+  ops.pallas_mosm entry points at the JAX signatures on the bench model's
+  points permuted (any channel order). K-gram-matvec at K(X, X)·V with
+  N = M = 16,384 and R = 1, 33 and 1,024 and at K(Xq, X)·V with the 4,096
+  request points, R = 33; K-gram-lowrank-vjp at N = M = 16,384 with R = 17
+  and 65 and at the Kuf shape 1,024 x 16,384 with R = 17, as the five
+  parameter cotangents; phase_inside=False at one shape of each; each
+  against its plain twin, repeated bit-identically, with its bound and
+  yardstick; float64 through the twins on the card against the CPU; and
+  mosm_gram forward and backward at the JAX signature (K-gram, K-gram-bwd).
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -532,12 +542,20 @@ def main():
     print("phases 19-20 (fused below-TRSM loop, syrk) wall time: %.1f s"
           % (time.perf_counter() - t_fused))
 
+    # -- phase 21: ops/pallas_mosm.py's surface (TPU kernels E3) --------------------
+    t_e3 = time.perf_counter()
+    phase("phase 21: ops.pallas_mosm at the JAX signatures, permuted points (N=%d)" % n)
+    e3_report, e3_launches = drive_pallas_mosm(gpr, X, reqs, dev, smi)
+    report.update(e3_report)
+    print("phase 21 (ops.pallas_mosm) wall time: %.1f s" % (time.perf_counter() - t_e3))
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu",
                "fused": "mogptk_tpu_torch/csrc/fused_trsm.cu"}
     kernels = [
         {"name": "mosm_gram", "route": "cuda", "source": sources["cuda_gram"],
-         "replaces": "mogptk_tpu/ops/block_mosm.py:304; mogptk_tpu/ops/pallas_mosm.py:207",
+         "replaces": "mogptk_tpu/ops/block_mosm.py:304; mogptk_tpu/ops/pallas_mosm.py:207; "
+                     "mogptk_tpu/ops/fused.py:386",
          "path": "predict", "launches": serve_launches["mosm_gram"]},
         {"name": "s_panel", "route": "cuda", "source": sources["chol"],
          "replaces": "mogptk_tpu/ops/blocked_cholesky.py:96",
@@ -554,7 +572,7 @@ def main():
          "path": "train", "launches": train_launches["fused_cho_solve"]},
         {"name": "mosm_lowrank_vjp", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/mosm_lowrank_vjp.cu",
-         "replaces": "mogptk_tpu/ops/block_mosm.py:652",
+         "replaces": "mogptk_tpu/ops/block_mosm.py:652; mogptk_tpu/ops/fused.py:346",
          "path": "train", "launches": train_launches["mosm_lowrank_vjp"]},
         {"name": "mosm_gram_bwd", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/mosm_gram_bwd.cu",
@@ -599,6 +617,14 @@ def main():
         {"name": "syrk_lower", "route": "cuda", "source": "mogptk_tpu_torch/csrc/syrk_lower.cu",
          "replaces": "mogptk_tpu/ops/blocked_trisolve.py:212",
          "path": "closed-form train (pallas_syrk)", "launches": fused_launches["syrk_lower"]},
+        {"name": "mosm_gram_matvec", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/mosm_matvec.cu",
+         "replaces": "mogptk_tpu/ops/pallas_mosm.py:351",
+         "path": "ops.pallas_mosm", "launches": e3_launches["mosm_gram_matvec"]},
+        {"name": "mosm_gram_lowrank_vjp", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/mosm_gram_lowrank_vjp.cu",
+         "replaces": "mogptk_tpu/ops/pallas_mosm.py:431",
+         "path": "ops.pallas_mosm", "launches": e3_launches["mosm_gram_lowrank_vjp"]},
     ]
     for k in kernels:
         if k["launches"] < 1:
@@ -1174,14 +1200,16 @@ def make_bignum_data():
     return xs, ys, 0.05 + 0.3 * rng.rand(CHANNELS, Q, 1), 0.2 + 0.3 * rng.rand(CHANNELS, Q, 1)
 
 
-def matvec_scale(mg, x, c, st3, st2, V, rows=2048):
-    """max over entries of |K|·|V| (float32 row blocks of the plain Gram):
-    the size of the terms each entry of K·V sums."""
+def matvec_scale(mg, x, c, st3, st2, V, rows=2048, x2=None, c2=None):
+    """max over entries of |K|·|V| (float32 row blocks of the plain Gram
+    K(x, x2), x2 = x by default): the size of the terms each entry of K·V
+    sums."""
     import torch
+    x2, c2 = (x, c) if x2 is None else (x2, c2)
     out = 0.0
     Va = V.abs()
     for r0 in range(0, x.shape[0], rows):
-        Kb = mg.mosm_gram_pairstats_plain(x[r0:r0 + rows], c[r0:r0 + rows], x, c, st3, st2)
+        Kb = mg.mosm_gram_pairstats_plain(x[r0:r0 + rows], c[r0:r0 + rows], x2, c2, st3, st2)
         out = max(out, float((Kb.abs() @ Va).max()))
         del Kb
     return out
@@ -2996,6 +3024,249 @@ def drive_fused_path(gpr, bm, bc, bt, fs, mg, X, Y, dev, smi):
     finally:
         cfg.blocked_cholesky_fused_trsm = cfg.pallas_syrk = False
     return launches["closed-form"]
+
+
+# -- phase 21: ops/pallas_mosm.py's surface (TPU kernels E3) --------------------
+
+def e3_gram_scale(st2):
+    """Σ_q |α_q| of the largest channel pair: no entry of the MOSM Gram
+    exceeds it (each component is α·exp(·)·cos(·)), and a diagonal pair
+    reaches it at τ = 0."""
+    return float(st2[..., 0].abs().sum(dim=-1).max())
+
+
+def e3_lowrank_ops(N, M, R, D):
+    """FP32 operations of K-gram-lowrank-vjp's function: per element 2R for
+    g = A·Bᵀ and Q·(18D + 16) for the τ chain's backward (one exp and one
+    sincos counted as one operation each). The kernel's padding of each
+    channel to 256 rows is not counted."""
+    return N * M * (2 * R + Q * (18 * D + 16))
+
+
+def drive_pallas_mosm(gpr, X, reqs, dev, smi):
+    """Phase 21: the port's ops.pallas_mosm (the JAX module
+    ops/pallas_mosm.py's surface) at the JAX signatures on bench.py's MOSM
+    model (4 x 4,096 points, Q = 2, D = 1, float32, the bench parameters),
+    the training points permuted so that the channel order is arbitrary.
+
+    The drive, counted: K-gram-matvec at K(X, X)·V for R = 1, 33 and 1,024,
+    at K(Xq, X)·V with the 4,096 request points (R = 33) and at K(X, X)·V,
+    R = 33, with phase_inside=False; K-gram-lowrank-vjp at N = M = 16,384
+    with R = 17 and 65 (two chunks of 64) and at the Kuf shape (the 1,024
+    points of request (a) against the 16,384, R = 17), that shape also
+    with phase_inside=False; mosm_gram at K(Xq, X), forward and its
+    parameter gradient (K-gram, K-gram-bwd).
+
+    Then each output against its plain twin on the same inputs:
+    K-gram-matvec per entry within (2e-4 + M·2⁻²⁴)·s·‖V[:, r]‖₁, s the
+    Gram's scale (e3_gram_scale): K-gram's 2e-4 of the scale per element
+    (phase 2) carried through the sum, plus the float32 summation bound of
+    M terms; and, as phase 9 holds K-matvec, no further from a float64 twin
+    than twice the float32 twin plus 1e-6 of max |K|·|V|. K-gram-lowrank-vjp and mosm_gram's backward as the five
+    parameter cotangents against a float64 twin: at most twice the float32
+    twin's error, plus 1e-5 of the cotangents' scale (float32 sums over the
+    N·M elements and the tiles in two orders, as phase 4 holds
+    K-lowrank-vjp); mosm_gram's forward within 2e-4 of max|K| (phase 2).
+    Every kernel call repeated bit-identically; float64 through the twins on
+    the card (no launch) against the CPU at rtol 1e-9. Returns (report
+    entries, the drive's launches)."""
+    import torch
+    from mogptk_tpu_torch.ops import block_mosm as bm, mosm_gram as mg, mosm_matvec as mv
+    from mogptk_tpu_torch.ops import pallas_mosm as pm
+    kernel = gpr.MultiOutputSpectralMixtureKernel(Q, output_dims=CHANNELS)
+    set_bench_params(kernel)
+    kernel.to(dev)
+    twopi, D = kernel.twopi, 1
+    with torch.no_grad():
+        params = [p.detach().contiguous() for p in kernel._params()]
+        c, x = kernel._split(X)
+        n = x.shape[0]
+        perm = torch.as_tensor(np.random.RandomState(21).permutation(n), device=dev)
+        xp, cp = x[perm].contiguous(), c[perm].contiguous()
+        cq, xq = (t.contiguous() for t in kernel._split(reqs["b"]))
+        cu, xu = (t.contiguous() for t in kernel._split(reqs["a"]))
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    def rand(rows, cols):
+        return torch.randn((rows, cols), generator=gen, device=dev)
+
+    sq, cross, kuf = (xp, cp, xp, cp), (xq, cq, xp, cp), (xu, cu, xp, cp)
+    V = {R: rand(n, R) for R in (1, 33, 1024)}
+    A17, B17, A65, B65 = rand(n, 17), rand(n, 17), rand(n, 65), rand(n, 65)
+    Au17 = rand(xu.shape[0], 17)
+    G = rand(xq.shape[0], n)
+    mv_cases = [("K(X,X) %dx%d R=1" % (n, n), sq, True, V[1]),
+                ("K(X,X) %dx%d R=33" % (n, n), sq, True, V[33]),
+                ("K(X,X) %dx%d R=1024" % (n, n), sq, True, V[1024]),
+                ("K(Xq,X) %dx%d R=33" % (xq.shape[0], n), cross, True, V[33]),
+                ("K(X,X) %dx%d R=33 phase outside" % (n, n), sq, False, V[33])]
+    vjp_cases = [("K(X,X) %dx%d R=17" % (n, n), sq, True, A17, B17),
+                 ("K(X,X) %dx%d R=65" % (n, n), sq, True, A65, B65),
+                 ("Kuf %dx%d R=17" % (xu.shape[0], n), kuf, True, Au17, B17),
+                 ("Kuf %dx%d R=17 phase outside" % (xu.shape[0], n), kuf, False, Au17, B17)]
+
+    counters = {"mosm_gram_matvec": mv.mosm_gram_matvec_pairstats,
+                "mosm_gram_lowrank_vjp": bm.mosm_gram_lowrank_vjp_pairstats,
+                "mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mv_out = [pm.mosm_gram_matvec(*pts, *params, twopi, ph, VV) for _, pts, ph, VV in mv_cases]
+    vjp_out = [pm.mosm_gram_lowrank_vjp(*pts, *params, twopi, ph, A, B)
+               for _, pts, ph, A, B in vjp_cases]
+    pg = [p.clone().requires_grad_() for p in params]
+    K = pm.mosm_gram(*cross, *pg, twopi, True)
+    gram_grads = torch.autograd.grad(K, pg, G)
+    K = K.detach()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t)
+    launches = {k: f.launches for k, f in counters.items()}
+    print("phase 21 drive: %s launches in %.1f ms" % (launches, wall))
+    want = {"mosm_gram_matvec": len(mv_cases), "mosm_gram_lowrank_vjp": len(vjp_cases),
+            "mosm_gram": 1, "mosm_gram_bwd": 1}
+    if launches != want:
+        fail("phase 21: launches %s, expected %s" % (launches, want))
+    outs = mv_out + [g for grads in vjp_out for g in grads] + [K] + list(gram_grads)
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        fail("phase 21: a non-finite output")
+    for (label, pts, _, VV), got in zip(mv_cases, mv_out):
+        if got.shape != (pts[0].shape[0], VV.shape[1]) or got.dtype != torch.float32:
+            fail("K-gram-matvec %s: misshapen output %s" % (label, tuple(got.shape)))
+    for (label, *_), grads in zip(vjp_cases, vjp_out):
+        if [g.shape for g in grads] != [p.shape for p in params]:
+            fail("K-gram-lowrank-vjp %s: misshapen cotangents" % label)
+
+    report, card = {}, smi.stdout.strip().splitlines()[0]
+    with torch.no_grad():
+        for k, ((label, pts, ph, VV), got) in enumerate(zip(mv_cases, mv_out)):
+            st3, st2 = pm.pair_stats(*params, twopi, ph)
+            twin = mv.mosm_gram_matvec_plain(*pts, st3, st2, VV)
+            again = pm.mosm_gram_matvec(*pts, *params, twopi, ph, VV)
+            N, M, R = pts[0].shape[0], pts[2].shape[0], VV.shape[1]
+            scale = e3_gram_scale(st2)
+            tol = (2e-4 + M * TWO_POW_M24) * scale * VV.abs().sum(dim=0)
+            diff = (got - twin).abs()
+            err, worst = float(diff.max()), float((diff / tol).max())
+            ref = mv.mosm_gram_matvec_plain(pts[0].double(), pts[1], pts[2].double(), pts[3],
+                                            st3.double(), st2.double(), VV.double())
+            err_k = float((got.double() - ref).abs().max())
+            err_t = float((twin.double() - ref).abs().max())
+            kv = matvec_scale(mg, pts[0], pts[1], st3, st2, VV, x2=pts[2], c2=pts[3])
+            tol64 = 2 * err_t + 1e-6 * kv
+            del ref
+            ms = median_ms(lambda: mv.mosm_gram_matvec_pairstats(*pts, st3, st2, VV))
+            pms = median_ms(lambda: mv.mosm_gram_matvec_plain(*pts, st3, st2, VV), reps=3,
+                            warmup=1)
+            bnd = bound(4 * ((N + M) * (D + 1) + (N + M) * R), gram_ops(N * M, D) + 2 * N * M * R)
+            yard = ""
+            if R == 33 and ph:
+                lms = median_ms(lambda: torch.matmul(mg.mosm_gram(*pts, st3, st2), VV), reps=5)
+                yard = ", yardstick K-gram %dx%d + torch.matmul %.3f ms" % (N, M, lms)
+            print("K-gram-matvec %s: max_abs_err %.3e (worst err/tol %.3e, scale %.4f), vs "
+                  "float64 %.3e (twin %.3e, tol %.3e, max|K||V| %.3e), kernel %.3f ms, plain "
+                  "%.3f ms, bound %.3f ms (%s)%s (%s)"
+                  % ((label, err, worst, scale, err_k, err_t, tol64, kv, ms, pms) + bnd
+                     + (yard, card)))
+            if not bool((diff <= tol).all()):
+                fail("K-gram-matvec %s disagrees with its plain twin" % label)
+            if not err_k <= tol64:
+                fail("K-gram-matvec %s is further from float64 than twice its plain twin" % label)
+            if not torch.equal(got, again):
+                fail("K-gram-matvec %s: a repeated call differs" % label)
+            if k == 1:
+                report["mosm_gram_matvec"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                                  library_ms=None, bound=bnd)
+            del twin, again, diff
+        mv_out.clear()
+        torch.cuda.empty_cache()
+
+        for k, ((label, pts, ph, A, B), got) in enumerate(zip(vjp_cases, vjp_out)):
+            st3, st2 = pm.pair_stats(*params, twopi, ph)
+            twin = pm.stats_vjp(params, twopi, ph,
+                                *bm.mosm_gram_lowrank_vjp_plain(*pts, st3, st2, A, B))
+            p64 = [p.double() for p in params]
+            pts64 = (pts[0].double(), pts[1], pts[2].double(), pts[3])
+            ref = pm.mosm_gram_lowrank_vjp(*pts64, *p64, twopi, ph, A.double(), B.double())
+            again = pm.mosm_gram_lowrank_vjp(*pts, *params, twopi, ph, A, B)
+            scale = max(float(r.abs().max()) for r in ref)
+            err_k = max(float((g.double() - r).abs().max()) for g, r in zip(got, ref))
+            err_t = max(float((g.double() - r).abs().max()) for g, r in zip(twin, ref))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, twin))
+            tol = 2 * err_t + 1e-5 * scale
+            N, M, R = pts[0].shape[0], pts[2].shape[0], A.shape[1]
+            ms = median_ms(lambda: bm.mosm_gram_lowrank_vjp_pairstats(*pts, st3, st2, A, B))
+            if k in (0, 2):
+                pms = median_ms(lambda: bm.mosm_gram_lowrank_vjp_plain(*pts, st3, st2, A, B),
+                                reps=1 if k == 0 else 3, warmup=0 if k == 0 else 1)
+                plain = "plain %.3f ms" % pms
+            else:
+                plain = "plain not timed"
+            bnd = bound(4 * (N + M) * (R + D + 1), e3_lowrank_ops(N, M, R, D))
+            yard = ""
+            if k in (0, 2):
+                lms = median_ms(lambda: mg.mosm_gram_bwd(*pts, st3, st2, A @ B.T), reps=5)
+                yard = (", materialised route torch.matmul A·Bᵀ + K-gram-bwd %.3f ms (the port's "
+                        "own kernels, no library)" % lms)
+                counts = [mg.channel_counts(cc, CHANNELS) for cc in (pts[1], pts[3])]
+                cms = median_ms(lambda: bm.mosm_gram_lowrank_vjp_pairstats(*pts, st3, st2, A, B,
+                                                                           *counts))
+                yard += ", with the channel counts given (no host read) %.3f ms" % cms
+            print("K-gram-lowrank-vjp %s: parameter cotangents vs float64 %.3e (twin %.3e, tol "
+                  "%.3e, scale %.3e), vs twin %.3e, kernel %.3f ms, %s, bound %.3f ms (%s)%s (%s)"
+                  % ((label, err_k, err_t, tol, scale, err, ms, plain) + bnd + (yard, card)))
+            if not err_k <= tol:
+                fail("K-gram-lowrank-vjp %s is further from float64 than twice its plain twin"
+                     % label)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("K-gram-lowrank-vjp %s: a repeated call differs" % label)
+            if k == 0:
+                report["mosm_gram_lowrank_vjp"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                                       library_ms=None, bound=bnd)
+            del twin, ref, again
+            torch.cuda.empty_cache()
+
+        # mosm_gram at the JAX signature: K-gram forward, K-gram-bwd backward
+        st3, st2 = pm.pair_stats(*params, twopi, True)
+        Kt = mg.mosm_gram_pairstats_plain(*cross, st3, st2)
+        errK, tolK = float((K - Kt).abs().max()), 2e-4 * float(Kt.abs().max())
+        del Kt
+        twin = bm.pair_stats_vjp(params, twopi, *mg.mosm_gram_bwd_plain(*cross, st3, st2, G))
+    p64 = [p.double().requires_grad_() for p in params]
+    K64 = pm.mosm_gram(cross[0].double(), cross[1], cross[2].double(), cross[3], *p64, twopi,
+                       True)
+    ref = torch.autograd.grad(K64, p64, G.double())
+    del K64
+    scale = max(float(r.abs().max()) for r in ref)
+    err_k = max(float((g.double() - r).abs().max()) for g, r in zip(gram_grads, ref))
+    err_t = max(float((g.double() - r).abs().max()) for g, r in zip(twin, ref))
+    print("ops.pallas_mosm.mosm_gram K(Xq,X) %dx%d: forward vs twin %.3e (tol %.3e); parameter "
+          "gradient vs float64 %.3e (twin %.3e, tol %.3e)"
+          % (xq.shape[0], n, errK, tolK, err_k, err_t, 2 * err_t + 1e-5 * scale))
+    if not (errK <= tolK and err_k <= 2 * err_t + 1e-5 * scale):
+        fail("ops.pallas_mosm.mosm_gram disagrees with its twins")
+
+    # float64 through the twins on the card, against the CPU: no launch
+    before = (mv.mosm_gram_matvec_pairstats.launches, bm.mosm_gram_lowrank_vjp_pairstats.launches)
+    with torch.no_grad():
+        sub = (xu.double(), cu, xp[:4096].double(), cp[:4096])
+        p64 = [p.double() for p in params]
+        Vs, As, Bs = V[33][:4096].double(), Au17.double(), B17[:4096].double()
+        outs = {}
+        for where in ("cuda", "cpu"):
+            mv64 = pm.mosm_gram_matvec(*(t.to(where) for t in sub + tuple(p64)), twopi, False,
+                                       Vs.to(where))
+            vjp64 = pm.mosm_gram_lowrank_vjp(*(t.to(where) for t in sub + tuple(p64)), twopi,
+                                             False, As.to(where), Bs.to(where))
+            outs[where] = [mv64.cpu()] + [g.cpu() for g in vjp64]
+        for a, b in zip(outs["cuda"], outs["cpu"]):
+            torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12 * float(b.abs().max()))
+    if (mv.mosm_gram_matvec_pairstats.launches,
+            bm.mosm_gram_lowrank_vjp_pairstats.launches) != before:
+        fail("phase 21: a float64 call launched a kernel")
+    print("float64 on the card (Kuf %dx4096, phase outside): K-gram-matvec's and "
+          "K-gram-lowrank-vjp's twins agree with the CPU at rtol 1e-9, no launch" % xu.shape[0])
+    return report, launches
 
 
 def event_ms(fn):

@@ -1,25 +1,32 @@
-// K-matvec: out = K(x, x) · V for the MOSM Gram of channel-pair statistics,
-// without ever forming K. For Hopper (sm_90a), float32, FP32 FFMA throughout.
+// K-matvec and K-gram-matvec: out = K(x1, x2) · V for the MOSM Gram of
+// channel-pair statistics, without ever forming K. For Hopper (sm_90a),
+// float32, FP32 FFMA throughout. K-matvec is the square case x2 = x1; one
+// kernel and one C entry (mosm_gram_matvec_f32) serve both.
 //
-// Replaces two Pallas kernels of the JAX package:
+// Replaces three Pallas kernels of the JAX package:
 //   mogptk_tpu/ops/block_mosm.py  mosm_matvec_sorted (pallas_call at :507 for
 //     the diagonal channel pairs, :530 for the off-diagonal ones; kernels
 //     _matvec_diag_kernel :244 and _matvec_offdiag_kernel :258), the
 //     channel-sorted matvec of the iterative engine's CG and Lanczos;
 //   mogptk_tpu/ops/fused.py  fused_gram_matvec (pallas_call at :288), the
 //     same product for any channel IDs through one-hot gathers (its MOSM
-//     family; the engine sorts the rows by channel first).
-// Per element, the statistics those of the pair (c[i], c[j]), as K-gram
+//     family; the engine sorts the rows by channel first);
+//   mogptk_tpu/ops/pallas_mosm.py  mosm_gram_matvec (pallas_call at :351,
+//     body _matvec_kernel :313), K(x1, x2) · V for any channel IDs with
+//     x1 (N, D) and x2 (M, D) apart: K-gram-matvec. The JAX wrapper padded x with channel 0
+//     and V with zero rows to its tile; here the kernel masks the ragged
+//     row and column edges itself and reads nothing past N or M.
+// Per element, the statistics those of the pair (c1[i], c2[j]), as K-gram
 // (csrc/mosm_element.cuh, shared with csrc/mosm_gram.cu):
 //   K[i,j] = sum_q alpha_q * exp(-1/2 sum_d V_qd tau_d^2) * cos(2 pi (sum_d M_qd tau_d + dphi_q)),
-//   tau_d = x[i,d] - x[j,d] + dtheta_qd.
+//   tau_d = x1[i,d] - x2[j,d] + dtheta_qd.
 //
-// Bound: operations. Each of the N^2 elements costs Q exp and Q cos plus
+// Bound: operations. Each of the N x M elements costs Q exp and Q cos plus
 // ~6D+7 FP32 operations per component, and 2R more for the product, while
-// the bytes are O(N (D + R)). Design: one block of 256 threads owns a row
+// the bytes are O((N + M) (D + R)). Design: one block of 256 threads owns a row
 // tile of BM rows and ALL R columns of its output, accumulated in shared
-// memory (BM x Rpad floats). It walks the columns of K in tiles of BK = 64
-// points: it evaluates the BM x BK Gram tile ONCE into shared memory (full-
+// memory (BM x Rpad floats). It walks the M columns of K in tiles of BK =
+// 64 points: it evaluates the BM x BK Gram tile ONCE into shared memory (full-
 // precision expf/cosf: the cosine argument reaches ~220 rad at x in
 // [0, 100], where the fast-math __cosf is wrong), then loops over R in
 // chunks of RC = 16*TN columns, staging the BK x RC slice of V in shared
@@ -73,9 +80,10 @@ __host__ __device__ inline Layout layout(int BM, int RC, int64_t Rpad, int O, in
 
 template <int BM, int TN, bool kUnrolled>
 __global__ void __launch_bounds__(kThreads, 2)
-mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
+mosm_matvec_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
+                   const float* __restrict__ x2, const int* __restrict__ c2,
                    const float* __restrict__ stats, const float* __restrict__ V,
-                   float* __restrict__ out, int64_t N, int R, int O, int Q, int D) {
+                   float* __restrict__ out, int64_t N, int64_t M, int R, int O, int Q, int D) {
     constexpr int RC = 16 * TN;     // columns of V per chunk
     constexpr int TM = BM / 16;     // rows of the micro-tile
     const int64_t Rpad = round_up(R, RC);
@@ -97,27 +105,27 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
         for (int k = t; k < O * O * S; k += kThreads) smem[L.table + k] = stats[k];
     for (int k = t; k < BM * D; k += kThreads) {
         const int64_t i = i0 + k / D;
-        xr[k] = i < N ? x[i * D + k % D] : 0.0f;
+        xr[k] = i < N ? x1[i * D + k % D] : 0.0f;
     }
-    for (int k = t; k < BM; k += kThreads) cr[k] = i0 + k < N ? c[i0 + k] : 0;
+    for (int k = t; k < BM; k += kThreads) cr[k] = i0 + k < N ? c1[i0 + k] : 0;
     for (int64_t k = t; k < (int64_t)BM * Rpad; k += kThreads) acc[k] = 0.0f;
 
     const int tx = t & 15;   // product: columns tx*TN .. +TN of the chunk
     const int ty = t >> 4;   //          rows ty + 16*m, m < TM
 
-    for (int64_t j0 = 0; j0 < N; j0 += kBK) {
+    for (int64_t j0 = 0; j0 < M; j0 += kBK) {
         __syncthreads();   // the previous tile's G and Vs are no longer read
         for (int k = t; k < kBK * D; k += kThreads) {
             const int64_t j = j0 + k / D;
-            xc[k] = j < N ? x[j * D + k % D] : 0.0f;
+            xc[k] = j < M ? x2[j * D + k % D] : 0.0f;
         }
-        if (t < kBK) cc[t] = j0 + t < N ? c[j0 + t] : 0;
+        if (t < kBK) cc[t] = j0 + t < M ? c2[j0 + t] : 0;
         __syncthreads();
 
-        // the BM x BK Gram tile, once; columns past N are zero
+        // the BM x BK Gram tile, once; columns past M are zero
         for (int e = t; e < BM * kBK; e += kThreads) {
             const int r = e / kBK, col = e % kBK;
-            G[r * (kBK + 1) + col] = j0 + col < N
+            G[r * (kBK + 1) + col] = j0 + col < M
                 ? mosm_element<kUnrolled>(table + (cr[r] * O + cc[col]) * S, xr + r * D,
                                           xc + col * D, Q, D)
                 : 0.0f;
@@ -128,7 +136,7 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
             for (int k = t; k < kBK * RC; k += kThreads) {
                 const int row = k / RC, col = k % RC;
                 const int64_t j = j0 + row;
-                Vs[k] = (j < N && r0 + col < R) ? V[j * R + r0 + col] : 0.0f;
+                Vs[k] = (j < M && r0 + col < R) ? V[j * R + r0 + col] : 0.0f;
             }
             __syncthreads();
             float a[TM][TN];
@@ -170,8 +178,9 @@ mosm_matvec_kernel(const float* __restrict__ x, const int* __restrict__ c,
 }
 
 template <int BM, int TN, bool kUnrolled>
-int launch(const float* x, const int* c, const float* stats, const float* V, float* out,
-           int64_t N, int R, int O, int Q, int D, cudaStream_t stream) {
+int launch(const float* x1, const int* c1, const float* x2, const int* c2, const float* stats,
+           const float* V, float* out, int64_t N, int64_t M, int R, int O, int Q, int D,
+           cudaStream_t stream) {
     constexpr int RC = 16 * TN;
     const Layout L = layout(BM, RC, round_up(R, RC), O, Q, D, kUnrolled);
     const size_t smem = sizeof(float) * (size_t)L.total;
@@ -180,36 +189,49 @@ int launch(const float* x, const int* c, const float* stats, const float* V, flo
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const unsigned grid = (unsigned)((N + BM - 1) / BM);
-    mosm_matvec_kernel<BM, TN, kUnrolled><<<grid, kThreads, smem, stream>>>(x, c, stats, V, out,
-                                                                           N, R, O, Q, D);
+    mosm_matvec_kernel<BM, TN, kUnrolled><<<grid, kThreads, smem, stream>>>(
+        x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D);
     return (int)cudaGetLastError();
 }
 
 template <int TN, bool kUnrolled>
-int launch_tn(const float* x, const int* c, const float* stats, const float* V, float* out,
-              int64_t N, int R, int O, int Q, int D, cudaStream_t stream) {
+int launch_tn(const float* x1, const int* c1, const float* x2, const int* c2, const float* stats,
+              const float* V, float* out, int64_t N, int64_t M, int R, int O, int Q, int D,
+              cudaStream_t stream) {
     const int64_t acc = 4 * round_up(R, 16 * TN);
     if (64 * acc <= kMaxAccBytes)
-        return launch<64, TN, kUnrolled>(x, c, stats, V, out, N, R, O, Q, D, stream);
+        return launch<64, TN, kUnrolled>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
     if (32 * acc <= kMaxAccBytes)
-        return launch<32, TN, kUnrolled>(x, c, stats, V, out, N, R, O, Q, D, stream);
+        return launch<32, TN, kUnrolled>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
     if (16 * acc <= kMaxAccBytes)
-        return launch<16, TN, kUnrolled>(x, c, stats, V, out, N, R, O, Q, D, stream);
+        return launch<16, TN, kUnrolled>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
     return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// out (N, R) = K(x, x) @ V for x (N, D), channel IDs c (N,), V (N, R), all
-// row-major; stats is the (O*O, 3QD + 2Q) pair table. R <= 2048; D <= 8
-// for the unrolled instance (generic = 0), any D for the generic one (1).
+// out (N, R) = K(x1, x2) @ V for x1 (N, D), channel IDs c1 (N,), x2 (M, D),
+// c2 (M,), V (M, R), all row-major; stats is the (O*O, 3QD + 2Q) pair
+// table. R <= 2048; D <= 8 for the unrolled instance (generic = 0), any D
+// for the generic one (1).
+extern "C" int mosm_gram_matvec_f32(const float* x1, const int* c1, const float* x2, const int* c2,
+                                    const float* stats, const float* V, float* out, int64_t N,
+                                    int64_t M, int R, int O, int Q, int D, int generic,
+                                    cudaStream_t stream) {
+    if (D < 1 || (!generic && D > kMaxD) || R < 1 || R > 2048 || M < 0)
+        return (int)cudaErrorInvalidValue;
+    if (N == 0) return 0;
+    if (generic)
+        return launch_tn<4, false>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
+    if (R <= 16) return launch_tn<1, true>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
+    if (R <= 32) return launch_tn<2, true>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
+    return launch_tn<4, true>(x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, stream);
+}
+
+// The square case, out (N, R) = K(x, x) @ V with V (N, R): kernel_ab.py
+// calls it by this name on either tree it compares.
 extern "C" int mosm_matvec_f32(const float* x, const int* c, const float* stats, const float* V,
                                float* out, int64_t N, int R, int O, int Q, int D, int generic,
                                cudaStream_t stream) {
-    if (D < 1 || (!generic && D > kMaxD) || R < 1 || R > 2048) return (int)cudaErrorInvalidValue;
-    if (N == 0) return 0;
-    if (generic) return launch_tn<4, false>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    if (R <= 16) return launch_tn<1, true>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    if (R <= 32) return launch_tn<2, true>(x, c, stats, V, out, N, R, O, Q, D, stream);
-    return launch_tn<4, true>(x, c, stats, V, out, N, R, O, Q, D, stream);
+    return mosm_gram_matvec_f32(x, c, x, c, stats, V, out, N, N, R, O, Q, D, generic, stream);
 }

@@ -1,11 +1,15 @@
 """Channel-pair statistics, the channel-sorted MOSM Gram, its band-lower
-variant (the K-gram-lower kernel) and the low-rank parameter VJP (the
-K-lowrank-vjp kernel), each kernel with its plain PyTorch twin.
+variant (the K-gram-lower kernel) and the low-rank parameter VJP, for
+channel-sorted square data (the K-lowrank-vjp kernel) and for any channel
+order with x1 ≠ x2 (the K-gram-lowrank-vjp kernel), each kernel with its
+plain PyTorch twin.
 
 JAX counterpart: mogptk_tpu/ops/block_mosm.py (`mosm_pair_stats` :57-76,
 `mosm_gram_sorted_lower` :380-443, `mosm_gram_sorted` :446-473,
 `_batched_pair_layout` :555-591, `mosm_lowrank_vjp_sorted` :594-666,
-`sorted_channel_counts` :669-680). Within one channel pair every
+`sorted_channel_counts` :669-680) and mogptk_tpu/ops/pallas_mosm.py
+(`mosm_gram_lowrank_vjp` :404-463, whose raw-parameter entry point is this
+port's ops/pallas_mosm.py). Within one channel pair every
 cross-statistic of the MOSM algebra is a scalar, computed here once at O²
 cost. The JAX package then launched one Pallas kernel per upper channel pair
 and assembled the Gram from transposes; here the channel of each row is
@@ -23,14 +27,16 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .mosm_gram import (mosm_gram, mosm_gram_pairstats_plain, stats_table, check_gram_inputs,
-                        generic_flag)
+from .mosm_gram import (mosm_gram, mosm_gram_pairstats_plain, mosm_gram_bwd_plain, stats_table,
+                        check_gram_inputs, generic_flag, channel_counts, channel_map,
+                        _gram_layout, _device_gram_layout)
 
 # tile edge of the band-lower Gram's tile list (its band and every channel
 # count are multiples of it), and of the low-rank VJP's tile list
 TILE = 512
 BWD_TILE = 256
 LOWRANK_MAX_CHUNK = 64   # columns of A and B that K-lowrank-vjp stages at a time
+PLAIN_ROWS = 2048        # rows of the cotangent K-gram-lowrank-vjp's twin forms at a time
 
 _two_pi = 2.0 * np.pi
 
@@ -283,6 +289,69 @@ def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
 
 
 mosm_lowrank_vjp_sorted.launches = 0
+
+
+# -- K-gram-lowrank-vjp (TPU kernel E3b) ----------------------------------------
+
+def mosm_gram_lowrank_vjp_plain(x1, c1, x2, c2, st3, st2, A, B):
+    """Plain twin of K-gram-lowrank-vjp: the cotangent g = A·Bᵀ formed 2,048
+    rows at a time, each row block reduced by mosm_gram_bwd_plain (K-gram-
+    bwd's twin), the blocks' pair cotangents summed in float64."""
+    N = x1.shape[0]
+    acc3 = torch.zeros(st3.shape, dtype=torch.float64, device=st3.device)
+    acc2 = torch.zeros(st2.shape, dtype=torch.float64, device=st2.device)
+    for r0 in range(0, N, PLAIN_ROWS):
+        r1 = min(N, r0 + PLAIN_ROWS)
+        d3, d2 = mosm_gram_bwd_plain(x1[r0:r1], c1[r0:r1], x2, c2, st3, st2, A[r0:r1] @ B.T)
+        acc3 += d3
+        acc2 += d2
+    return acc3.to(st3.dtype), acc2.to(st2.dtype)
+
+
+def mosm_gram_lowrank_vjp_pairstats(x1, c1, x2, c2, st3, st2, A, B, counts1=None, counts2=None):
+    """Cotangents (dst3, dst2) of the pair statistics of the Gram K(x1, x2)
+    (ops/mosm_gram.mosm_gram) for dK = A·Bᵀ, without forming dK: x1 (N, D),
+    channel IDs c1 (N,) int32, x2 (M, D), c2 (M,) int32, in any channel
+    order, A (N, R), B (M, R), any R. Every tile of the N×M Gram is reduced
+    as its own (no fold of transposed tiles). counts1/counts2: the
+    per-channel counts of c1/c2 when known, else read from them on the host
+    (one read of O numbers each). CPU or float64: the plain twin. float32
+    CUDA, contiguous: one call of csrc/mosm_gram_lowrank_vjp.cu (the tile
+    kernel, R in chunks of lowrank_chunk(R) columns, and its per-pair
+    reduction), or raises."""
+    if _build.runs_plain(x1):
+        return mosm_gram_lowrank_vjp_plain(x1, c1, x2, c2, st3, st2, A, B)
+    O, _, Q, D, _ = st3.shape
+    N, M = x1.shape[0], x2.shape[0]
+    stats = stats_table(st3, st2)
+    check_gram_inputs("mosm_gram_lowrank_vjp", x1, c1, x2, c2, stats, D)
+    _build.require_cuda_inputs("mosm_gram_lowrank_vjp", floats=(A, B))
+    if A.dim() != 2 or A.shape[0] != N or B.shape != (M, A.shape[1]):
+        raise ValueError("mosm_gram_lowrank_vjp: A (N, R) and B (M, R) with N = %d, M = %d"
+                         % (N, M))
+    R = A.shape[1]
+    counts1 = channel_counts(c1, O) if counts1 is None else tuple(int(k) for k in counts1)
+    counts2 = channel_counts(c2, O) if counts2 is None else tuple(int(k) for k in counts2)
+    idx_np, pairs_np = _gram_layout(counts1, counts2, BWD_TILE)
+    nout = 3 * Q * D + 2 * Q
+    out = torch.zeros((O * O, nout), dtype=torch.float32, device=x1.device)
+    if idx_np.shape[0] and R:
+        rmap, cmap = channel_map(c1, counts1, BWD_TILE), channel_map(c2, counts2, BWD_TILE)
+        idx, pairs = _device_gram_layout(counts1, counts2, BWD_TILE, x1.device)
+        partial = torch.empty((4 * idx_np.shape[0], nout), dtype=torch.float32, device=x1.device)
+        _build.require_cuda_inputs("mosm_gram_lowrank_vjp", floats=(partial,),
+                                   ints=(idx, pairs, rmap, cmap))
+        err = _build.library().mosm_gram_lowrank_vjp_f32(
+            idx.data_ptr(), x1.data_ptr(), rmap.data_ptr(), x2.data_ptr(), cmap.data_ptr(),
+            A.data_ptr(), B.data_ptr(), stats.data_ptr(), partial.data_ptr(), pairs.data_ptr(),
+            out.data_ptr(), idx_np.shape[0], pairs_np.shape[0], Q, D, R, lowrank_chunk(R),
+            generic_flag("backward", st3), _build.stream_ptr(x1))
+        _build.check(err, "mosm_gram_lowrank_vjp_f32")
+        mosm_gram_lowrank_vjp_pairstats.launches += 1
+    return (out[:, :3 * Q * D].reshape(O, O, Q, D, 3), out[:, 3 * Q * D:].reshape(O, O, Q, 2))
+
+
+mosm_gram_lowrank_vjp_pairstats.launches = 0
 
 
 def sorted_channel_counts(c, output_dims):

@@ -38,7 +38,7 @@ def test_import_pulls_in_no_jax_pandas_matplotlib():
             "import mogptk_tpu_torch.ops.block_families, mogptk_tpu_torch.gpr.multioutput\n"
             "import mogptk_tpu_torch.gpr.kernel, mogptk_tpu_torch.models.csm\n"
             "import mogptk_tpu_torch.models.sm_lmc, mogptk_tpu_torch.models.conv\n"
-            "import mogptk_tpu_torch.models.mohsm\n"
+            "import mogptk_tpu_torch.models.mohsm, mogptk_tpu_torch.ops.pallas_mosm\n"
             "bad = [m for m in ('jax', 'pandas', 'matplotlib') if m in sys.modules]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -49,8 +49,8 @@ def test_kernel_sources_and_nvcc_command():
     assert names == ["blocked_cholesky.cu", "family_gram.cu", "family_gram_bwd.cu",
                      "family_lowrank_vjp.cu", "family_matvec.cu", "fused_cho_solve.cu",
                      "fused_trsm.cu", "mosm_gram.cu", "mosm_gram_bwd.cu",
-                     "mosm_gram_bwd_inputs.cu", "mosm_lowrank_vjp.cu", "mosm_matvec.cu",
-                     "syrk_lower.cu"]
+                     "mosm_gram_bwd_inputs.cu", "mosm_gram_lowrank_vjp.cu", "mosm_lowrank_vjp.cu",
+                     "mosm_matvec.cu", "syrk_lower.cu"]
     compiles, link = _build.nvcc_commands("/tmp/out.so")
     # one compile per source, all into the one library
     assert [cmd[cmd.index("-c") + 1] for cmd in compiles] == _build.sources()
@@ -99,6 +99,36 @@ def test_float64_routes_to_the_plain_twins_on_any_device():
                 with pytest.raises(ValueError, match="must be on"):
                     call()
         assert (tmg.mosm_gram.launches, tmv.mosm_matvec.launches) == before
+
+
+def test_gram_matvec_and_lowrank_vjp_route_by_device_and_dtype():
+    """K-gram-matvec and K-gram-lowrank-vjp follow the one dtype route:
+    float64 runs the plain twin on the tensor's own device (the meta device
+    stands in for the card) and counts no launch; float32 off the CPU goes
+    to the kernel, which needs a CUDA tensor and raises."""
+    meta = torch.device("meta")
+    O, Q, D, N, M = 2, 2, 1, 6, 4
+    c1 = torch.zeros(N, dtype=torch.int32, device=meta)
+    c2 = torch.zeros(M, dtype=torch.int32, device=meta)
+    for dtype in (torch.float64, torch.float32):
+        x1 = torch.empty((N, D), dtype=dtype, device=meta)
+        x2 = torch.empty((M, D), dtype=dtype, device=meta)
+        st3 = torch.empty((O, O, Q, D, 3), dtype=dtype, device=meta)
+        st2 = torch.empty((O, O, Q, 2), dtype=dtype, device=meta)
+        V, A = torch.empty((M, 3), dtype=dtype, device=meta), torch.empty((N, 3), dtype=dtype,
+                                                                          device=meta)
+        before = (tmv.mosm_gram_matvec_pairstats.launches,
+                  tbm.mosm_gram_lowrank_vjp_pairstats.launches)
+        calls = [lambda: (tmv.mosm_gram_matvec_pairstats(x1, c1, x2, c2, st3, st2, V),),
+                 lambda: tbm.mosm_gram_lowrank_vjp_pairstats(x1, c1, x2, c2, st3, st2, A, V)]
+        for call in calls:
+            if dtype == torch.float64:
+                assert all(t.device == meta for t in call())
+            else:
+                with pytest.raises(ValueError, match="must be on"):
+                    call()
+        assert (tmv.mosm_gram_matvec_pairstats.launches,
+                tbm.mosm_gram_lowrank_vjp_pairstats.launches) == before
 
 
 @pytest.mark.cuda
@@ -435,6 +465,66 @@ def test_cuda_kernels_take_every_shape_and_float64():
             torch.testing.assert_close(b.cpu(), a, rtol=1e-9, atol=1e-12 * float(a.abs().max()))
     finally:
         gpr.config._dtype = saved
+
+
+@pytest.mark.cuda
+def test_cuda_gram_matvec_and_lowrank_vjp_match_plain_twins():
+    """K-gram-matvec and K-gram-lowrank-vjp on the card, float32, through
+    ops/pallas_mosm.py's entry points: a small square shape (N = M = 256,
+    two channels, shuffled, phase inside) and a ragged one (N = 301 against
+    M = 77, three shuffled channels, phase outside 2π), matvec at R = 1 and
+    33, low-rank at R = 5 and 70 (two chunks). K-gram-matvec per entry
+    within (2e-4 + M·2⁻²⁴)·max|K|·‖V[:, r]‖₁ of its twin (K-gram's bound
+    carried through the sum, plus the float32 summation bound of M terms);
+    the five parameter cotangents no further from a float64 twin than twice
+    the float32 twin, plus 1e-5 relative. Repeats are bit-identical, and
+    each call is one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mogptk_tpu_torch.ops import pallas_mosm as tpm
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(8)
+    for O, N, M, phase_inside in ((2, 256, 256, True), (3, 301, 77, False)):
+        Q, D = 2, 1
+        x1 = torch.as_tensor(rng.rand(N, D) * 20, dtype=torch.float32, device=dev)
+        x2 = x1 if N == M else torch.as_tensor(rng.rand(M, D) * 20, dtype=torch.float32,
+                                               device=dev)
+        c1 = torch.as_tensor(rng.permutation(np.arange(N) % O), dtype=torch.int32, device=dev)
+        c2 = c1 if N == M else torch.as_tensor(rng.permutation(np.arange(M) % O),
+                                               dtype=torch.int32, device=dev)
+        params, twopi = _mosm_case(rng, O, Q, D, dev)
+        p64 = [p.double() for p in params]
+        with torch.no_grad():
+            st3, st2 = tpm.pair_stats(*params, twopi, phase_inside)
+        kmax = float(tmg.mosm_gram_pairstats_plain(x1, c1, x2, c2, st3, st2).abs().max())
+        for R in (1, 33):
+            V = torch.as_tensor(rng.randn(M, R), dtype=torch.float32, device=dev)
+            launches = tmv.mosm_gram_matvec_pairstats.launches
+            got = tpm.mosm_gram_matvec(x1, c1, x2, c2, *params, twopi, phase_inside, V)
+            again = tpm.mosm_gram_matvec(x1, c1, x2, c2, *params, twopi, phase_inside, V)
+            assert tmv.mosm_gram_matvec_pairstats.launches == launches + 2
+            twin = tmv.mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
+            tol = (2e-4 + M * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
+            assert bool(((got - twin).abs() <= tol).all()), (N, M, R)
+        for R in (5, 70):
+            A = torch.as_tensor(rng.randn(N, R), dtype=torch.float32, device=dev)
+            B = torch.as_tensor(rng.randn(M, R), dtype=torch.float32, device=dev)
+            launches = tbm.mosm_gram_lowrank_vjp_pairstats.launches
+            got = tpm.mosm_gram_lowrank_vjp(x1, c1, x2, c2, *params, twopi, phase_inside, A, B)
+            again = tpm.mosm_gram_lowrank_vjp(x1, c1, x2, c2, *params, twopi, phase_inside, A, B)
+            assert tbm.mosm_gram_lowrank_vjp_pairstats.launches == launches + 2
+            ref = tpm.mosm_gram_lowrank_vjp(x1.double(), c1, x2.double(), c2, *p64, twopi,
+                                            phase_inside, A.double(), B.double())
+            # the float32 twin: the same function on CPU tensors
+            twin = tpm.mosm_gram_lowrank_vjp(*(t.cpu() for t in (x1, c1, x2, c2, *params)),
+                                             twopi, phase_inside, A.cpu(), B.cpu())
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            ref = [r.cpu() for r in ref]
+            assert _rel_err([g.cpu() for g in got], ref) <= 2 * _rel_err(twin, ref) + 1e-5, \
+                (N, M, R)
 
 
 def _family_kernels(rng, D, A, dev):
