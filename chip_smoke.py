@@ -65,12 +65,16 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   (gpr.config.blocked_cholesky_fused_trsm and pallas_syrk): K-sdiag and
   K-below-trsm at block column 16 of the bench factor, K-commit with and
   without zeroing the strip, K-syrk on W = L⁻¹ of the bench factor, each
-  against its plain twin, the fused factor against the unfused one, and
-  every block column of the fused factor held to K-sdiag's and
-  K-below-trsm's summation bounds on its own left columns, which checks
-  each row-tile instance of K-below-trsm where the path runs it
-  (phase 19); then with both switches on the closed-form and the
-  probe-trace steps at full width through gpr.train, each first step
+  against its plain twin, the fused factor against the unfused one, every
+  block column of the unfused factor through K-spanel (each split-K plan,
+  K-spanel-reduce against its twin) and both K-colwrite forms under their
+  summation bounds, each launch repeated bit-identically and timed in
+  turns beside cuBLAS addmm and torch.matmul S·invᵀ, and every block
+  column of the fused factor held to K-sdiag's and K-below-trsm's
+  summation bounds on its own left columns, which checks each row-tile
+  instance of K-below-trsm where the path runs it (phase 19); then with
+  both switches on the closed-form and the probe-trace steps at full
+  width through gpr.train, each first step
   against the float64 reference of the switches-off step and its distance
   from that step, and three counted Adam steps (phase 20: 31 K-sdiag, 30
   K-below-trsm, 31 K-commit, one K-spanel and one K-colwrite a step, and
@@ -93,7 +97,9 @@ line, when there is no CUDA device, when run without the repository beside
 it, or when any check fails. Times come from CUDA events (kernels, median of
 10) and from the host clock between synchronizations (requests, steps).
 Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s FP32
-outside the tensor cores.
+outside the tensor cores; for K-spanel and K-colwrite, which run three
+TF32 passes on the tensor cores, 3 × their operations over 495 TFLOP/s
+(the FP32 bound printed beside it).
 """
 import contextlib
 import json
@@ -107,6 +113,7 @@ N_PER_CHANNEL, CHANNELS, Q = 4096, 4, 2
 PROBES, TRAIN_STEPS = 16, 3
 TWO_POW_M24 = 2.0 ** -24
 PEAK_BYTES_PER_S, PEAK_FP32_PER_S = 3.35e12, 67e12
+PEAK_TF32_PER_S = 495e12    # dense TF32 on the tensor cores
 # noise variance 0.1 bounds the smallest eigenvalue of K + σ²I below by 0.1
 # and trace(K) ~ 3e4 bounds the largest: κ ≲ 3e5, and float32 (u = 6e-8)
 # can lose up to κ·u ~ 2e-2 relative in the factor and the solves
@@ -168,6 +175,15 @@ def bound(nbytes, nops):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
     the FP32 operations over the FP32 peak."""
     b, o = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * nops / PEAK_FP32_PER_S
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def bound_tf32x3(nbytes, nops):
+    """(bound_ms, bound_by) of a float32 GEMM computed as three TF32
+    tensor-core passes (K-spanel's and K-colwrite's 3xTF32 mainloop): the
+    larger of the bytes over the memory rate and 3 × the operations over the
+    TF32 peak."""
+    b, o = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * 3 * nops / PEAK_TF32_PER_S
     return (b, "bytes") if b >= o else (o, "operations")
 
 
@@ -269,13 +285,16 @@ def main():
         pms = median_ms(lambda: bc.s_panel_plain(buf, S_ref, j, B))
         lms = median_ms(lambda: torch.addmm(buf[r0:, r0:r0 + B], buf[r0:, :r0], buf[r0:r0 + B, :r0].T,
                                             alpha=-1.0))
-        bnd = bound(4 * (m * r0 + 2 * m * B), 2 * m * B * r0)
-        print("K-spanel j=%d (m=%d, r0=%d, B=%d): max_abs_err %.3e, worst err/bound %.3f, "
-              "kernel %.3f ms, plain %.3f ms, cuBLAS addmm %.3f ms, bound %.3f ms (%s)"
-              % ((j, m, r0, B, err, float((diff / tolS).max()), ms, pms, lms) + bnd))
+        bnd32, bnd = spanel_bounds(m, r0, B)
+        print("K-spanel j=%d (m=%d, r0=%d, B=%d, plan %s): max_abs_err %.3e, worst err/bound %.3f, "
+              "kernel %.3f ms, plain %.3f ms, cuBLAS addmm %.3f ms, 3xTF32 bound %.3f ms (%s), "
+              "FP32 bound %.3f ms (%s)"
+              % ((j, m, r0, B, bc.spanel_plan(n, r0, B), err, float((diff / tolS).max()), ms, pms,
+                  lms) + bnd + bnd32))
         if not bool((diff <= tolS).all()):
             fail("K-spanel disagrees with its plain twin beyond the summation bound")
-        report["s_panel"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+        report["s_panel"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd,
+                                 bound_fp32=bnd32)
         del A, tolS, diff
 
         Sjj = S[:B] + torch.diag(diag[r0:r0 + B])
@@ -290,14 +309,15 @@ def main():
             ms = median_ms(lambda: bc.col_write(L1, S, Ljj, inv, j, B, zero_upper))
             pms = median_ms(lambda: bc.col_write_plain(L2, S, Ljj, inv, j, B, zero_upper))
             lms = median_ms(lambda: torch.matmul(S[B:m], inv.T))
-            nbytes = 4 * (2 * m * B + 2 * B * B + (B * (n - r0 - B) if zero_upper else 0))
-            bnd = bound(nbytes, 2 * (m - B) * B * B)
+            bnd32, bnd = colwrite_bounds(n, r0, B, zero_upper)
             print("K-colwrite j=%d zero_upper=%s: max_abs_err %.3e (tol %.3e), kernel %.3f ms, "
-                  "plain %.3f ms, torch.matmul S·invT %.3f ms, bound %.3f ms (%s)"
-                  % ((j, zero_upper, err, tolC, ms, pms, lms) + bnd))
+                  "plain %.3f ms, torch.matmul S·invT %.3f ms, 3xTF32 bound %.3f ms (%s), "
+                  "FP32 bound %.3f ms (%s)"
+                  % ((j, zero_upper, err, tolC, ms, pms, lms) + bnd + bnd32))
             if not err <= tolC:
                 fail("K-colwrite disagrees with its plain twin")
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd,
+                         bound_fp32=bnd32)
             report["col_write" if zero_upper else "col_write (zero_upper=False)"] = entry
             del L1, L2
 
@@ -321,7 +341,7 @@ def main():
     phase("phase 3: serving path")
     model.predict_y(reqs["a"], sigma=2)      # warm-up: library handles, workspaces
     serve_counters = {"mosm_gram": mg.mosm_gram, "s_panel": bc.s_panel,
-                      "col_write": bc.col_write}
+                      "s_panel_reduce": bc.s_panel_reduce, "col_write": bc.col_write}
     for f in serve_counters.values():
         f.launches = 0
     answers = {}
@@ -339,7 +359,7 @@ def main():
         if not bool((lo < mu).all() and (mu < up).all()):
             fail("request (%s): bands do not bracket the mean" % key)
         raised = [f.launches - b for f, b in zip(serve_counters.values(), before)]
-        print("request (%s) M=%d: %.2f ms, launches gram/spanel/colwrite %s"
+        print("request (%s) M=%d: %.2f ms, launches gram/spanel/spanel-reduce/colwrite %s"
               % (key, M, ms, raised))
         if min(raised) < 1:
             fail("request (%s) did not go through every kernel" % key)
@@ -437,9 +457,13 @@ def main():
     # -- phase 5: the training path ------------------------------------------
     phase("phase 5: training path")
     train_counters = {"mosm_gram_lower": bm.mosm_gram_sorted_lower, "s_panel": bc.s_panel,
+                      "s_panel_reduce": bc.s_panel_reduce,
                       "col_write": bc.col_write, "fused_cho_solve": fs.fused_cho_solve,
                       "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted}
+    # K-spanel's split-K second pass: once for each column its plan splits
+    n_split = sum(bc.spanel_plan(n, j * 512, 512)[0] > 1 for j in range(n // 512))
     want = {"mosm_gram_lower": (1, 1), "s_panel": (32, 32), "col_write": (32, 32),
+            "s_panel_reduce": (n_split, n_split),
             "fused_cho_solve": (1, None), "mosm_lowrank_vjp": (1, 1)}
     loss1 = check_first_step(model, bm, mg, "probe-trace")
     if "--profile" in sys.argv[1:]:
@@ -458,11 +482,13 @@ def main():
     # -- phase 7: the closed-form training path -------------------------------
     phase("phase 7: closed-form training path")
     cf_counters = {"mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd,
-                   "s_panel": bc.s_panel, "col_write": bc.col_write,
+                   "s_panel": bc.s_panel, "s_panel_reduce": bc.s_panel_reduce,
+                   "col_write": bc.col_write,
                    "fused_cho_solve": fs.fused_cho_solve,
                    "mosm_gram_lower": bm.mosm_gram_sorted_lower,
                    "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted}
     cf_want = {"mosm_gram": (1, 1), "mosm_gram_bwd": (1, 1), "s_panel": (32, 32),
+               "s_panel_reduce": (n_split, n_split),
                "col_write": (32, 32), "fused_cho_solve": (1, None),
                "mosm_gram_lower": (0, 0), "mosm_lowrank_vjp": (0, 0)}
     loss1 = check_first_step(model, bm, mg, "closed-form")
@@ -560,6 +586,9 @@ def main():
         {"name": "s_panel", "route": "cuda", "source": sources["chol"],
          "replaces": "mogptk_tpu/ops/blocked_cholesky.py:96",
          "path": "train", "launches": train_launches["s_panel"]},
+        {"name": "s_panel_reduce", "route": "cuda", "source": sources["chol"],
+         "replaces": "mogptk_tpu/ops/blocked_cholesky.py:96 (the carry of its sequential k axis)",
+         "path": "train", "launches": train_launches["s_panel_reduce"]},
         {"name": "col_write", "route": "cuda", "source": sources["chol"],
          "replaces": "mogptk_tpu/ops/blocked_cholesky.py:292; mogptk_tpu/ops/blocked_cholesky.py:184",
          "path": "train", "launches": train_launches["col_write"]},
@@ -633,6 +662,8 @@ def main():
         r = report[k["name"]]
         k.update(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                  bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
+        if "bound_fp32" in r:     # the 3xTF32 kernels: the FP32 bound beside theirs
+            k["bound_fp32_ms"] = r["bound_fp32"][0]
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2865,6 +2896,9 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
         if not d <= KAPPA_U * float(outs[False].abs().max()):
             fail("the fused factor is further from the unfused one than κu of its scale")
         del outs
+        F, invs = bc.blocked_cholesky(K.clone(), B, return_panel_invs=True)
+        report["s_panel_reduce"] = unfused_by_column(bc, K, F, invs, B)
+        del F, invs
         F, invs = bc.blocked_cholesky(K.clone(), B, fused_trsm=True, return_panel_invs=True)
         fused_by_column(bc, K, F, invs, B)
         del F, invs, K
@@ -2984,6 +3018,182 @@ def fused_by_column(bc, K, F, invs, B):
     if bad:
         fail("the fused factor by column: " + "; ".join(bad))
     del S
+
+
+def spanel_bounds(m, r0, B):
+    """K-spanel's (FP32 bound, 3xTF32 bound) at m rows and k = r0: A (whose
+    first B rows are C) and the K panel read once, S written once; 2·m·B·r0
+    operations."""
+    nbytes, nops = 4 * (m * r0 + 2 * m * B), 2 * m * B * r0
+    return bound(nbytes, nops), bound_tf32x3(nbytes, nops)
+
+
+def colwrite_bounds(n, r0, B, zero_upper):
+    """K-colwrite's (FP32 bound, 3xTF32 bound): S and the column read and
+    written once, Ljj and inv read once, with zero_upper the strip written;
+    the (m − B) × B × B GEMM's operations."""
+    m = n - r0
+    nbytes = 4 * (2 * m * B + 2 * B * B + (B * (n - r0 - B) if zero_upper else 0))
+    nops = 2 * (m - B) * B * B
+    return bound(nbytes, nops), bound_tf32x3(nbytes, nops)
+
+
+def in_turns(kernel, library, reps=3):
+    """CUDA-event medians of `reps` calls, timed kernel, library, library,
+    kernel; each side's mean of its two medians."""
+    k1 = median_ms(kernel, reps=reps, warmup=1)
+    l1 = median_ms(library, reps=reps, warmup=1)
+    l2 = median_ms(library, reps=reps, warmup=1)
+    k2 = median_ms(kernel, reps=reps, warmup=1)
+    return 0.5 * (k1 + k2), 0.5 * (l1 + l2)
+
+
+def unfused_by_column(bc, K, F, invs, B):
+    """Every block column j of the unfused factor F of K (invs its panel
+    inverses) through K-spanel and K-colwrite on K with F's own left
+    columns, so each split-K plan and tile instance is checked where the
+    main path runs it: K-spanel against its plain twin under
+    2(r0+1)u(|A||C|ᵀ + |K|) + (r0+1)·2⁻¹⁴⁹, the summation bound with the
+    underflow term of gradual underflow (2⁻¹⁵⁰ an operation; it matters
+    only for subnormal entries, which are listed beside their float64
+    values); K-colwrite in both zero_upper forms under
+    2Bu·max|S[B:]||inv|ᵀ; every launch repeated bit-identically; F's
+    diagonal block the factor of K-spanel's S_jj and F's column K-colwrite's
+    on the same inputs; where the plan splits k, the second pass
+    (s_panel_reduce) against its twin on the chunks' partial products,
+    bit-identical (the same sums in the same order). Times in turns
+    (in_turns) beside cuBLAS addmm (K-spanel) and torch.matmul S·invᵀ
+    (K-colwrite), and their sums over the columns. Returns the second
+    pass's report entry, at its largest slab."""
+    import torch
+    u = TWO_POW_M24
+    n = K.shape[0]
+    S = torch.empty((n, B), device=K.device)
+    S_ref = torch.empty((n, B), device=K.device)
+    rows, bad, under, reduce_at = [], [], [], None
+    sums = {"K-spanel": 0.0, "addmm": 0.0, "K-colwrite zero_upper": 0.0,
+            "K-colwrite": 0.0, "matmul S·invT": 0.0}
+    worst = {"K-spanel": 0.0, "K-colwrite": 0.0}
+    if torch.triu(F, 1).any():
+        bad.append("the strict upper triangle is not zero")
+    for j in range(n // B):
+        r0, m = j * B, n - j * B
+        splits, k_chunk = bc.spanel_plan(n, r0, B)
+        buf = K.clone()
+        buf[:, :r0] = F[:, :r0]
+        bc.s_panel(buf, S, j, B)
+        got = S[:m].clone()
+        bc.s_panel(buf, S, j, B)
+        if not torch.equal(S[:m], got):
+            bad.append("j=%d: a repeated K-spanel gave another S" % j)
+        bc.s_panel_plain(buf, S_ref, j, B)
+        A = buf[r0:, :r0].abs()
+        rel = 2 * (r0 + 1) * u * (A @ A[:B].T + buf[r0:, r0:r0 + B].abs())
+        diff = (got - S_ref[:m]).abs()
+        # the underflow term: with gradual underflow each FP32 operation
+        # also errs by up to 2^-150 absolute, so two sums of r0 terms differ
+        # by up to 2(r0+1)·2^-150 more (negligible above FLT_MIN; in the
+        # subnormal range the twin's FFMA gives Σ round(a·c) in any order,
+        # the tensor cores round(Σ a·c) once)
+        tol = rel + (r0 + 1) * 2.0 ** -149
+        s_worst = err_over_bound(diff, tol)
+        over = torch.where(diff == 0, 0.0, diff / rel)
+        n_over = int((over > 1).sum())
+        if n_over:   # entries past the bound without the underflow term
+            r, c = divmod(int(over.argmax()), B)
+            exact = float(buf[r0 + r, r0 + c].double()
+                          - buf[r0 + r, :r0].double() @ buf[r0 + c, :r0].double())
+            under.append("j=%d: %d entries, worst at row %d, column %d: kernel %.6e, twin %.6e, "
+                         "float64 %.6e, bound without the term %.3e" % (
+                             j, n_over, r, c, float(got[r, c]), float(S_ref[r, c]), exact,
+                             float(rel[r, c])))
+        if not s_worst <= 1.0:
+            r, c = divmod(int(torch.where(diff == 0, 0.0, diff / tol).argmax()), B)
+            bad.append("j=%d: K-spanel err/bound %.3f (row %d, column %d: kernel %.6e, twin %.6e, "
+                       "bound %.3e)" % (j, s_worst, r, c, float(got[r, c]), float(S_ref[r, c]),
+                                        float(tol[r, c])))
+        del A, rel, tol, diff, over
+        Ljj = torch.linalg.cholesky_ex(got[:B])[0].contiguous()
+        if not torch.equal(F[r0:r0 + B, r0:r0 + B], Ljj):
+            bad.append("j=%d: the diagonal block is not the factor of K-spanel's S_jj" % j)
+        inv = invs[j]
+        tolC = float(2 * B * u * (got[B:].abs() @ inv.abs().T).max()) if m > B else 0.0
+        c_err = []
+        for zero_upper in (True, False):
+            L1, L2 = buf.clone(), buf.clone()
+            bc.col_write(L1, S, Ljj, inv, j, B, zero_upper)
+            L2.copy_(buf)
+            bc.col_write(L2, S, Ljj, inv, j, B, zero_upper)
+            if not torch.equal(L1, L2):
+                bad.append("j=%d zero_upper=%s: a repeated K-colwrite wrote another column"
+                           % (j, zero_upper))
+            if zero_upper and not torch.equal(L1[r0:, r0:r0 + B], F[r0:, r0:r0 + B]):
+                bad.append("j=%d: the factor's column is not K-colwrite's on the same inputs" % j)
+            L2.copy_(buf)
+            bc.col_write_plain(L2, S, Ljj, inv, j, B, zero_upper)
+            err = float((L1 - L2).abs().max())
+            del L1, L2
+            c_err.append(err)
+            if not err <= tolC:
+                bad.append("j=%d zero_upper=%s: K-colwrite err %.3e > tol %.3e"
+                           % (j, zero_upper, err, tolC))
+        worst["K-spanel"] = max(worst["K-spanel"], s_worst)
+        worst["K-colwrite"] = max(worst["K-colwrite"], max(c_err) / tolC if tolC else 0.0)
+        if splits > 1:
+            A, C = buf[r0:, :r0], buf[r0:r0 + B, :r0]
+            part = torch.stack([A[:, z * k_chunk:(z + 1) * k_chunk] @ C[:, z * k_chunk:(z + 1) * k_chunk].T
+                                for z in range(splits)])
+            S1, S2 = torch.empty_like(S), torch.empty_like(S)
+            bc.s_panel_reduce(buf, part, S1, j, B)
+            bc.s_panel_reduce_plain(buf, part, S2, j, B)
+            r_err = float((S1[:m] - S2[:m]).abs().max())
+            if not torch.equal(S1[:m], S2[:m]):
+                bad.append("j=%d: s_panel_reduce is not bit-identical to its twin (%.3e)" % (j, r_err))
+            if reduce_at is None or splits * m > reduce_at[1]:
+                ms = median_ms(lambda: bc.s_panel_reduce(buf, part, S1, j, B), reps=5)
+                pms = median_ms(lambda: bc.s_panel_reduce_plain(buf, part, S2, j, B), reps=5)
+                bnd = bound(4 * (splits + 2) * m * B, splits * m * B)
+                reduce_at = (j, splits * m, dict(max_abs_err=r_err, ms=ms, plain_ms=pms,
+                                                 library_ms=None, bound=bnd))
+            del A, C, part, S1, S2
+        Sb = got[B:]
+        k_ms, a_ms = in_turns(lambda: bc.s_panel(buf, S, j, B),
+                              lambda: torch.addmm(buf[r0:, r0:r0 + B], buf[r0:, :r0],
+                                                  buf[r0:r0 + B, :r0].T, alpha=-1.0))
+        cw, mm = {}, []
+        for zero_upper in (True, False):
+            cw[zero_upper], t = in_turns(lambda: bc.col_write(buf, S, Ljj, inv, j, B, zero_upper),
+                                         lambda: torch.matmul(Sb, inv.T))
+            mm.append(t)
+        sums["K-spanel"] += k_ms
+        sums["addmm"] += a_ms
+        sums["K-colwrite zero_upper"] += cw[True]
+        sums["K-colwrite"] += cw[False]
+        sums["matmul S·invT"] += 0.5 * sum(mm)
+        rows.append("j=%d: m %d, plan %dx%d, K-spanel err/bound %.4f, %.3f ms vs addmm %.3f; "
+                    "K-colwrite err %.2e/%.2e (tol %.2e), %.3f/%.3f ms vs matmul %.3f"
+                    % (j, m, splits, k_chunk, s_worst, k_ms, a_ms, c_err[0], c_err[1], tolC,
+                       cw[True], cw[False], 0.5 * sum(mm)))
+        del buf, got, Sb
+    print("the unfused factor by column (N=%d, B=%d), each kernel against its twin on the "
+          "factor's own left columns, times in turns (plan: splits x k_chunk; K-colwrite "
+          "zero_upper=True/False):\n  %s" % (n, B, "\n  ".join(rows)))
+    print("the unfused factor by column: worst err/bound %s; sums over the columns: %s"
+          % (", ".join("%s %.4f" % kv for kv in worst.items()),
+             ", ".join("%s %.2f ms" % kv for kv in sums.items())))
+    print("K-spanel entries past 2(r0+1)u(|A||C|ᵀ + |K|) alone, inside it with the underflow "
+          "term (r0+1)·2^-149: %s" % ("; ".join(under) or "none"))
+    if reduce_at is not None:
+        e = reduce_at[2]
+        print("K-spanel's second pass (s_panel_reduce) at j=%d: max_abs_err %.3e (bit-identical), "
+              "kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+              % ((reduce_at[0], e["max_abs_err"], e["ms"], e["plain_ms"]) + e["bound"]))
+    if bad:
+        fail("the unfused factor by column: " + "; ".join(bad))
+    if reduce_at is None:
+        fail("the unfused factor's plan split no column: s_panel_reduce was not checked")
+    del S, S_ref
+    return reduce_at[2]
 
 
 def drive_fused_path(gpr, bm, bc, bt, fs, mg, X, Y, dev, smi):

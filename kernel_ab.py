@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""A/B of the MOSM Gram kernels of two source trees on one NVIDIA GPU.
+"""A/B of the MOSM Gram and blocked Cholesky kernels of two source trees on
+one NVIDIA GPU.
 
-    python3 kernel_ab.py OLD_ROOT [NEW_ROOT] [--rounds N]
+    python3 kernel_ab.py OLD_ROOT [NEW_ROOT] [--rounds N] [--only SOURCE[,SOURCE]]
 
 Each ROOT is a checkout of this repository (for example a `git archive` of
 another commit unpacked into a directory that .gitignore lists); NEW_ROOT
@@ -14,7 +15,15 @@ same process on the same inputs: the 4 x 4,096-point bench model of
 chip_smoke.py (K-gram over 16,384^2, 16,384 x 4,096 and the band-lower Gram;
 K-matvec at R = 33; K-gram-bwd's parameter half on a dense 16,384^2
 cotangent, its unrolled instance, the closed-form step's call) and K-matvec
-at benchmarks/bignum_exact.py's N = 65,536, R = 33. A root whose kernels
+at benchmarks/bignum_exact.py's N = 65,536, R = 33. From blocked_cholesky.cu
+(with its root's headers: gemm_tile.cuh or gemm_tf32x3.cuh) it times
+K-spanel at every block column of the bench factor (N = 16,384, B = 512;
+one buffer holding the factor serves every column) and K-colwrite at
+j = 16 in both zero_upper forms (each side on its own copy of that
+buffer). A root whose K-spanel takes a split-K plan (`k_chunk`) gets this
+root's ops/blocked_cholesky.spanel_plan and, where it splits, its second
+pass s_panel_reduce_f32; another root gets the one-pass entry. --only
+restricts the sources built and timed. A root whose kernels
 take an instance argument (`int generic`) gets 0, the unrolled instance;
 K-gram-bwd's input half is off (inputs = 0). Rounds
 alternate which side runs first; each prints its CUDA-event medians (10
@@ -28,7 +37,7 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu")
+SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
 # instances with the input half are compiled from a file of their own)
 COMPANIONS = {"mosm_gram_bwd.cu": ("mosm_gram_bwd_inputs.cu",)}
@@ -40,12 +49,18 @@ def takes_instance(root):
         return "int generic" in f.read()
 
 
-def build(root, out_dir, tag, nvcc, flags):
+def splits_k(root):
+    """True when root's K-spanel takes the split-K plan (k_chunk, part)."""
+    with open(os.path.join(root, "mogptk_tpu_torch", "csrc", "blocked_cholesky.cu")) as f:
+        return "k_chunk" in f.read()
+
+
+def build(root, out_dir, tag, nvcc, flags, sources=SOURCES):
     """{source: ctypes library} for the sources present in root's csrc, each
     compiled by its own nvcc process, all started together."""
     csrc = os.path.join(root, "mogptk_tpu_torch", "csrc")
     procs = {}
-    for src in SOURCES:
+    for src in sources:
         path = os.path.join(csrc, src)
         if not os.path.exists(path):
             continue
@@ -68,6 +83,67 @@ def build(root, out_dir, tag, nvcc, flags):
     return libs
 
 
+def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
+    """The blocked Cholesky cases: K-spanel at every block column of the
+    bench factor and K-colwrite at j = 16, both zero_upper forms."""
+    import torch
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    dev = x.device
+    n, B = x.shape[0], 512
+    counts = tuple(int(k) for k in torch.bincount(c.long(), minlength=st3.shape[0]).tolist())
+    with torch.no_grad():
+        K = bm.mosm_gram_sorted(x, counts, *kernel._params(), kernel.twopi)
+        K.diagonal().add_(0.1)   # the bench model's noise variance
+        Lb = torch.linalg.cholesky(K)
+    del K
+    lib = {side: libs[side]["blocked_cholesky.cu"] for side in libs}
+    split = {side: splits_k(root) for side, root in roots.items()}
+
+    def spanel(side, S, j):
+        r0 = j * B
+        splits, k_chunk = bc.spanel_plan(n, r0, B)
+        part = torch.empty((splits, n - r0, B), device=dev) if splits > 1 else None
+
+        def call():
+            if not split[side]:
+                return lib[side].s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()), I64(n), I64(r0),
+                                             I64(B), P(stream))
+            err = lib[side].s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()),
+                                        P(None if part is None else part.data_ptr()), I64(n),
+                                        I64(r0), I64(B), I64(k_chunk), P(stream))
+            if err or part is None:
+                return err
+            return lib[side].s_panel_reduce_f32(P(Lb.data_ptr()), P(part.data_ptr()),
+                                                P(S.data_ptr()), I64(n), I64(r0), I64(B),
+                                                I64(splits), P(stream))
+        return call
+
+    cases = []
+    for j in range(n // B):
+        plan = bc.spanel_plan(n, j * B, B)
+        calls = {}
+        for side in libs:
+            S = torch.zeros((n, B), device=dev)
+            calls[side] = (spanel(side, S, j), S)
+        cases.append(("K-spanel j=%d (plan %dx%d)" % ((j,) + plan), "blocked_cholesky.cu", 5, calls))
+    j = 16
+    r0 = j * B
+    S = torch.zeros((n, B), device=dev)
+    S[:n - r0] = Lb[r0:, r0:r0 + B]
+    Ljj = Lb[r0:r0 + B, r0:r0 + B].contiguous()
+    inv = torch.linalg.solve_triangular(Ljj, torch.eye(B, device=dev), upper=False).contiguous()
+    for zero_upper in (1, 0):
+        calls = {}
+        for side in libs:
+            out = Lb.clone()
+            calls[side] = ((lambda o, s: lambda: lib[s].col_write_f32(
+                P(o.data_ptr()), P(S.data_ptr()), P(Ljj.data_ptr()), P(inv.data_ptr()), I64(n),
+                I64(r0), I64(B), I32(zero_upper), P(stream)))(out, side), out)
+        cases.append(("K-colwrite j=%d zero_upper=%d" % (j, zero_upper), "blocked_cholesky.cu", 10,
+                      calls))
+    return cases
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -79,6 +155,10 @@ def main():
     if "--rounds" in sys.argv:
         rounds = int(sys.argv[sys.argv.index("--rounds") + 1])
         args.remove(str(rounds))
+    only = SOURCES
+    if "--only" in sys.argv:
+        only = tuple(sys.argv[sys.argv.index("--only") + 1].split(","))
+        args.remove(",".join(only))
     if not args:
         print(__doc__, file=sys.stderr)
         return 2
@@ -87,13 +167,14 @@ def main():
     sys.path.insert(0, roots["new"])
     import chip_smoke as cs
     import mogptk_tpu_torch.gpr as gpr
-    from mogptk_tpu_torch.ops import _build, block_mosm as bm, mosm_gram as mg
+    from mogptk_tpu_torch.ops import _build, block_mosm as bm, blocked_cholesky as bc
+    from mogptk_tpu_torch.ops import mosm_gram as mg
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
     out_dir = os.path.join(roots["new"], "mogptk_tpu_torch", "_build", "ab")
     os.makedirs(out_dir, exist_ok=True)
-    libs = {side: build(root, out_dir, side, _build.nvcc_path(), list(_build.NVCC_FLAGS))
+    libs = {side: build(root, out_dir, side, _build.nvcc_path(), list(_build.NVCC_FLAGS), only)
             for side, root in roots.items()}
 
     dev = "cuda"
@@ -158,11 +239,13 @@ def main():
             *extra, P(stream))
 
     cases = []   # (name, source, reps, {side: (call, output)})
-    for name, shape, make in (
-            ("K-gram %dx%d" % (n, n), (n, n), lambda lib, o: gram(lib, o, x, c)),
-            ("K-gram %dx%d" % (n, xq.shape[0]), (n, xq.shape[0]),
-             lambda lib, o: gram(lib, o, xq, cq)),
-            ("K-gram-lower %dx%d band 512" % (n, n), (n, n), lower)):
+    if all("blocked_cholesky.cu" in l for l in libs.values()):
+        cases += cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream)
+    gram_cases = (("K-gram %dx%d" % (n, n), (n, n), lambda lib, o: gram(lib, o, x, c)),
+                  ("K-gram %dx%d" % (n, xq.shape[0]), (n, xq.shape[0]),
+                   lambda lib, o: gram(lib, o, xq, cq)),
+                  ("K-gram-lower %dx%d band 512" % (n, n), (n, n), lower))
+    for name, shape, make in gram_cases if all("mosm_gram.cu" in l for l in libs.values()) else ():
         cases.append((name, "mosm_gram.cu", 10, {
             side: (lambda o: (make(libs[side]["mosm_gram.cu"], o), o))(
                 torch.zeros(shape, device=dev)) for side in libs}))

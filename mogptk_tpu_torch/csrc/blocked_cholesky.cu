@@ -3,108 +3,203 @@
 // The factor L (n x n, row-major, leading dimension n) is built in place in
 // the buffer that holds K: block column j (rows r0 = j*B .. n, columns
 // r0 .. r0+B) still holds K when its turn comes, the columns left of it hold
-// finished L. Both kernels run on PyTorch's current stream, in order; the
+// finished L. The kernels run on PyTorch's current stream, in order; the
 // S-panel kernel reads the buffer the column-write kernel writes.
+//
+// Both GEMMs run on the 3xTF32 tensor-core mainloop of gemm_tf32x3.cuh:
+// TMA copies into a 3-stage ring, each operand split into TF32 big and small
+// parts, three wgmma products per 8-deep k step, FP32 accumulators. Each
+// product is within ~12 u |a.b| (u = 2^-24), under the 2 (k + 1) u bound
+// that the factor's checks hold a length-k float32 sum to for every k >= 5;
+// the sums themselves stay in FP32. The operands are scaled by 2^16 before
+// the split and the sums by 2^-32 after, so products that FP32 keeps as
+// subnormals are not flushed by the tensor cores (gemm_tf32x3.cuh, "Range":
+// the sums of |products| must stay below ~7.9e28, max diag(K) for the
+// factor). The tiles are 128 x 128; the column
+// tiles of one row block are adjacent in the launch order, so X's row block
+// comes from DRAM once and from L2 after that.
 //
 // s_panel_f32 replaces mogptk_tpu/ops/blocked_cholesky.py _s_panel_impl
 // (pallas_call at :96, body _s_panel_kernel at :35):
 //   S (m x B) = K[r0:, r0:r0+B] - L[r0:, :r0] . L[r0:r0+B, :r0]^T,  m = n - r0.
-//   This is the N^3/3 bulk of the factorization. Bound: FP32 FMA throughput
-//   (2*m*B*r0 flops per column). The JAX kernel emulated f32 with three bf16
-//   MXU passes; plain FP32 FFMA is at least as accurate, and TF32 is not used.
-//   Design: the shared-memory tiled GEMM of gemm_tile.cuh, 64x64 output tile
-//   per 256-thread block, 16-deep k slices, 4x4 outputs per thread,
-//   accumulator subtracted from the K tile in the epilogue. wgmma/TMA/3xTF32
-//   are later work.
+//   This is the N^3/3 bulk of the factorization. Bound: operations,
+//   2*m*B*r0 flops per column; at j = 16 of the N = 16,384 factor (B = 512)
+//   68.7 GFLOP, 1.026 ms at the 67 TFLOP/s FP32 peak and 0.42 ms for the
+//   three TF32 passes at 495 TFLOP/s (bytes 0.32 ms). The JAX kernel
+//   emulated f32 with three bf16 MXU passes (less accurate than 3xTF32).
+//   Both operands are rows of L (one tensor map, inner extent r0: k past r0
+//   reads as zero). The epilogue writes S = K - acc from the K tile.
+//   Split-K: where the m/128 x B/128 output tiles cannot fill the 132 SMs
+//   (j >= 26 at N = 16,384) or leave most of a last wave empty (j = 12-15,
+//   19-23), the wrapper's plan (ops/blocked_cholesky.py spanel_plan) cuts k
+//   into chunks of k_chunk columns, whole 32-deep slices; one CTA per
+//   (tile, chunk) writes its raw partial tile to slab z
+//   of `part` (splits x m x B), and s_panel_reduce_f32 sums the slabs in a
+//   fixed order and subtracts the sum from K: no atomics, so repeats are
+//   bit-identical. The TPU kernel ran the k chunks as a sequential grid
+//   axis with the sum in VMEM.
+//
+// s_panel_reduce_f32 replaces that sequential axis's carry (the same
+// pallas_call): S = K_panel - sum_z part[z], z in order. Bound: bytes
+// (splits + 2) * m * B * 4.
 //
 // col_write_f32 replaces _col_strip_write_impl (pallas_call at :292, body
 // _col_strip_kernel at :245) and, with zero_upper = 0, _panel_write_impl
 // (pallas_call at :184, body _panel_write_kernel at :149):
 //   L[r0:r0+B, r0:r0+B] = Ljj;  L[r0+B:, r0:r0+B] = S[B:] . inv^T (inv = Ljj^-1,
 //   the TRSM as a GEMM against the explicit panel inverse);  with zero_upper,
-//   L[r0:r0+B, r0+B:] = 0 (the strip still holds K). Bound: the (m-B) x B x B
-//   GEMM plus the column and strip writes. One launch: each block takes one
-//   64x64 tile of the column (copy or GEMM) or of the strip (zero).
+//   L[r0:r0+B, r0+B:] = 0 (the strip still holds K). Bound: operations for
+//   the (m-B) x B x B GEMM (4.0 GFLOP at j = 16: 0.060 ms FP32, 0.024 ms
+//   3xTF32), bytes for the copy and the zeroing. One launch: the first CTAs
+//   each take one 128 x 128 tile of the GEMM (tensor maps over S[B:] and
+//   inv, k = B), the rest copy Ljj and zero the strip in coalesced float4
+//   stores, grid-strided.
 //
 // All offsets are 64-bit: n^2 exceeds 2^31 from n = 46,341 on.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_tile.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS)
-s_panel_kernel(const float* __restrict__ L, float* __restrict__ S, int64_t n, int64_t r0, int64_t B) {
-    __shared__ float As[BK][BM + PAD];
-    __shared__ float Bs[BK][BN + PAD];
+using tf32x3::BM;
+using tf32x3::BN;
+using tf32x3::BK;
+using tf32x3::THREADS;
+
+__global__ void __launch_bounds__(THREADS, 1)
+s_panel_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ L,
+               float* __restrict__ S, float* __restrict__ part, int64_t n, int64_t r0, int64_t B,
+               int64_t k_chunk) {
+    extern __shared__ uint8_t smem_raw[];
     const int64_t m = n - r0;
-    const int64_t row0 = (int64_t)blockIdx.y * BM, col0 = (int64_t)blockIdx.x * BN;
-    const float* left = L + r0 * n;  // L[r0:, :r0]; its first B rows are L[r0:r0+B, :r0]
-    float acc[4][4];
-    gemm_nt_tile(left, n, m, left, n, B, r0, row0, col0, acc, As, Bs);
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int i = 0; i < 4; ++i) {
-        const int64_t r = row0 + ty * 4 + i;
+    const int64_t tiles_b = (B + BN - 1) / BN, tiles_m = (m + BM - 1) / BM;
+    const int64_t col0 = (blockIdx.x % tiles_b) * BN;   // column tiles of a row block adjacent
+    const int64_t row0 = ((blockIdx.x / tiles_b) % tiles_m) * BM;
+    const int64_t z = blockIdx.x / (tiles_b * tiles_m);
+    const int64_t kbeg = z * k_chunk, kend = kbeg + k_chunk < r0 ? kbeg + k_chunk : r0;
+    const int nslices = (int)((kend - kbeg + BK - 1) / BK);
+    float acc[64];
+    if (!tf32x3::mainloop(&map, &map, (int)(r0 + row0), (int)(r0 + col0), (int)kbeg, nslices,
+                          tf32x3::aligned_smem(smem_raw), acc))
+        return;
+    const int64_t c0 = col0 + tf32x3::col_of();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int64_t r = row0 + tf32x3::row_of(h);
         if (r >= m) continue;
-        for (int j = 0; j < 4; ++j) {
-            const int64_t c = col0 + tx * 4 + j;
-            if (c < B) S[r * B + c] = L[(r0 + r) * n + r0 + c] - acc[i][j];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int64_t c = c0 + 8 * i + e;
+                if (c >= B) continue;
+                const float v = acc[4 * i + 2 * h + e] * tf32x3::POSTSCALE;
+                if (part != nullptr)
+                    part[(z * m + r) * B + c] = v;
+                else
+                    S[r * B + c] = L[(r0 + r) * n + r0 + c] - v;
+            }
         }
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
-col_write_kernel(float* __restrict__ L, const float* __restrict__ S, const float* __restrict__ Ljj,
-                 const float* __restrict__ inv, int64_t n, int64_t r0, int64_t B) {
-    __shared__ float As[BK][BM + PAD];
-    __shared__ float Bs[BK][BN + PAD];
-    const int64_t m = n - r0;
-    const int64_t tiles_b = (B + BN - 1) / BN;
-    const int64_t n_col = ((m + BM - 1) / BM) * tiles_b;
-    int64_t t = blockIdx.x;
-    if (t < n_col) {
-        const int64_t row0 = (t / tiles_b) * BM, col0 = (t % tiles_b) * BN;
-        if (row0 < B) {  // diagonal block: copy Ljj (B % 64 == 0, so no tile straddles)
-            for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-                const int64_t r = row0 + e / BN, c = col0 + e % BN;
-                if (r < B && c < B) L[(r0 + r) * n + r0 + c] = Ljj[r * B + c];
-            }
+__global__ void __launch_bounds__(256)
+s_panel_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part,
+                      float* __restrict__ S, int64_t n, int64_t r0, int64_t B, int64_t splits) {
+    const int64_t m = n - r0, total = m * B;
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+        float s = part[e];
+        for (int64_t z = 1; z < splits; ++z) s += part[z * total + e];
+        S[e] = L[(r0 + e / B) * n + r0 + e % B] - s;
+    }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+col_write_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constant__ CUtensorMap map_inv,
+                 float* __restrict__ L, const float* __restrict__ Ljj, int64_t n, int64_t r0,
+                 int64_t B, int zero_upper, int64_t n_gemm) {
+    extern __shared__ uint8_t smem_raw[];
+    const int64_t below = n - r0 - B;   // rows below the diagonal block; also the strip's width
+    if ((int64_t)blockIdx.x < n_gemm) {
+        const int64_t tiles_b = (B + BN - 1) / BN;
+        const int64_t col0 = (blockIdx.x % tiles_b) * BN, row0 = (blockIdx.x / tiles_b) * BM;
+        float acc[64];
+        if (!tf32x3::mainloop(&map_s, &map_inv, (int)row0, (int)col0, 0, (int)((B + BK - 1) / BK),
+                              tf32x3::aligned_smem(smem_raw), acc))
             return;
-        }
-        const int64_t brow0 = row0 - B;  // row inside S[B:]
-        float acc[4][4];
-        gemm_nt_tile(S + B * B, B, m - B, inv, B, B, B, brow0, col0, acc, As, Bs);
-        const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-        for (int i = 0; i < 4; ++i) {
-            const int64_t r = brow0 + ty * 4 + i;
-            if (r >= m - B) continue;
-            for (int j = 0; j < 4; ++j) {
-                const int64_t c = col0 + tx * 4 + j;
-                if (c < B) L[(r0 + B + r) * n + r0 + c] = acc[i][j];
+        const int64_t c0 = col0 + tf32x3::col_of();
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int64_t r = row0 + tf32x3::row_of(h);
+            if (r >= below) continue;
+            float* dst = L + (r0 + B + r) * n + r0;
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int64_t c = c0 + 8 * i + e;
+                    if (c < B) dst[c] = acc[4 * i + 2 * h + e] * tf32x3::POSTSCALE;
+                }
             }
         }
         return;
     }
-    // strip of block row j right of the diagonal: zero
-    t -= n_col;
-    const int64_t w = n - r0 - B;
-    const int64_t tiles_w = (w + BN - 1) / BN;
-    const int64_t row0 = (t / tiles_w) * BM, col0 = (t % tiles_w) * BN;
-    for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-        const int64_t r = row0 + e / BN, c = col0 + e % BN;
-        if (r < B && c < w) L[(r0 + r) * n + r0 + B + c] = 0.0f;
+    // the copy of Ljj, then (zero_upper) the strip of block row j right of
+    // the diagonal block; B, r0 and n are multiples of 4, so every float4 is
+    // aligned
+    const int64_t b4 = B / 4, w4 = below / 4;
+    const int64_t diag = B * b4, total = diag + (zero_upper ? B * w4 : 0);
+    const int64_t stride = ((int64_t)gridDim.x - n_gemm) * THREADS;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int64_t e = ((int64_t)blockIdx.x - n_gemm) * THREADS + threadIdx.x; e < total; e += stride) {
+        if (e < diag) {
+            const int64_t r = e / b4, c = (e % b4) * 4;
+            *reinterpret_cast<float4*>(L + (r0 + r) * n + r0 + c) =
+                *reinterpret_cast<const float4*>(Ljj + r * B + c);
+        } else {
+            const int64_t f = e - diag, r = f / w4, c = (f % w4) * 4;
+            *reinterpret_cast<float4*>(L + (r0 + r) * n + r0 + B + c) = zero;
+        }
     }
 }
 
+constexpr int64_t SMS = 132;   // the H100 SXM's: the copy CTAs fill the card once at most
+
 }  // namespace
 
-extern "C" int s_panel_f32(const float* L, float* S, int64_t n, int64_t r0, int64_t B,
-                           cudaStream_t stream) {
+extern "C" int s_panel_f32(const float* L, float* S, float* part, int64_t n, int64_t r0, int64_t B,
+                           int64_t k_chunk, cudaStream_t stream) {
     const int64_t m = n - r0;
     if (m <= 0 || B <= 0) return 0;
-    dim3 grid((unsigned)((B + BN - 1) / BN), (unsigned)((m + BM - 1) / BM));
-    s_panel_kernel<<<grid, THREADS, 0, stream>>>(L, S, n, r0, B);
+    int64_t splits = 1;
+    CUtensorMap map;
+    memset(&map, 0, sizeof(map));
+    if (r0 > 0) {
+        if (k_chunk <= 0 || k_chunk % BK) return (int)cudaErrorInvalidValue;
+        splits = (r0 + k_chunk - 1) / k_chunk;
+        if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+        // L[:, :r0], every row: k past r0 and rows past n read as zero
+        const int err = tf32x3::make_map(&map, L, r0, n, n);
+        if (err) return err;
+    }
+    const int err = tf32x3::allow_smem(s_panel_kernel);
+    if (err) return err;
+    const int64_t blocks = ((m + BM - 1) / BM) * ((B + BN - 1) / BN) * splits;
+    s_panel_kernel<<<(unsigned)blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(
+        map, L, S, splits > 1 ? part : nullptr, n, r0, B, splits > 1 ? k_chunk : r0);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int s_panel_reduce_f32(const float* L, const float* part, float* S, int64_t n,
+                                  int64_t r0, int64_t B, int64_t splits, cudaStream_t stream) {
+    const int64_t total = (n - r0) * B;
+    if (total <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
+    int64_t blocks = (total + 255) / 256;
+    if (blocks > 8 * SMS) blocks = 8 * SMS;
+    s_panel_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(L, part, S, n, r0, B, splits);
     return (int)cudaGetLastError();
 }
 
@@ -112,12 +207,25 @@ extern "C" int col_write_f32(float* L, const float* S, const float* Ljj, const f
                              int64_t n, int64_t r0, int64_t B, int zero_upper,
                              cudaStream_t stream) {
     const int64_t m = n - r0;
-    if (m <= 0 || B <= 0 || B % BM != 0) return (int)cudaErrorInvalidValue;
-    const int64_t tiles_b = (B + BN - 1) / BN;
-    int64_t tiles = ((m + BM - 1) / BM) * tiles_b;
-    const int64_t w = n - r0 - B;
-    if (zero_upper && w > 0) tiles += tiles_b * ((w + BN - 1) / BN);
-    col_write_kernel<<<(unsigned)tiles, THREADS, 0, stream>>>(L, S, Ljj, inv, n, r0, B);
+    if (m <= 0 || B <= 0 || B % 64 != 0 || n % 4 != 0) return (int)cudaErrorInvalidValue;
+    const int64_t below = m - B;
+    CUtensorMap map_s, map_inv;
+    memset(&map_s, 0, sizeof(map_s));
+    memset(&map_inv, 0, sizeof(map_inv));
+    int64_t n_gemm = 0;
+    if (below > 0) {
+        int err = tf32x3::make_map(&map_s, S + B * B, B, below, B);   // S[B:m]
+        if (!err) err = tf32x3::make_map(&map_inv, inv, B, B, B);
+        if (err) return err;
+        n_gemm = ((below + BM - 1) / BM) * ((B + BN - 1) / BN);
+    }
+    const int64_t copy4 = B * B / 4 + (zero_upper ? B * below / 4 : 0);
+    int64_t n_copy = (copy4 + THREADS - 1) / THREADS;
+    if (n_copy > SMS) n_copy = SMS;
+    const int err = tf32x3::allow_smem(col_write_kernel);
+    if (err) return err;
+    col_write_kernel<<<(unsigned)(n_gemm + n_copy), THREADS, tf32x3::SMEM_BYTES, stream>>>(
+        map_s, map_inv, L, Ljj, n, r0, B, zero_upper, n_gemm);
     return (int)cudaGetLastError();
 }
 

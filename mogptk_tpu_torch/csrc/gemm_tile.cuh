@@ -1,7 +1,7 @@
-// The shared-memory tiled FP32 GEMM tile of the blocked Cholesky kernels
-// (blocked_cholesky.cu's K-spanel and K-colwrite, fused_trsm.cu's K-sdiag):
-// a 64x64 output tile per 256-thread block, 16-deep k slices, 4x4 outputs
-// per thread, FFMA only (TF32 is not used).
+// The shared-memory tiled FP32 GEMM tile of fused_trsm.cu's K-sdiag, its
+// only user (K-spanel and K-colwrite run on gemm_tf32x3.cuh's tensor-core
+// mainloop): a 64x64 output tile per 256-thread block, 16-deep k slices,
+// 4x4 outputs per thread, FFMA only.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

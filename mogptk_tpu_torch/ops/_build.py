@@ -46,8 +46,10 @@ _c_int = ctypes.c_int
 SIGNATURES = {
     # x1, c1, x2, c2, stats, out, N, M, O, Q, D, generic, stream
     "mosm_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
-    # L, S, n, r0, B, stream
-    "s_panel_f32": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_ptr],
+    # L, S, part, n, r0, B, k_chunk, stream
+    "s_panel_f32": [_c_ptr] * 3 + [_c_i64] * 4 + [_c_ptr],
+    # L, part, S, n, r0, B, splits, stream
+    "s_panel_reduce_f32": [_c_ptr] * 3 + [_c_i64] * 4 + [_c_ptr],
     # L, S, Ljj, inv, n, r0, B, zero_upper, stream
     "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
     # L, part, out, n, r0, B, k_chunk, stream

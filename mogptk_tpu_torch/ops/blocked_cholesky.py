@@ -6,7 +6,9 @@ JAX counterpart: mogptk_tpu/ops/blocked_cholesky.py (`blocked_cholesky`
 :642-856, `effective_block` :624-639). Per block column j (r0 = j·B):
 
 1. S = K[r0:, r0:r0+B] − L[r0:, :r0]·L[r0:r0+B, :r0]ᵀ  (`s_panel`; the JAX
-   Pallas kernel `_s_panel_pallas`);
+   Pallas kernel `_s_panel_pallas`; on the card with k split into chunks
+   where the output tiles fill the SMs poorly, `spanel_plan`, and the
+   chunks' partial products summed by `s_panel_reduce`);
 2. Ljj = chol(S[:B] + diag shift), inv = Ljj⁻¹ on the B×B block (library
    calls; the JAX package's recursive `_panel_factor_inv` worked around the
    TPU's expander and is not ported); with return_panel_invs every inverse,
@@ -30,6 +32,8 @@ not a multiple of the block, K is copied into a padded buffer with an
 identity tail first, and K itself is left as it was. Every step reads and
 writes the same buffer and runs on one stream in order.
 """
+import functools
+
 import torch
 
 from . import _build
@@ -66,23 +70,121 @@ def col_write_plain(L, S, Ljj, inv, j, B, zero_upper=True):
             L[r0:r0 + B, r0 + B:] = 0
 
 
+# csrc/gemm_tf32x3.cuh's output tile (rows and columns) and k slice, and
+# the H100 SXM's SM count, which spanel_plan fills
+TF32X3_TILE = 128
+TF32X3_K_SLICE = 32
+H100_SMS = 132
+# spanel_plan's cost model: a k chunk holds at least this many slices; one
+# slice of one CTA (3 x 2 x 128 x 128 x 32 flops) takes about this long on an
+# H100 at 700 W (block column 24 of the N = 16,384 factor: one full wave of
+# 384 slices in 0.542 ms, kernel_ab.py); a split must save a tenth of the
+# one-pass cost
+SPANEL_MIN_SLICES = 8
+SPANEL_SLICE_S = 1.4e-6
+H100_BYTES_PER_S = 3.35e12
+
+
+@functools.lru_cache(maxsize=4096)
+def spanel_plan(n, r0, B):
+    """K-spanel's split-K plan for block column offset r0: (splits, k_chunk).
+
+    Chunk z covers k in [z·k_chunk, min(r0, (z+1)·k_chunk)), z < splits:
+    the chunks cover [0, r0) once, in order, each a whole number of 32-deep
+    k slices (k_chunk is a multiple of TF32X3_K_SLICE; only the last chunk
+    may end early, at r0). The count minimises the modelled time: waves of
+    CTAs on the SMs (m/128 × B/128 output tiles, m = n − r0, times the
+    chunks) × (slices a CTA runs + 2 for its fill and epilogue), plus the
+    partial slabs' traffic (written once, read once by s_panel_reduce); a
+    split is taken only where it saves a tenth of the one-pass time: where
+    the tiles cannot fill the SMs (block columns j ≥ 26 at N = 16,384,
+    B = 512) or leave most of a last wave empty (j = 12-15 and 19-23).
+    Otherwise splits is 1 and k_chunk ≥ r0. r0 = 0 gives (1, 0): no k."""
+    slices = -(-r0 // TF32X3_K_SLICE)
+    if slices == 0:
+        return 1, 0
+    m = n - r0
+    tiles = -(-m // TF32X3_TILE) * -(-B // TF32X3_TILE)
+
+    def cost(s):
+        per = -(-slices // s)
+        splits = -(-slices // per)
+        c = -(-tiles * splits // H100_SMS) * (per + 2)
+        if splits > 1:
+            c += 4 * m * B * (2 * splits + 2) / H100_BYTES_PER_S / SPANEL_SLICE_S
+        return c, splits, per * TF32X3_K_SLICE
+
+    one = best = cost(1)
+    for s in range(2, slices // SPANEL_MIN_SLICES + 1):
+        c = cost(s)
+        if c[0] < best[0]:
+            best = c
+    if best[0] > 0.9 * one[0]:
+        best = one
+    return best[1], best[2]
+
+
 def s_panel(L, S, j, B):
     """Step 1 for block column j, into S's first n − j·B rows. CPU or
-    float64: plain twin. float32 CUDA: csrc/blocked_cholesky.cu s_panel_f32,
-    or raises."""
+    float64: plain twin. float32 CUDA: csrc/blocked_cholesky.cu s_panel_f32
+    (3xTF32 tensor cores), with spanel_plan's split-K and, for more than one
+    chunk, s_panel_reduce; or raises. For j > 0 the kernel's TMA copies
+    need n a multiple of 4 (16-byte rows of L) and L on 16 bytes. Its range
+    is FP32's down to the subnormals and up to sums of |products| of
+    ~7.9e28 (the operands scaled by 2^16 on the tensor cores; for a
+    factor, max diag(K) below that)."""
     if _build.runs_plain(L):
         return s_panel_plain(L, S, j, B)
     _check_shapes("s_panel", L, S, B)
     _build.require_cuda_inputs("s_panel", floats=(L, S))
-    err = _build.library().s_panel_f32(L.data_ptr(), S.data_ptr(), L.shape[0], j * B, B,
-                                       _build.stream_ptr(L))
+    n, r0 = L.shape[0], j * B
+    if r0 and (n % 4 or L.data_ptr() % 16):
+        raise ValueError("s_panel: for j > 0 the TMA copies need n a multiple of 4 (16-byte rows) "
+                         "and L on 16 bytes")
+    splits, k_chunk = spanel_plan(n, r0, B)
+    part = torch.empty((splits, n - r0, B), dtype=L.dtype, device=L.device) if splits > 1 else None
+    err = _build.library().s_panel_f32(L.data_ptr(), S.data_ptr(),
+                                       None if part is None else part.data_ptr(), n, r0, B,
+                                       k_chunk, _build.stream_ptr(L))
     _build.check(err, "s_panel_f32")
     s_panel.launches += 1
+    if part is not None:
+        s_panel_reduce(L, part, S, j, B)
+
+
+def s_panel_reduce_plain(L, part, S, j, B):
+    """S[:m] = L[r0:, r0:r0+B] − Σ_z part[z], the (splits, m, B) partial
+    products of K-spanel's k chunks summed in order, z = 0 first."""
+    r0 = j * B
+    acc = part[0].clone()
+    for z in range(1, part.shape[0]):
+        acc += part[z]
+    torch.sub(L[r0:, r0:r0 + B], acc, out=S[:L.shape[0] - r0])
+
+
+def s_panel_reduce(L, part, S, j, B):
+    """K-spanel's second pass where its plan split k. CPU or float64: plain
+    twin. float32 CUDA: csrc/blocked_cholesky.cu s_panel_reduce_f32 (the
+    same order of sums), or raises."""
+    if _build.runs_plain(L):
+        return s_panel_reduce_plain(L, part, S, j, B)
+    _check_shapes("s_panel_reduce", L, S, B)
+    n, r0 = L.shape[0], j * B
+    if part.ndim != 3 or part.shape[1:] != (n - r0, B):
+        raise ValueError("s_panel_reduce: part must be (splits, n − j·B, B)")
+    _build.require_cuda_inputs("s_panel_reduce", floats=(L, part, S))
+    err = _build.library().s_panel_reduce_f32(L.data_ptr(), part.data_ptr(), S.data_ptr(), n, r0,
+                                              B, part.shape[0], _build.stream_ptr(L))
+    _build.check(err, "s_panel_reduce_f32")
+    s_panel_reduce.launches += 1
 
 
 def col_write(L, S, Ljj, inv, j, B, zero_upper=True):
     """Step 3 for block column j. CPU or float64: plain twin. float32 CUDA:
-    csrc/blocked_cholesky.cu col_write_f32, or raises."""
+    csrc/blocked_cholesky.cu col_write_f32 (3xTF32 tensor cores for the
+    rows below), or raises. B must be a multiple of 64, and the TMA copies
+    and float4 stores need L, S, Ljj and inv on 16 bytes. Range as
+    s_panel's: sums of |S[B:]|·|inv|ᵀ below ~7.9e28."""
     if _build.runs_plain(L):
         return col_write_plain(L, S, Ljj, inv, j, B, zero_upper)
     _check_shapes("col_write", L, S, B)
@@ -93,6 +195,8 @@ def col_write(L, S, Ljj, inv, j, B, zero_upper=True):
     if B % 64 or Ljj.shape != (B, B) or inv.shape != (B, B):
         raise ValueError("col_write: Ljj and inv must be (B, B) with B a multiple of 64")
     _build.require_cuda_inputs("col_write", floats=(L, S, Ljj, inv))
+    if any(t.data_ptr() % 16 for t in (L, S, Ljj, inv)):
+        raise ValueError("col_write: L, S, Ljj and inv must start on 16 bytes (TMA, float4)")
     err = _build.library().col_write_f32(L.data_ptr(), S.data_ptr(), Ljj.data_ptr(),
                                          inv.data_ptr(), L.shape[0], j * B, B,
                                          int(bool(zero_upper)), _build.stream_ptr(L))
@@ -101,6 +205,7 @@ def col_write(L, S, Ljj, inv, j, B, zero_upper=True):
 
 
 s_panel.launches = 0
+s_panel_reduce.launches = 0
 col_write.launches = 0
 
 

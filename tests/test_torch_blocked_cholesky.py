@@ -75,3 +75,104 @@ def test_effective_block():
     assert tbc.effective_block(7680, 1024) == 512
     assert tbc.effective_block(100, 512) == 100
     assert tbc.effective_block(160, 64) == 64
+
+
+@pytest.mark.parametrize("n, B", [(16384, 512), (1024, 64)], ids=["bench", "small"])
+def test_spanel_plan_covers_k_once(n, B):
+    """K-spanel's split-K plan at every block column: the chunks cover
+    [0, r0) exactly once, in order, none empty, each a whole number of
+    32-deep k slices (csrc/gemm_tf32x3.cuh's stage); the last columns,
+    whose output tiles cannot fill the card's 132 SMs, are split, and at
+    N = 16,384 the first ones, whose tiles fill whole waves, are not."""
+    split = []
+    for j in range(n // B):
+        r0 = j * B
+        splits, k_chunk = tbc.spanel_plan(n, r0, B)
+        if r0 == 0:
+            assert (splits, k_chunk) == (1, 0)
+            continue
+        assert splits >= 1 and k_chunk > 0 and k_chunk % tbc.TF32X3_K_SLICE == 0
+        chunks = [(z * k_chunk, min(r0, (z + 1) * k_chunk)) for z in range(splits)]
+        assert chunks[0][0] == 0 and chunks[-1][1] == r0
+        assert all(a < b for a, b in chunks)
+        assert all(chunks[z][1] == chunks[z + 1][0] for z in range(splits - 1))
+        if splits > 1:
+            split.append(j)
+    tiles = [-(-(n - j * B) // tbc.TF32X3_TILE) * -(-B // tbc.TF32X3_TILE) for j in split]
+    assert split and split[-1] == n // B - 1 and min(tiles) < tbc.H100_SMS
+    if n == 16384:
+        assert split[0] >= 8 and all(j in split for j in range(26, 32))
+
+
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 on the float32 bit pattern: keep 10 explicit
+    mantissa bits, rounding to nearest with ties away from zero (add half of
+    the 13 dropped bits to the magnitude, then clear them). Finite inputs."""
+    bits = np.asarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_3xtf32_split_stays_inside_spanel_bound():
+    """The precision argument K-spanel's tensor-core kernel rests on,
+    emulated on the CPU: each operand split into big = rna(x) and small =
+    rna(x − big), three TF32 products (small·big, big·small, big·big, exact
+    in float32) summed into a float32 accumulator k by k. Each product is
+    within 12u|a·b| of the exact one (u = 2⁻²⁴), and S = K − A·Cᵀ at block
+    column 2 of a real factor (n = 256, B = 64, r0 = 128) stays within the
+    summation bound chip_smoke.py holds the kernel to, 2(r0+1)u(|A||C|ᵀ +
+    |K|), against float64; a single TF32 pass (big·big only) does not. And
+    with the tensor cores' flush of products below FLT_MIN emulated, the
+    kernel's 2¹⁶ prescale keeps subnormal sums that the unscaled split
+    loses."""
+    u = 2.0 ** -24
+    rng = np.random.RandomState(44)
+    a = (rng.randn(100000) * np.exp(rng.randn(100000))).astype(np.float32)
+    b = (rng.randn(100000) * np.exp(rng.randn(100000))).astype(np.float32)
+    ab, bb = _tf32_rna(a), _tf32_rna(b)
+    as_, bs = _tf32_rna(a - ab), _tf32_rna(b - bb)
+    exact = a.astype(np.float64) * b
+    three = ab.astype(np.float64) * bs + as_.astype(np.float64) * bb + ab.astype(np.float64) * bb
+    assert np.all(np.abs(three - exact) <= 12 * u * np.abs(exact))
+
+    n, B, j = 256, 64, 2
+    r0, K = j * B, _spd(n, 45, np.float64)
+    buf = K.copy()
+    buf[:, :r0] = np.linalg.cholesky(K)[:, :r0]
+    buf = buf.astype(np.float32)
+    A, C, Kp = buf[r0:, :r0], buf[r0:r0 + B, :r0], buf[r0:, r0:r0 + B]
+    acc3 = np.zeros((n - r0, B), np.float32)
+    acc1 = np.zeros((n - r0, B), np.float32)
+    for k in range(r0):
+        abig, cbig = _tf32_rna(A[:, k]), _tf32_rna(C[:, k])
+        asml, csml = _tf32_rna(A[:, k] - abig), _tf32_rna(C[:, k] - cbig)
+        acc3 += np.outer(asml, cbig)
+        acc3 += np.outer(abig, csml)
+        acc3 += np.outer(abig, cbig)
+        acc1 += np.outer(abig, cbig)
+    ref = Kp.astype(np.float64) - A.astype(np.float64) @ C.astype(np.float64).T
+    bound = 2 * (r0 + 1) * u * (np.abs(A).astype(np.float64) @ np.abs(C).T + np.abs(Kp))
+    assert np.all(np.abs((Kp - acc3) - ref) <= bound)
+    assert np.max(np.abs((Kp - acc1) - ref) / bound) > 1.0
+
+    # the range: the tensor cores flush a product below FLT_MIN (2⁻¹²⁶) to
+    # zero, so the kernel scales both operands by 2¹⁶ before the split and
+    # the sum by 2⁻³² after. With operands ~1e-20 (products ~1e-40,
+    # subnormal in float32) the unscaled split loses the sums; the scaled
+    # one stays within the bound plus the underflow term (r0+1)·2⁻¹⁴⁹
+    At, Ct = A * np.float32(1e-20), C * np.float32(1e-20)
+
+    def tensor_core(prescale):
+        acc = np.zeros((n - r0, B), np.float32)
+        for k in range(r0):
+            a, c = At[:, k] * np.float32(prescale), Ct[:, k] * np.float32(prescale)
+            abig, cbig = _tf32_rna(a), _tf32_rna(c)
+            asml, csml = _tf32_rna(a - abig), _tf32_rna(c - cbig)
+            for x, y in ((asml, cbig), (abig, csml), (abig, cbig)):
+                prod = np.outer(x, y)
+                acc += np.where(np.abs(prod) < np.float32(2.0 ** -126), np.float32(0), prod)
+        return acc * np.float32(1.0 / prescale ** 2)
+
+    exact = At.astype(np.float64) @ Ct.astype(np.float64).T
+    tiny = 2 * (r0 + 1) * (u * (np.abs(At).astype(np.float64) @ np.abs(Ct).T) + 2.0 ** -150)
+    assert np.all(np.abs(tensor_core(2.0 ** 16) - exact) <= tiny)
+    assert np.max(np.abs(tensor_core(1.0) - exact) / tiny) > 1.0

@@ -155,24 +155,40 @@ def test_cuda_kernels_match_plain_twins():
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 2e-4 * float(ref.abs().max())
 
-    n, B, j = 256, 64, 2
-    L = torch.as_tensor(rng.randn(n, n) / 8, dtype=torch.float32, device=dev)
-    S, S_ref = torch.empty(n, B, device=dev), torch.empty(n, B, device=dev)
-    tbc.s_panel(L, S, j, B)
-    tbc.s_panel_plain(L, S_ref, j, B)
-    r0 = j * B
-    A = L[r0:, :r0].abs()
-    bound = 2 * r0 * 2.0 ** -24 * float((A @ A[:B].T).max()) + 1e-6
-    assert float((S[:n - r0] - S_ref[:n - r0]).abs().max()) <= bound
-
-    Ljj = torch.tril(torch.rand(B, B, device=dev)) / B + torch.eye(B, device=dev)
-    inv = torch.linalg.solve_triangular(Ljj, torch.eye(B, device=dev), upper=False).contiguous()
-    for zero_upper in (True, False):
-        L1, L2 = L.clone(), L.clone()
-        tbc.col_write(L1, S, Ljj, inv, j, B, zero_upper)
-        tbc.col_write_plain(L2, S, Ljj, inv, j, B, zero_upper)
-        bound = 2 * B * 2.0 ** -24 * float((S[B:n - r0].abs() @ inv.abs().T).max()) + 1e-6
-        assert float((L1 - L2).abs().max()) <= bound
+    # K-spanel (3xTF32, split-K where planned) and K-colwrite at every block
+    # column of real factors, B = 64 (masked column tiles), 256 and 512,
+    # against their twins under the summation bounds chip_smoke.py uses;
+    # each launch repeated bit-identically
+    u = 2.0 ** -24
+    for n, B in ((256, 64), (2048, 256), (4096, 512)):
+        A0 = rng.randn(n, n) / np.sqrt(n)
+        K = torch.as_tensor(A0 @ A0.T + np.eye(n), dtype=torch.float32, device=dev)
+        F = torch.linalg.cholesky(K)
+        S, S_ref = torch.empty(n, B, device=dev), torch.empty(n, B, device=dev)
+        eye = torch.eye(B, device=dev)
+        for j in range(n // B):
+            r0, m = j * B, n - j * B
+            L = K.clone()
+            L[:, :r0] = F[:, :r0]
+            tbc.s_panel(L, S, j, B)
+            got = S[:m].clone()
+            tbc.s_panel(L, S, j, B)
+            assert torch.equal(S[:m], got), (n, B, j)
+            tbc.s_panel_plain(L, S_ref, j, B)
+            A, Kp = L[r0:, :r0].abs(), L[r0:, r0:r0 + B].abs()
+            bound = 2 * (r0 + 1) * u * (A @ A[:B].T + Kp)
+            assert bool(((got - S_ref[:m]).abs() <= bound).all()), (n, B, j)
+            Ljj = F[r0:r0 + B, r0:r0 + B].contiguous()
+            inv = torch.linalg.solve_triangular(Ljj, eye, upper=False).contiguous()
+            tol = 2 * B * u * float((got[B:].abs() @ inv.abs().T).max()) if m > B else 0.0
+            for zero_upper in (True, False):
+                L1, L2 = L.clone(), L.clone()
+                tbc.col_write(L1, S, Ljj, inv, j, B, zero_upper)
+                again = L.clone()
+                tbc.col_write(again, S, Ljj, inv, j, B, zero_upper)
+                assert torch.equal(again, L1), (n, B, j, zero_upper)
+                tbc.col_write_plain(L2, S, Ljj, inv, j, B, zero_upper)
+                assert float((L1 - L2).abs().max()) <= tol, (n, B, j, zero_upper)
     torch.cuda.synchronize()
 
 
