@@ -22,11 +22,15 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
 - the user API: mogptk_tpu_torch.MOSM on a DataSet of the same data trains
   three steps with the default Exact(), predicts and scores itself; a second
   MOSM initializes by BNSE;
-- the iterative engine: K-matvec against its twin at N=16,384 (R = 1, 33
-  and 1,024, channel-sorted and on permuted points); then the
+- the iterative engine: K-matvec (the fold: each symmetric tile once, its
+  products on the tensor cores, and its second pass K-matvec-reduce)
+  against its twin at N=16,384 (R = 1, 33 and 1,024, channel-sorted and on
+  permuted points; at R = 1 and 33 timed in turns beside the unfolded FFMA
+  kernel); then the
   benchmarks/bignum_exact.py configuration (4 channels x 16,384 points,
   N=65,536, ExactIterative with 50 CG iterations, 16 probes and a rank-64
-  preconditioner): K-matvec, K-lowrank-vjp and K-gram's pivot rows at the
+  preconditioner): K-matvec, K-matvec-reduce (exactly equal to its twin on
+  the same slabs), K-lowrank-vjp and K-gram's pivot rows at the
   step's shapes against their twins, the first step's LML and gradient
   against a float64 execution of the same estimator with the same draws, a
   repeated step, three counted Adam steps; then the evaluation-grade
@@ -88,7 +92,11 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   parameter cotangents; phase_inside=False at one shape of each; each
   against its plain twin, repeated bit-identically, with its bound and
   yardstick; float64 through the twins on the card against the CPU; and
-  mosm_gram forward and backward at the JAX signature (K-gram, K-gram-bwd).
+  mosm_gram forward and backward at the JAX signature (K-gram, K-gram-bwd);
+- the blocked factor's repairs (phase 22): a forced blocked factor at
+  n = 300 (one 320-wide panel on the kernels) and the bench Gram times 2¹⁰⁰
+  (diag ~ 4e30, under the range scale), unfused and fused, each against
+  float64 on the card.
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -97,9 +105,11 @@ line, when there is no CUDA device, when run without the repository beside
 it, or when any check fails. Times come from CUDA events (kernels, median of
 10) and from the host clock between synchronizations (requests, steps).
 Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s FP32
-outside the tensor cores; for K-spanel and K-colwrite, which run three
-TF32 passes on the tensor cores, 3 × their operations over 495 TFLOP/s
-(the FP32 bound printed beside it).
+outside the tensor cores; for K-spanel, K-colwrite and K-sdiag, which run
+three TF32 passes on the tensor cores, 3 × their operations over 495
+TFLOP/s (the FP32 bound printed beside it); for K-matvec the larger of its
+folded element evaluations at the FP32 peak and its 3xTF32 products
+(matvec_bounds).
 """
 import contextlib
 import json
@@ -512,7 +522,8 @@ def main():
 
     # -- phase 10: the iterative training path at full width -------------------
     phase("phase 10: iterative training path (benchmarks/bignum_exact.py, N=65,536)")
-    report["mosm_matvec"], iter_launches = drive_iterative_training(gpr, dev, smi)
+    iter_report, iter_launches = drive_iterative_training(gpr, dev, smi)
+    report.update(iter_report)
     torch.cuda.empty_cache()
 
     # -- phase 11: the readout and predict ---------------------------------------
@@ -575,6 +586,12 @@ def main():
     report.update(e3_report)
     print("phase 21 (ops.pallas_mosm) wall time: %.1f s" % (time.perf_counter() - t_e3))
 
+    # -- phase 22: the blocked factor's width and range repairs -------------------
+    t_rep = time.perf_counter()
+    phase("phase 22: a forced blocked factor at n=300 and a Gram with diag ~ 1e30")
+    check_factor_repairs(gpr, bm, bc, X, Y, dev, smi)
+    print("phase 22 (factor repairs) wall time: %.1f s" % (time.perf_counter() - t_rep))
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu",
                "fused": "mogptk_tpu_torch/csrc/fused_trsm.cu"}
@@ -612,6 +629,11 @@ def main():
          "replaces": "mogptk_tpu/ops/block_mosm.py:507; mogptk_tpu/ops/block_mosm.py:530; "
                      "mogptk_tpu/ops/fused.py:288",
          "path": "iterative train", "launches": iter_launches["mosm_matvec"]},
+        {"name": "mosm_matvec_reduce", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/mosm_matvec.cu",
+         "replaces": "mogptk_tpu/ops/block_mosm.py:530 (the transposed products' sum of "
+                     "_matvec_offdiag_kernel)",
+         "path": "iterative train", "launches": iter_launches["mosm_matvec_reduce"]},
         {"name": "mosm_gram_bwd_inputs", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/mosm_gram_bwd.cu",
          "replaces": "mogptk_tpu/ops/pallas_mosm.py:274 (the input half of _bwd_kernel, :103-160)",
@@ -664,6 +686,8 @@ def main():
                  bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=r["library_ms"])
         if "bound_fp32" in r:     # the 3xTF32 kernels: the FP32 bound beside theirs
             k["bound_fp32_ms"] = r["bound_fp32"][0]
+        if r.get("yardstick_ms") is not None:   # two PyTorch calls, where no one call computes it
+            k["yardstick_ms"] = r["yardstick_ms"]
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -1246,11 +1270,27 @@ def matvec_scale(mg, x, c, st3, st2, V, rows=2048, x2=None, c2=None):
     return out
 
 
+def matvec_bounds(n, R, D):
+    """K-matvec's (bound, FP32 bound): the fold evaluates each element of
+    the upper triangle once (n(n+1)/2 of them, FP32 at 67 TFLOP/s) and runs
+    2n²R multiply-add flops as three TF32 passes on the tensor cores (495
+    TFLOP/s), two pipes that can overlap, so the larger of the two, or the
+    bytes (x and c read, V read and the output written once); the FP32
+    bound of the unfolded FFMA kernel (n² elements and 2n²R flops at the
+    FP32 peak) beside it."""
+    nbytes = 4 * (n * (D + 1) + 2 * n * R)
+    b = 1e3 * nbytes / PEAK_BYTES_PER_S
+    fp32 = 1e3 * gram_ops(n * (n + 1) // 2, D) / PEAK_FP32_PER_S
+    tf32 = 1e3 * 3 * 2 * n * n * R / PEAK_TF32_PER_S
+    folded = max((b, "bytes"), (fp32, "operations"), (tf32, "operations"))
+    return folded, bound(nbytes, gram_ops(n * n, D) + 2 * n * n * R)
+
+
 def matvec_check(mv, mg, x, c, st3, st2, V, label, reps=10):
     """K-matvec against its float32 twin and a float64 twin on the same
     inputs. Tolerance: at most twice the float32 twin's error against float64
     plus 1e-6 of max |K|·|V| (summation order alone). Returns (max |kernel −
-    twin|, kernel ms, twin ms)."""
+    twin|, kernel ms, twin ms, bound, FP32 bound)."""
     import torch
     got = mv.mosm_matvec(x, c, st3, st2, V)
     again = mv.mosm_matvec(x, c, st3, st2, V)
@@ -1265,15 +1305,39 @@ def matvec_check(mv, mg, x, c, st3, st2, V, label, reps=10):
     ms = median_ms(lambda: mv.mosm_matvec(x, c, st3, st2, V), reps=reps)
     pms = median_ms(lambda: mv.mosm_matvec_plain(x, c, st3, st2, V), reps=3, warmup=1)
     n, R = V.shape
-    bnd = bound(4 * (n * (x.shape[1] + 1) + 2 * n * R), gram_ops(n * n, x.shape[1]) + 2 * n * n * R)
+    bnd, bnd32 = matvec_bounds(n, R, x.shape[1])
     print("K-matvec %s N=%d R=%d: vs float64 %.3e (twin %.3e, tol %.3e, max|K||V| %.3e), vs twin "
-          "%.3e, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
-          % ((label, n, R, err_k, err_t, tol, scale, err, ms, pms) + bnd))
+          "%.3e, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s; unfolded FP32 %.3f ms)"
+          % ((label, n, R, err_k, err_t, tol, scale, err, ms, pms) + bnd + bnd32[:1]))
     if not err_k <= tol:
         fail("K-matvec (%s, R=%d) is further from float64 than twice its plain twin" % (label, R))
     if not torch.equal(got, again):
         fail("K-matvec (%s, R=%d): a repeated call differs" % (label, R))
-    return err, ms, pms, bnd
+    return err, ms, pms, bnd, bnd32
+
+
+def matvec_reduce_check(mv, x, c, st3, st2, V, label, reps=10):
+    """K-matvec-reduce (the fold's second pass) against its plain twin on
+    the partial slabs of K-matvec's first pass: the same sums in the same
+    order, so exactly equal. Returns its report entry."""
+    import torch
+    n, R = V.shape
+    part = mv.fold_partials(x, c, st3, st2, V)
+    got = mv.mosm_matvec_reduce(part, n)
+    twin = mv.mosm_matvec_reduce_plain(part, n)
+    torch.cuda.synchronize()
+    err = float((got - twin).abs().max())
+    ms = median_ms(lambda: mv.mosm_matvec_reduce(part, n), reps=reps)
+    pms = median_ms(lambda: mv.mosm_matvec_reduce_plain(part, n), reps=3, warmup=1)
+    bnd = bound(4 * (part.numel() + n * R), part.numel())
+    print("K-matvec-reduce %s N=%d R=%d (%d slab slots of 128 rows, %.2f GB): vs twin %.3e (exact: "
+          "%s), kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+          % ((label, n, R, part.shape[0] // mv.FOLD_TILE, 4e-9 * part.numel(), err,
+              torch.equal(got, twin), ms, pms) + bnd))
+    if not torch.equal(got, twin):
+        fail("K-matvec-reduce (%s) differs from its plain twin" % label)
+    del part
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
 
 
 def lowrank_vjp_check(bm, x, counts, params, twopi, st3, st2, A, Bm, label, reps=10,
@@ -1335,6 +1399,16 @@ def check_matvec(gpr, X, Y, dev):
             for label, xx, cc, VV in (("channel-sorted", x, c, V),
                                       ("permuted", xp, cp, V[perm].contiguous())):
                 matvec_check(mv, mg, xx, cc, st3, st2, VV, label, reps=5)
+                if R <= 33:   # the two designs side by side: the fold, and the FFMA kernel
+                    fold, ffma = in_turns(
+                        lambda: mv.mosm_matvec(xx, cc, st3, st2, VV),
+                        lambda: mv.mosm_gram_matvec_pairstats(xx, cc, xx, cc, st3, st2, VV))
+                    part = mv.fold_partials(xx, cc, st3, st2, VV)
+                    red = median_ms(lambda: mv.mosm_matvec_reduce(part, n), reps=5)
+                    del part
+                    print("K-matvec designs (%s, R=%d): the fold %.3f ms (of it K-matvec-reduce "
+                          "%.3f), FFMA (K-gram-matvec's kernel, unfolded) %.3f ms"
+                          % (label, R, fold, red, ffma))
                 if R == 33:
                     lms = median_ms(lambda: torch.matmul(mg.mosm_gram(xx, cc, xx, cc, st3, st2), VV),
                                     reps=5)
@@ -1368,8 +1442,10 @@ def drive_iterative_training(gpr, dev, smi):
     with torch.no_grad():
         st3, st2 = bm.mosm_pair_stats(*model.kernel._params(), model.kernel.twopi)
         V = torch.as_tensor(np.random.RandomState(8).randn(n, R), dtype=torch.float32, device=dev)
-        err, ms, pms, bnd = matvec_check(mv, mg, lay["x"], lay["c"], st3, st2, V,
-                                         "training shape", reps=5)
+        err, ms, pms, bnd, bnd32 = matvec_check(mv, mg, lay["x"], lay["c"], st3, st2, V,
+                                                "training shape", reps=5)
+        reduce_entry = matvec_reduce_check(mv, lay["x"], lay["c"], st3, st2, V, "training shape",
+                                           reps=5)
 
         def library():
             K = mg.mosm_gram(lay["x"], lay["c"], lay["x"], lay["c"], st3, st2)
@@ -1379,7 +1455,8 @@ def drive_iterative_training(gpr, dev, smi):
 
         lms = median_ms(library, reps=3, warmup=1)
         print("library: K-gram %dx%d + torch.matmul (R=%d) %.3f ms" % (n, n, R, lms))
-        entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None, yardstick_ms=lms,
+                     bound=bnd, bound_fp32=bnd32)
         # K-lowrank-vjp at this shape (the step's backward: A, B of 1 + P columns)
         Am, Bm = V[:, :1 + model.num_probes].contiguous(), V[:, -1 - model.num_probes:].contiguous()
         params = [p.detach() for p in model.kernel._params()]
@@ -1416,18 +1493,20 @@ def drive_iterative_training(gpr, dev, smi):
     torch.cuda.empty_cache()
     if "--profile" in sys.argv[1:]:
         profile_step(model)
-    counters = {"mosm_matvec": mv.mosm_matvec, "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted,
+    counters = {"mosm_matvec": mv.mosm_matvec, "mosm_matvec_reduce": mv.mosm_matvec_reduce,
+                "mosm_lowrank_vjp": bm.mosm_lowrank_vjp_sorted,
                 "mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd,
                 "mosm_gram_lower": bm.mosm_gram_sorted_lower, "s_panel": bc.s_panel,
                 "col_write": bc.col_write, "fused_cho_solve": fs.fused_cho_solve}
     want = {"mosm_matvec": (model.max_cg_iters, model.max_cg_iters),
+            "mosm_matvec_reduce": (model.max_cg_iters, model.max_cg_iters),
             "mosm_lowrank_vjp": (1, 1), "mosm_gram": (model.precond_rank, model.precond_rank),
             "mosm_gram_bwd": (0, 0), "mosm_gram_lower": (0, 0), "s_panel": (0, 0),
             "col_write": (0, 0), "fused_cho_solve": (0, 0)}
     launches = train_and_count(gpr, model, counters, want, loss1, "iterative", smi)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     print("iterative training: peak device memory %.2f GiB" % peak)
-    return entry, launches
+    return {"mosm_matvec": entry, "mosm_matvec_reduce": reduce_entry}, launches
 
 
 def first_step_parts(model, it):
@@ -2416,7 +2495,8 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
                       % ((label, how, n, R, d_k, d_t, tol, ms, pms, lms) + bnd))
                 if how == "sorted" and R == 33:
                     report["family_matvec"] = dict(max_abs_err=float((got - twin).abs().max()),
-                                                   ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+                                                   ms=ms, plain_ms=pms, library_ms=None,
+                                                   yardstick_ms=lms, bound=bnd)
                 del got, twin, ref
     for R in FAM_RANKS:
         A = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
@@ -2786,16 +2866,18 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
         ms = median_ms(lambda: bc.s_diag(buf, j, B))
         pms = median_ms(lambda: bc.s_diag_plain(buf, j, B))
         lms = median_ms(lambda: torch.addmm(buf[r0:r0 + B, r0:r0 + B], C, C.T, alpha=-1.0))
-        bnd = sdiag_bound(r0, B)
-        print("K-sdiag j=%d (r0=%d, B=%d, %d k chunks): max_abs_err %.3e, worst err/bound %.3f, "
-              "kernel %.3f ms, plain %.3f ms, cuBLAS addmm %.3f ms, bound %.3f ms (%s; the lower "
-              "triangle, which is all cholesky_ex reads)"
-              % ((j, r0, B, -(-r0 // bc.SDIAG_K_CHUNK), err, worst, ms, pms, lms) + bnd))
+        bnd, bnd32 = sdiag_bound(r0, B)
+        print("K-sdiag j=%d (r0=%d, B=%d, %d lower tiles x %d k chunks): max_abs_err %.3e, worst "
+              "err/bound %.3f, kernel %.3f ms, plain %.3f ms, cuBLAS addmm %.3f ms, bound %.3f ms "
+              "(%s, 3xTF32; FP32 %.3f ms; the lower triangle, which is all cholesky_ex reads)"
+              % ((j, r0, B, len(bc.sdiag_tiles(B)), bc.sdiag_plan(r0, B), err, worst, ms, pms, lms)
+                 + bnd + bnd32[:1]))
         if not worst <= 1.0:
             fail("K-sdiag disagrees with its plain twin beyond the summation bound")
         if not torch.equal(bc.s_diag(buf, j, B), got):
             fail("a repeated K-sdiag gave another result")
-        report["s_diag"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+        report["s_diag"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd,
+                                bound_fp32=bnd32)
 
         # the panel step as the factorization takes it (the noise is in K)
         Ljj = torch.linalg.cholesky(ref).contiguous()
@@ -2819,7 +2901,8 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
               % ((j, rows, r0, tr, rows // tr, err, worst, ms, pms, lms) + bnd))
         if not worst <= 1.0 or not untouched:
             fail("K-below-trsm disagrees with its plain twin or wrote outside column j's rows below")
-        report["below_trsm"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+        report["below_trsm"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
+                                    yardstick_ms=lms, bound=bnd)
 
         for zero_upper in (True, False):
             L1, L2 = buf.clone(), buf.clone()
@@ -2844,7 +2927,10 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
                   % ((j, zero_upper, err, exact, ms, pms, lms) + bnd))
             if not exact:
                 fail("K-commit is not an exact copy of its plain twin")
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
+            # zeroing the strip too takes a second call: a yardstick, not one library call
+            entry = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         library_ms=None if zero_upper else lms,
+                         yardstick_ms=lms if zero_upper else None, bound=bnd)
             report["col_commit" if zero_upper else "col_commit (zero_upper=False)"] = entry
         del buf, A, Kb, C
 
@@ -2865,14 +2951,17 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
                    for i in range(n // B))
         del got, ref, again
         ms = median_ms(lambda: bt.syrk_lower(W, B), reps=5)
-        # the plain twin is the port's torch.matmul row-block loop, which is
-        # also the library yardstick: timed once, reported as both
-        pms = lms = median_ms(lambda: bt.syrk_lower_plain(W, B), reps=5)
+        # the plain twin is the port's torch.matmul row-block loop; the
+        # library yardstick is the one call W.mT @ W, which computes the
+        # whole of WᵀW, a superset of the block-lower half
+        pms = median_ms(lambda: bt.syrk_lower_plain(W, B), reps=5)
+        lms = median_ms(lambda: W.mT @ W, reps=5)
         # W's lower triangle read once, the block-lower output written once
         bnd = bound(4 * (n * (n + 1) // 2 + n * (n + B) // 2), syrk_ops(n, B))
         print("K-syrk n=%d, block %d: max_abs_err %.3e, worst err/bound %.3f (2(n+1)u‖W_a‖‖W_b‖), "
-              "repeat bit-identical: %s, kernel %.3f ms, plain twin = library (the torch.matmul "
-              "row-block loop) %.3f ms, bound %.3f ms (%s)" % ((n, B, err, worst, same, ms, pms) + bnd))
+              "repeat bit-identical: %s, kernel %.3f ms, plain twin (the torch.matmul row-block "
+              "loop) %.3f ms, W.mT @ W (one call, the whole product) %.3f ms, bound %.3f ms (%s)"
+              % ((n, B, err, worst, same, ms, pms, lms) + bnd))
         if not worst <= 1.0 or not same:
             fail("K-syrk disagrees with its plain twin or is not bit-identical when repeated")
         report["syrk_lower"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
@@ -2906,13 +2995,82 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
     return report
 
 
+def check_factor_repairs(gpr, bm, bc, X, Y, dev, smi):
+    """Phase 22: the blocked factor's two repairs, each against
+    torch.linalg.cholesky in float64 of the same float32 input on the card,
+    finite and within κu of max|L|. The width: a forced blocked factor
+    (gpr.use_blocked_cholesky(True), block 512) at n = 300 through
+    ops/linalg.cholesky, the route the models take, which factors one
+    320-wide panel on the kernels. The range: the bench model's noisy Gram
+    times 2¹⁰⁰ (diag ~ 4e30, past the 3xTF32 kernels' ~7.9e28 without the
+    range scale), unfused and fused, timed beside the in-range factor, and
+    its rows beside those of the in-range factor of the same route times
+    2⁵⁰."""
+    import torch
+    from mogptk_tpu_torch.ops import linalg as la
+    model = bench_model(gpr, X, Y, dev, None)
+    with torch.no_grad():
+        c, x = model.kernel._split(model.X)
+        K = bm.mosm_gram_sorted(x, model._channel_counts, *model.kernel._params(),
+                                model.kernel.twopi)
+        K.diagonal().add_(model._noise_diag(add_jitter=True))
+        del model
+        Ks = K[:300, :300].contiguous()
+        saved = (gpr.config.blocked_cholesky, gpr.config.blocked_cholesky_block)
+        gpr.use_blocked_cholesky(True, block_size=512)
+        try:
+            counts = (bc.s_panel.launches, bc.col_write.launches)
+            L = la.cholesky(Ks.clone())
+            counts = (bc.s_panel.launches - counts[0], bc.col_write.launches - counts[1])
+        finally:
+            gpr.config.blocked_cholesky, gpr.config.blocked_cholesky_block = saved
+        ref = torch.linalg.cholesky(Ks.double())
+        err = float((torch.tril(L).double() - ref).abs().max())
+        lim = KAPPA_U * float(ref.abs().max())
+        B, npad = bc.factor_plan(300, 512, True)
+        print("forced blocked factor n=300 (panel %d, padded to %d; K-spanel %d, K-colwrite %d "
+              "launches): finite %s, vs float64 %.3e (limit κu·max|L| %.3e)"
+              % (B, npad, counts[0], counts[1], bool(torch.isfinite(L).all()), err, lim))
+        if counts != (1, 1) or not bool(torch.isfinite(L).all()) or not err <= lim:
+            fail("the forced blocked factor at n=300 did not run on the kernels or is off float64")
+        del L, ref, Ks
+
+        big = 2.0 ** 100
+        Kb = K * big
+        sc = bc.range_scale(Kb.diagonal())
+        ref = torch.linalg.cholesky(Kb.double())
+        lim = KAPPA_U * float(ref.abs().max())
+        t_in = median_ms(lambda: bc.blocked_cholesky(K.clone(), 512), reps=3, warmup=1)
+        for fused in (False, True):
+            Lin = torch.tril(bc.blocked_cholesky(K.clone(), 512, fused_trsm=fused))
+            L = torch.tril(bc.blocked_cholesky(Kb.clone(), 512, fused_trsm=fused))
+            t = median_ms(lambda: bc.blocked_cholesky(Kb.clone(), 512, fused_trsm=fused), reps=3,
+                          warmup=1)
+            err = float((L.double() - ref).abs().max())
+            rows = float((L - Lin * 2.0 ** 50).abs().max()) / 2.0 ** 50
+            print("factor of the bench Gram times 2^100 (max diag %.3e, range scale s = 2^%d), %s: "
+                  "finite %s, vs float64 %.3e (limit %.3e), max|L/2^50 − L(in range)| %.3e "
+                  "(max|L(in range)| %.3f), %.2f ms (in range, unfused, clone included: %.2f ms; %s)"
+                  % (float(Kb.diagonal().max()), int(np.log2(float(sc[0]))),
+                     "fused" if fused else "unfused", bool(torch.isfinite(L).all()), err, lim,
+                     rows, float(Lin.abs().max()), t, t_in, smi.stdout.strip().splitlines()[0]))
+            if not bool(torch.isfinite(L).all()) or not err <= lim:
+                fail("the factor of a Gram with diag ~ 1e30 is not finite or off float64 (%s)"
+                     % ("fused" if fused else "unfused"))
+            del L, Lin
+        del Kb, ref, K
+    torch.cuda.empty_cache()
+
+
 def sdiag_bound(r0, B):
-    """K-sdiag's bound at r0 = j·B: its consumers (the diagonal shift and
-    torch.linalg.cholesky_ex) read the lower triangle of S_jj only, so the
-    function is B(B+1)/2 elements of 2·r0 flops each, reading C and K's
-    lower triangle once and writing S_jj's once."""
+    """K-sdiag's (3xTF32 bound, FP32 bound) at r0 = j·B: its consumers (the
+    diagonal shift and torch.linalg.cholesky_ex) read the lower triangle of
+    S_jj only, so the function is B(B+1)/2 elements of 2·r0 flops each,
+    reading C and K's lower triangle once and writing S_jj's once; three
+    TF32 passes on the tensor cores, or FP32."""
     tri = B * (B + 1) // 2
-    return bound(4 * (B * r0 + 2 * tri), 2 * tri * r0)
+    nbytes, nops = 4 * (B * r0 + 2 * tri), 2 * tri * r0
+    return bound_tf32x3(nbytes, nops), bound(nbytes, nops)
 
 
 def sdiag_against_twin(bc, buf, j, B):

@@ -15,21 +15,28 @@ same process on the same inputs: the 4 x 4,096-point bench model of
 chip_smoke.py (K-gram over 16,384^2, 16,384 x 4,096 and the band-lower Gram;
 K-matvec at R = 33; K-gram-bwd's parameter half on a dense 16,384^2
 cotangent, its unrolled instance, the closed-form step's call) and K-matvec
-at benchmarks/bignum_exact.py's N = 65,536, R = 33. From blocked_cholesky.cu
+at benchmarks/bignum_exact.py's N = 65,536, R = 33 (a root with the fold,
+mosm_matvec_fold_f32, runs its first pass and its second pass
+mosm_matvec_reduce_f32; another its square-case entry mosm_matvec_f32).
+From fused_trsm.cu it times K-sdiag at every block column of the bench
+factor (a root with the 3xTF32 K-sdiag gets this root's sdiag_plan,
+another its 512-column k chunks). From blocked_cholesky.cu
 (with its root's headers: gemm_tile.cuh or gemm_tf32x3.cuh) it times
 K-spanel at every block column of the bench factor (N = 16,384, B = 512;
 one buffer holding the factor serves every column) and K-colwrite at
 j = 16 in both zero_upper forms (each side on its own copy of that
 buffer). A root whose K-spanel takes a split-K plan (`k_chunk`) gets this
 root's ops/blocked_cholesky.spanel_plan and, where it splits, its second
-pass s_panel_reduce_f32; another root gets the one-pass entry. --only
+pass s_panel_reduce_f32; another root gets the one-pass entry. A root
+whose entries take the factor's range scale gets null (scale 1). --only
 restricts the sources built and timed. A root whose kernels
 take an instance argument (`int generic`) gets 0, the unrolled instance;
-K-gram-bwd's input half is off (inputs = 0). Rounds
+K-gram-bwd's input half is off (inputs = 0). Every case runs once on
+each side, checked, before the timing. Rounds
 alternate which side runs first; each prints its CUDA-event medians (10
 calls, 5 at N = 65,536) per case and side, then the largest difference
-between the two sides' outputs. Prints the card's name and power limit
-first. Exits nonzero without CUDA or when a build fails.
+between the two sides' outputs and the old side's largest magnitude.
+Prints the card's name and power limit first. Exits nonzero without CUDA or when a build fails.
 """
 import ctypes
 import os
@@ -37,7 +44,8 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu")
+SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu",
+           "fused_trsm.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
 # instances with the input half are compiled from a file of their own)
 COMPANIONS = {"mosm_gram_bwd.cu": ("mosm_gram_bwd_inputs.cu",)}
@@ -49,10 +57,15 @@ def takes_instance(root):
         return "int generic" in f.read()
 
 
+def has(root, source, text):
+    """True when root's csrc/<source> contains text."""
+    with open(os.path.join(root, "mogptk_tpu_torch", "csrc", source)) as f:
+        return text in f.read()
+
+
 def splits_k(root):
     """True when root's K-spanel takes the split-K plan (k_chunk, part)."""
-    with open(os.path.join(root, "mogptk_tpu_torch", "csrc", "blocked_cholesky.cu")) as f:
-        return "k_chunk" in f.read()
+    return has(root, "blocked_cholesky.cu", "k_chunk")
 
 
 def build(root, out_dir, tag, nvcc, flags, sources=SOURCES):
@@ -98,6 +111,9 @@ def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
     del K
     lib = {side: libs[side]["blocked_cholesky.cu"] for side in libs}
     split = {side: splits_k(root) for side, root in roots.items()}
+    # the range scale's argument, null (scale 1), where root's entries take it
+    sc = {side: [P(None)] if has(root, "blocked_cholesky.cu", "const float* scale") else []
+          for side, root in roots.items()}
 
     def spanel(side, S, j):
         r0 = j * B
@@ -110,12 +126,12 @@ def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
                                              I64(B), P(stream))
             err = lib[side].s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()),
                                         P(None if part is None else part.data_ptr()), I64(n),
-                                        I64(r0), I64(B), I64(k_chunk), P(stream))
+                                        I64(r0), I64(B), I64(k_chunk), *sc[side], P(stream))
             if err or part is None:
                 return err
             return lib[side].s_panel_reduce_f32(P(Lb.data_ptr()), P(part.data_ptr()),
                                                 P(S.data_ptr()), I64(n), I64(r0), I64(B),
-                                                I64(splits), P(stream))
+                                                I64(splits), *sc[side], P(stream))
         return call
 
     cases = []
@@ -138,8 +154,35 @@ def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
             out = Lb.clone()
             calls[side] = ((lambda o, s: lambda: lib[s].col_write_f32(
                 P(o.data_ptr()), P(S.data_ptr()), P(Ljj.data_ptr()), P(inv.data_ptr()), I64(n),
-                I64(r0), I64(B), I32(zero_upper), P(stream)))(out, side), out)
+                I64(r0), I64(B), I32(zero_upper), *sc[side], P(stream)))(out, side), out)
         cases.append(("K-colwrite j=%d zero_upper=%d" % (j, zero_upper), "blocked_cholesky.cu", 10,
+                      calls))
+    return cases
+
+
+def sdiag_cases(libs, roots, Lb, bc, stream):
+    """K-sdiag at every block column j > 0 of the bench factor (N = 16,384,
+    B = 512) on the factor's buffer: a root with the 3xTF32 kernel takes
+    this root's sdiag_plan and null for the range scale, another its
+    512-column k chunks."""
+    import torch
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    n, B = Lb.shape[0], 512
+    lib = {side: libs[side]["fused_trsm.cu"] for side in libs}
+    tf32 = {side: has(root, "fused_trsm.cu", "gemm_tf32x3.cuh") for side, root in roots.items()}
+    cases = []
+    for j in range(1, n // B):
+        r0 = j * B
+        calls = {}
+        for side in libs:
+            splits = bc.sdiag_plan(r0, B) if tf32[side] else -(-r0 // 512)
+            part = torch.empty((splits, B, B), device=Lb.device)
+            out = torch.zeros((B, B), device=Lb.device)
+            extra = [I64(splits), P(None)] if tf32[side] else [I64(512)]
+            calls[side] = ((lambda l, p, o, k, e: lambda: l.s_diag_f32(
+                P(Lb.data_ptr()), P(p.data_ptr()), P(o.data_ptr()), I64(n), I64(k), I64(B), *e,
+                P(stream)))(lib[side], part, out, r0, extra), out)
+        cases.append(("K-sdiag j=%d (plan %d)" % (j, bc.sdiag_plan(r0, B)), "fused_trsm.cu", 10,
                       calls))
     return cases
 
@@ -168,7 +211,7 @@ def main():
     import chip_smoke as cs
     import mogptk_tpu_torch.gpr as gpr
     from mogptk_tpu_torch.ops import _build, block_mosm as bm, blocked_cholesky as bc
-    from mogptk_tpu_torch.ops import mosm_gram as mg
+    from mogptk_tpu_torch.ops import mosm_gram as mg, mosm_matvec as mv
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
@@ -216,10 +259,23 @@ def main():
                                                *tail)
 
     def matvec(lib, out, xx, cc, VV):
-        tail = inst[side_of[id(lib)]] + [P(stream)]
-        return lambda: lib.mosm_matvec_f32(ptr(xx), ptr(cc), ptr(stats), ptr(VV), ptr(out),
-                                           I64(xx.shape[0]), I32(VV.shape[1]), I32(O), I32(Q),
-                                           I32(D), *tail)
+        side = side_of[id(lib)]
+        tail = inst[side] + [P(stream)]
+        N, R = xx.shape[0], VV.shape[1]
+        if not has(roots[side], "mosm_matvec.cu", "mosm_matvec_fold_f32"):
+            return lambda: lib.mosm_matvec_f32(ptr(xx), ptr(cc), ptr(stats), ptr(VV), ptr(out),
+                                               I64(N), I32(R), I32(O), I32(Q), I32(D), *tail)
+        nb, _ = mv.fold_group(N, R)
+        items = torch.as_tensor(mv.fold_items(N), device=dev)
+        part = torch.empty((mv.fold_slab_base(*mv.fold_tiles(N)) * mv.FOLD_TILE, R), device=dev)
+
+        def call():
+            err = lib.mosm_matvec_fold_f32(ptr(xx), ptr(cc), ptr(stats), ptr(VV), ptr(items),
+                                           I64(items.shape[0]), ptr(part), I64(N), I32(R),
+                                           I32(nb), I32(O), I32(Q), I32(D), *tail)
+            return err or lib.mosm_matvec_reduce_f32(ptr(part), ptr(out), I64(N), I32(R),
+                                                     P(stream))
+        return call
 
     # K-gram-bwd on the bench model's sorted Gram: channels of 4,096 rows,
     # so the maps are the identity and g is read in place
@@ -241,6 +297,14 @@ def main():
     cases = []   # (name, source, reps, {side: (call, output)})
     if all("blocked_cholesky.cu" in l for l in libs.values()):
         cases += cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream)
+    if all("fused_trsm.cu" in l for l in libs.values()):
+        counts = tuple(int(k) for k in torch.bincount(c.long(), minlength=O).tolist())
+        with torch.no_grad():
+            Kb = bm.mosm_gram_sorted(x, counts, *kernel._params(), kernel.twopi)
+            Kb.diagonal().add_(0.1)   # the bench model's noise variance
+            Lb = torch.linalg.cholesky(Kb)
+        del Kb
+        cases += sdiag_cases(libs, roots, Lb, bc, stream)
     gram_cases = (("K-gram %dx%d" % (n, n), (n, n), lambda lib, o: gram(lib, o, x, c)),
                   ("K-gram %dx%d" % (n, xq.shape[0]), (n, xq.shape[0]),
                    lambda lib, o: gram(lib, o, xq, cq)),
@@ -260,6 +324,13 @@ def main():
                 side: (lambda o: (matvec(libs[side]["mosm_matvec.cu"], o, xx, cc, VV), o))(
                     torch.empty_like(VV)) for side in libs}))
 
+    for name, src, _, calls in cases:   # one checked call of each first, in order
+        for side in ("old", "new"):
+            err = calls[side][0]()
+            torch.cuda.synchronize()
+            if err:
+                raise RuntimeError("%s (%s) returned CUDA error %d" % (name, side, err))
+        print("checked %s" % name, flush=True)
     times = {}
     for r in range(rounds):
         order = ["old", "new"] if r % 2 == 0 else ["new", "old"]
@@ -273,10 +344,10 @@ def main():
                 raise RuntimeError("%s (%s) returned CUDA error %d" % (src, side, err))
         torch.cuda.synchronize()
         old, new = calls["old"][1], calls["new"][1]
-        print("%s: old %s ms, new %s ms; max|old - new| %.3e"
+        print("%s: old %s ms, new %s ms; max|old - new| %.3e (max|old| %.3e)"
               % (name, " ".join("%.3f" % t for t in times[(name, "old")]),
                  " ".join("%.3f" % t for t in times[(name, "new")]),
-                 float((old - new).abs().max())))
+                 float((old - new).abs().max()), float(old.abs().max())))
     return 0
 
 

@@ -14,8 +14,14 @@
 // the sums themselves stay in FP32. The operands are scaled by 2^16 before
 // the split and the sums by 2^-32 after, so products that FP32 keeps as
 // subnormals are not flushed by the tensor cores (gemm_tf32x3.cuh, "Range":
-// the sums of |products| must stay below ~7.9e28, max diag(K) for the
-// factor). The tiles are 128 x 128; the column
+// the sums of |products| must stay below ~7.9e28). Every entry point takes
+// the factor's range scale `scale` (device memory, [s, r, 1/r], or null for
+// 1): K-spanel forms s K - (r L)(r L)^T, the scaled S, K-colwrite writes
+// the rows below from the scaled S and the scaled panel inverse times 1/r
+// and copies the scaled Ljj times 1/r, so the buffer always holds the true
+// L and every tensor-core sum stays below max diag(s K) <= 1 once max
+// diag(K) passes 2^64 (ops/blocked_cholesky.range_scale). With s = r = 1
+// every operation is the unscaled one. The tiles are 128 x 128; the column
 // tiles of one row block are adjacent in the launch order, so X's row block
 // comes from DRAM once and from L2 after that.
 //
@@ -71,7 +77,7 @@ using tf32x3::THREADS;
 __global__ void __launch_bounds__(THREADS, 1)
 s_panel_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ L,
                float* __restrict__ S, float* __restrict__ part, int64_t n, int64_t r0, int64_t B,
-               int64_t k_chunk) {
+               int64_t k_chunk, const float* __restrict__ scale) {
     extern __shared__ uint8_t smem_raw[];
     const int64_t m = n - r0;
     const int64_t tiles_b = (B + BN - 1) / BN, tiles_m = (m + BM - 1) / BM;
@@ -82,8 +88,10 @@ s_panel_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict_
     const int nslices = (int)((kend - kbeg + BK - 1) / BK);
     float acc[64];
     if (!tf32x3::mainloop(&map, &map, (int)(r0 + row0), (int)(r0 + col0), (int)kbeg, nslices,
+                          tf32x3::PRESCALE * tf32x3::scale_at(scale, 1),
                           tf32x3::aligned_smem(smem_raw), acc))
         return;
+    const float s = tf32x3::scale_at(scale, 0);
     const int64_t c0 = col0 + tf32x3::col_of();
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -99,7 +107,7 @@ s_panel_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict_
                 if (part != nullptr)
                     part[(z * m + r) * B + c] = v;
                 else
-                    S[r * B + c] = L[(r0 + r) * n + r0 + c] - v;
+                    S[r * B + c] = L[(r0 + r) * n + r0 + c] * s - v;
             }
         }
     }
@@ -107,29 +115,33 @@ s_panel_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict_
 
 __global__ void __launch_bounds__(256)
 s_panel_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part,
-                      float* __restrict__ S, int64_t n, int64_t r0, int64_t B, int64_t splits) {
+                      float* __restrict__ S, int64_t n, int64_t r0, int64_t B, int64_t splits,
+                      const float* __restrict__ scale) {
     const int64_t m = n - r0, total = m * B;
+    const float sc = tf32x3::scale_at(scale, 0);
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
         float s = part[e];
         for (int64_t z = 1; z < splits; ++z) s += part[z * total + e];
-        S[e] = L[(r0 + e / B) * n + r0 + e % B] - s;
+        S[e] = L[(r0 + e / B) * n + r0 + e % B] * sc - s;
     }
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 col_write_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constant__ CUtensorMap map_inv,
                  float* __restrict__ L, const float* __restrict__ Ljj, int64_t n, int64_t r0,
-                 int64_t B, int zero_upper, int64_t n_gemm) {
+                 int64_t B, int zero_upper, int64_t n_gemm, const float* __restrict__ scale) {
     extern __shared__ uint8_t smem_raw[];
+    const float unscale = tf32x3::scale_at(scale, 2);
     const int64_t below = n - r0 - B;   // rows below the diagonal block; also the strip's width
     if ((int64_t)blockIdx.x < n_gemm) {
         const int64_t tiles_b = (B + BN - 1) / BN;
         const int64_t col0 = (blockIdx.x % tiles_b) * BN, row0 = (blockIdx.x / tiles_b) * BM;
         float acc[64];
         if (!tf32x3::mainloop(&map_s, &map_inv, (int)row0, (int)col0, 0, (int)((B + BK - 1) / BK),
-                              tf32x3::aligned_smem(smem_raw), acc))
+                              tf32x3::PRESCALE, tf32x3::aligned_smem(smem_raw), acc))
             return;
+        const float post = tf32x3::POSTSCALE * unscale;
         const int64_t c0 = col0 + tf32x3::col_of();
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -141,7 +153,7 @@ col_write_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constan
 #pragma unroll
                 for (int e = 0; e < 2; ++e) {
                     const int64_t c = c0 + 8 * i + e;
-                    if (c < B) dst[c] = acc[4 * i + 2 * h + e] * tf32x3::POSTSCALE;
+                    if (c < B) dst[c] = acc[4 * i + 2 * h + e] * post;
                 }
             }
         }
@@ -157,8 +169,12 @@ col_write_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constan
     for (int64_t e = ((int64_t)blockIdx.x - n_gemm) * THREADS + threadIdx.x; e < total; e += stride) {
         if (e < diag) {
             const int64_t r = e / b4, c = (e % b4) * 4;
-            *reinterpret_cast<float4*>(L + (r0 + r) * n + r0 + c) =
-                *reinterpret_cast<const float4*>(Ljj + r * B + c);
+            float4 v = *reinterpret_cast<const float4*>(Ljj + r * B + c);
+            v.x *= unscale;
+            v.y *= unscale;
+            v.z *= unscale;
+            v.w *= unscale;
+            *reinterpret_cast<float4*>(L + (r0 + r) * n + r0 + c) = v;
         } else {
             const int64_t f = e - diag, r = f / w4, c = (f % w4) * 4;
             *reinterpret_cast<float4*>(L + (r0 + r) * n + r0 + B + c) = zero;
@@ -171,7 +187,7 @@ constexpr int64_t SMS = 132;   // the H100 SXM's: the copy CTAs fill the card on
 }  // namespace
 
 extern "C" int s_panel_f32(const float* L, float* S, float* part, int64_t n, int64_t r0, int64_t B,
-                           int64_t k_chunk, cudaStream_t stream) {
+                           int64_t k_chunk, const float* scale, cudaStream_t stream) {
     const int64_t m = n - r0;
     if (m <= 0 || B <= 0) return 0;
     int64_t splits = 1;
@@ -189,22 +205,24 @@ extern "C" int s_panel_f32(const float* L, float* S, float* part, int64_t n, int
     if (err) return err;
     const int64_t blocks = ((m + BM - 1) / BM) * ((B + BN - 1) / BN) * splits;
     s_panel_kernel<<<(unsigned)blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(
-        map, L, S, splits > 1 ? part : nullptr, n, r0, B, splits > 1 ? k_chunk : r0);
+        map, L, S, splits > 1 ? part : nullptr, n, r0, B, splits > 1 ? k_chunk : r0, scale);
     return (int)cudaGetLastError();
 }
 
 extern "C" int s_panel_reduce_f32(const float* L, const float* part, float* S, int64_t n,
-                                  int64_t r0, int64_t B, int64_t splits, cudaStream_t stream) {
+                                  int64_t r0, int64_t B, int64_t splits, const float* scale,
+                                  cudaStream_t stream) {
     const int64_t total = (n - r0) * B;
     if (total <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
     int64_t blocks = (total + 255) / 256;
     if (blocks > 8 * SMS) blocks = 8 * SMS;
-    s_panel_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(L, part, S, n, r0, B, splits);
+    s_panel_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(L, part, S, n, r0, B, splits,
+                                                                scale);
     return (int)cudaGetLastError();
 }
 
 extern "C" int col_write_f32(float* L, const float* S, const float* Ljj, const float* inv,
-                             int64_t n, int64_t r0, int64_t B, int zero_upper,
+                             int64_t n, int64_t r0, int64_t B, int zero_upper, const float* scale,
                              cudaStream_t stream) {
     const int64_t m = n - r0;
     if (m <= 0 || B <= 0 || B % 64 != 0 || n % 4 != 0) return (int)cudaErrorInvalidValue;
@@ -225,7 +243,7 @@ extern "C" int col_write_f32(float* L, const float* S, const float* Ljj, const f
     const int err = tf32x3::allow_smem(col_write_kernel);
     if (err) return err;
     col_write_kernel<<<(unsigned)(n_gemm + n_copy), THREADS, tf32x3::SMEM_BYTES, stream>>>(
-        map_s, map_inv, L, Ljj, n, r0, B, zero_upper, n_gemm);
+        map_s, map_inv, L, Ljj, n, r0, B, zero_upper, n_gemm, scale);
     return (int)cudaGetLastError();
 }
 

@@ -9,16 +9,23 @@
 //
 // s_diag_f32 replaces mogptk_tpu/ops/blocked_cholesky.py _s_diag_pallas
 // (pallas_call at :414, body _s_diag_kernel at :391):
-//   S_jj (B x B) = K[r0:r0+B, r0:r0+B] - C . C^T,  C = L[r0:r0+B, :r0].
-//   Bound: operations, B*(B+1)*r0 flops for the lower triangle, all that the
-//   panel factor reads (2.1 GFLOP, 0.032 ms at j = 16 of the N = 16,384
-//   factor); this kernel computes the whole square, twice that.
-//   One B x B output is only (B/64)^2 = 64 tiles of 64^2,
-//   which cannot fill 132 SMs over a k of up to 15,872: the k range is split
-//   into chunks of k_chunk columns, one block per (tile, chunk), each writing
-//   its partial product to a scratch slab; a second kernel sums the slabs in
-//   a fixed order (no atomics, so repeats are bit-identical) and subtracts
-//   the sum from the K block. The TPU kernel ran the k chunks as a
+//   S_jj (B x B) = s K[r0:r0+B, r0:r0+B] - (r C) . (r C)^T,  C = L[r0:r0+B, :r0],
+//   with the factor's range scale [s, r, 1/r] (1 without one; see
+//   blocked_cholesky.cu). Bound: operations, B*(B+1)*r0 flops for the lower
+//   triangle, all that the panel factor reads (2.1 GFLOP at j = 16 of the
+//   N = 16,384 factor: 0.032 ms at the FP32 peak, 0.013 ms for three TF32
+//   passes). Design: the product runs on gemm_tf32x3.cuh's 3xTF32 wgmma
+//   mainloop (TMA ring, big/small split, 2^16 prescale), as K-spanel's, on
+//   the lower 128 x 128 tiles only: 10 of the 16 at B = 512, 3 of 4 at
+//   B = 256. Ten tiles cannot fill 132 SMs, and k runs up to 15,872, so the
+//   wrapper's plan (ops/blocked_cholesky.sdiag_plan) cuts k into `splits`
+//   chunks of whole 32-deep slices, one CTA per (tile, chunk), each writing
+//   its raw partial tile to slab z of `part`. A second kernel sums the
+//   slabs in a fixed order (no atomics, so repeats are bit-identical) and
+//   subtracts the sum from s K_jj; in the strict upper triangle the product
+//   is the mirror of the lower one's (C . C^T is symmetric), transposed
+//   through 32 x 32 tiles in shared memory, so the output is the full
+//   S_jj, symmetric where K_jj is. The TPU kernel ran the k chunks as a
 //   sequential grid axis with the sum in VMEM.
 //
 // below_trsm_f32 replaces _below_trsm_pallas (pallas_call at :465, body
@@ -54,44 +61,85 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gemm_tile.cuh"
+#include "gemm_tf32x3.cuh"
 
 namespace {
 
 // -- K-sdiag ------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
-s_diag_partial_kernel(const float* __restrict__ L, float* __restrict__ part, int64_t n, int64_t r0,
-                      int64_t B, int64_t k_chunk) {
-    __shared__ float As[BK][BM + PAD];
-    __shared__ float Bs[BK][BN + PAD];
-    const int64_t k0 = (int64_t)blockIdx.z * k_chunk;
-    const int64_t klen = (r0 - k0 < k_chunk) ? r0 - k0 : k_chunk;
-    const float* C = L + r0 * n + k0;  // C[:, k0:k0+klen], leading dim n
-    const int64_t row0 = (int64_t)blockIdx.y * BM, col0 = (int64_t)blockIdx.x * BN;
-    float acc[4][4];
-    gemm_nt_tile(C, n, B, C, n, B, klen, row0, col0, acc, As, Bs);
-    float* out = part + (int64_t)blockIdx.z * B * B;
-    const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-    for (int i = 0; i < 4; ++i) {
-        const int64_t r = row0 + ty * 4 + i;
+// One CTA per (lower tile, k chunk): tile t of the lower triangle in
+// row-major order, chunk z of `splits` over the r0/32 slices of k.
+__global__ void __launch_bounds__(tf32x3::THREADS, 1)
+s_diag_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ part, int64_t r0,
+              int64_t B, int64_t splits, int tiles, const float* __restrict__ scale) {
+    extern __shared__ uint8_t smem_raw[];
+    const int t = (int)(blockIdx.x % tiles);
+    const int64_t z = blockIdx.x / tiles;
+    int ti = 0;
+    while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
+    const int tj = t - ti * (ti + 1) / 2;
+    const int64_t row0 = (int64_t)ti * tf32x3::BM, col0 = (int64_t)tj * tf32x3::BN;
+    const int64_t slices = (r0 + tf32x3::BK - 1) / tf32x3::BK;
+    const int64_t s0 = z * slices / splits, s1 = (z + 1) * slices / splits;
+    float acc[64];
+    if (!tf32x3::mainloop(&map, &map, (int)(r0 + row0), (int)(r0 + col0), (int)(s0 * tf32x3::BK),
+                          (int)(s1 - s0), tf32x3::PRESCALE * tf32x3::scale_at(scale, 1),
+                          tf32x3::aligned_smem(smem_raw), acc))
+        return;
+    float* out = part + z * B * B;
+    const int64_t c0 = col0 + tf32x3::col_of();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int64_t r = row0 + tf32x3::row_of(h);
         if (r >= B) continue;
-        for (int j = 0; j < 4; ++j) {
-            const int64_t c = col0 + tx * 4 + j;
-            if (c < B) out[r * B + c] = acc[i][j];
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int64_t c = c0 + 8 * i + e;
+                if (c < B) out[r * B + c] = acc[4 * i + 2 * h + e] * tf32x3::POSTSCALE;
+            }
         }
     }
 }
 
-__global__ void s_diag_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part,
-                                     float* __restrict__ out, int64_t n, int64_t r0, int64_t B,
-                                     int splits) {
-    const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (e >= B * B) return;
-    float s = 0.0f;
-    for (int z = 0; z < splits; ++z) s += part[(int64_t)z * B * B + e];  // fixed order
-    const int64_t r = e / B, c = e % B;
-    out[e] = L[(r0 + r) * n + r0 + c] - s;
+// Output tile (blockIdx.y, blockIdx.x) of 32 x 32: the product of its
+// lower partner tile (the tile itself on and below the diagonal) summed
+// over the chunks in order into shared memory, then subtracted, as it is or
+// transposed, from s K at the output position; on a diagonal tile the
+// strict upper takes the lower's product.
+__global__ void __launch_bounds__(256)
+s_diag_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part,
+                     float* __restrict__ out, int64_t n, int64_t r0, int64_t B, int64_t splits,
+                     const float* __restrict__ scale) {
+    __shared__ float tile[32][33];
+    const int64_t tr = blockIdx.y, tc = blockIdx.x;
+    const int64_t lr = tr > tc ? tr : tc, lc = tr > tc ? tc : tr;
+    const float s = tf32x3::scale_at(scale, 0);
+    const int x = threadIdx.x % 32, y = threadIdx.x / 32;
+    for (int i = y; i < 32; i += 8) {
+        const int64_t r = lr * 32 + i, c = lc * 32 + x;
+        if (r < B && c < B) {
+            const int64_t e = r * B + c;
+            float acc = part[e];
+            for (int64_t z = 1; z < splits; ++z) acc += part[z * B * B + e];   // fixed order
+            tile[i][x] = acc;
+        }
+    }
+    __syncthreads();
+    for (int i = y; i < 32; i += 8) {
+        const int64_t r = tr * 32 + i, c = tc * 32 + x;
+        if (r < B && c < B) {
+            float p;
+            if (tr > tc)
+                p = tile[i][x];
+            else if (tr < tc)
+                p = tile[x][i];
+            else
+                p = i >= x ? tile[i][x] : tile[x][i];
+            out[r * B + c] = L[(r0 + r) * n + r0 + c] * s - p;
+        }
+    }
 }
 
 // -- K-below-trsm ---------------------------------------------------------------
@@ -286,18 +334,25 @@ __global__ void col_commit_kernel(float* __restrict__ L, const float* __restrict
 
 }  // namespace
 
+// part holds `splits` (B, B) slabs; splits <= r0/32 (every chunk at least
+// one slice). The TMA copies need n a multiple of 4 and L on 16 bytes.
 extern "C" int s_diag_f32(const float* L, float* part, float* out, int64_t n, int64_t r0, int64_t B,
-                          int64_t k_chunk, cudaStream_t stream) {
-    if (r0 <= 0 || B <= 0 || r0 + B > n || k_chunk <= 0 || k_chunk % BK != 0)
+                          int64_t splits, const float* scale, cudaStream_t stream) {
+    const int64_t slices = (r0 + tf32x3::BK - 1) / tf32x3::BK;
+    if (r0 <= 0 || B <= 0 || r0 + B > n || n % 4 || splits < 1 || splits > slices)
         return (int)cudaErrorInvalidValue;
-    const int64_t splits = (r0 + k_chunk - 1) / k_chunk;
-    dim3 grid((unsigned)((B + BN - 1) / BN), (unsigned)((B + BM - 1) / BM), (unsigned)splits);
-    s_diag_partial_kernel<<<grid, THREADS, 0, stream>>>(L, part, n, r0, B, k_chunk);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int64_t elems = B * B;
-    s_diag_reduce_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, stream>>>(L, part, out, n, r0, B,
-                                                                            (int)splits);
+    CUtensorMap map;
+    int err = tf32x3::make_map(&map, L, r0, n, n);   // L[:, :r0]: k past r0 reads as zero
+    if (!err) err = tf32x3::allow_smem(s_diag_kernel);
+    if (err) return err;
+    const int64_t t1 = (B + tf32x3::BM - 1) / tf32x3::BM;
+    const int tiles = (int)(t1 * (t1 + 1) / 2);
+    s_diag_kernel<<<(unsigned)(tiles * splits), tf32x3::THREADS, tf32x3::SMEM_BYTES, stream>>>(
+        map, part, r0, B, splits, tiles, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((unsigned)((B + 31) / 32), (unsigned)((B + 31) / 32));
+    s_diag_reduce_kernel<<<grid, 256, 0, stream>>>(L, part, out, n, r0, B, splits, scale);
     return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,6 @@
 // The 3xTF32 tensor-core GEMM mainloop of the blocked Cholesky kernels
-// (blocked_cholesky.cu's K-spanel and K-colwrite), for Hopper (sm_90a).
+// (blocked_cholesky.cu's K-spanel and K-colwrite, fused_trsm.cu's K-sdiag),
+// for Hopper (sm_90a).
 //
 // One CTA computes a 128 x 128 tile of out = X . Y^T over a range of k, with
 // X (rows x k) and Y (cols x k) both k-contiguous (K-major, the only layout
@@ -37,6 +38,12 @@
 // normal on the tensor cores. In exchange the scaled operands and sums
 // must stay finite: |x| < 2^112 and sum_k |a_k.b_k| < 2^96 (~7.9e28); for
 // a Cholesky factor of K, sum_k |L_ik L_jk| <= max_i K_ii (Cauchy-Schwarz).
+// The blocked factor keeps its sums inside that range with a second, exact
+// power-of-two scale taken on the device from max diag(K) (ops/
+// blocked_cholesky.range_scale: a (3,) tensor [s, r, 1/r], s = r^2, all 1
+// below max diag 2^64): the callers pass `pre` = PRESCALE * r for operands
+// that are rows of the true factor, so the products are those of r L, and
+// scale K by s and their outputs by 1/r in the epilogues.
 //
 // Shared memory: STAGES x 64 KB (X big, X small, Y big, Y small, 16 KB
 // each, 1024-byte aligned as the swizzle needs) + the barriers: ~193 KB,
@@ -105,20 +112,20 @@ __device__ __forceinline__ float tf32_rna(float x) {
     return __uint_as_float(r);
 }
 
-// with x' = PRESCALE x: big = rna(x') over the tile in place, small =
+// with x' = pre x: big = rna(x') over the tile in place, small =
 // rna(x' - big) into `small`; elementwise, so the swizzled layout needs no
 // index arithmetic
-__device__ __forceinline__ void split_tile(uint8_t* big, uint8_t* small, int tid) {
+__device__ __forceinline__ void split_tile(uint8_t* big, uint8_t* small, int tid, float pre) {
     float4* b = reinterpret_cast<float4*>(big);
     float4* s = reinterpret_cast<float4*>(small);
 #pragma unroll
     for (int q = 0; q < TILE_BYTES / 16 / CONSUMERS; ++q) {
         const int i = tid + q * CONSUMERS;
         float4 v = b[i];
-        v.x *= PRESCALE;
-        v.y *= PRESCALE;
-        v.z *= PRESCALE;
-        v.w *= PRESCALE;
+        v.x *= pre;
+        v.y *= pre;
+        v.z *= pre;
+        v.w *= pre;
         float4 hi, lo;
         hi.x = tf32_rna(v.x); lo.x = tf32_rna(v.x - hi.x);
         hi.y = tf32_rna(v.y); lo.y = tf32_rna(v.y - hi.y);
@@ -168,15 +175,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 }
 
 // The mainloop. Every thread of the block calls it. Accumulates, from
-// zero, acc = PRESCALE^2 X[xrow : xrow+128, kbeg : kbeg+32*nslices] .
+// zero, acc = pre^2 X[xrow : xrow+128, kbeg : kbeg+32*nslices] .
 // Y[yrow : yrow+128, same k]^T (rows and k absolute coordinates of the
-// maps; the epilogues multiply by POSTSCALE). Returns false in the
+// maps; pre is PRESCALE times an exact power of two, and the epilogues
+// multiply by POSTSCALE). Returns false in the
 // producer warp, which has nothing left to do, and true in the consumer
 // threads, whose acc then holds the tile: acc[4i + 2h + e] is element
 // (row_of(h), 8i + col_of() + e).
 __device__ __forceinline__ bool mainloop(const CUtensorMap* mx, const CUtensorMap* my, int xrow,
-                                         int yrow, int kbeg, int nslices, uint8_t* smem,
-                                         float (&acc)[64]) {
+                                         int yrow, int kbeg, int nslices, float pre,
+                                         uint8_t* smem, float (&acc)[64]) {
     const uint32_t base = smem_u32(smem);
     const uint32_t full = base + BARRIERS, empty = full + STAGES * 8;
     const int tid = threadIdx.x;
@@ -211,8 +219,8 @@ __device__ __forceinline__ bool mainloop(const CUtensorMap* mx, const CUtensorMa
         const int st = s % STAGES;
         mbar_wait(full + 8 * st, (s / STAGES) & 1);
         uint8_t* stage = smem + st * STAGE_BYTES;
-        split_tile(stage + X_BIG, stage + X_SMALL, tid);
-        split_tile(stage + Y_BIG, stage + Y_SMALL, tid);
+        split_tile(stage + X_BIG, stage + X_SMALL, tid, pre);
+        split_tile(stage + Y_BIG, stage + Y_SMALL, tid, pre);
         // the split's generic stores before the tensor cores' reads
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
@@ -237,6 +245,12 @@ __device__ __forceinline__ bool mainloop(const CUtensorMap* mx, const CUtensorMa
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_acc(acc);
     return true;
+}
+
+// the range scale's entries (ops/blocked_cholesky.range_scale): K's factor
+// s = r^2, the operand factor r and the output factor 1/r; 1 without one
+__device__ __forceinline__ float scale_at(const float* scale, int i) {
+    return scale != nullptr ? scale[i] : 1.0f;
 }
 
 // tile row of a consumer thread's accumulators with h = 0 or 1, and the

@@ -46,14 +46,14 @@ _c_int = ctypes.c_int
 SIGNATURES = {
     # x1, c1, x2, c2, stats, out, N, M, O, Q, D, generic, stream
     "mosm_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64, _c_int, _c_int, _c_int, _c_int, _c_ptr],
-    # L, S, part, n, r0, B, k_chunk, stream
-    "s_panel_f32": [_c_ptr] * 3 + [_c_i64] * 4 + [_c_ptr],
-    # L, part, S, n, r0, B, splits, stream
-    "s_panel_reduce_f32": [_c_ptr] * 3 + [_c_i64] * 4 + [_c_ptr],
-    # L, S, Ljj, inv, n, r0, B, zero_upper, stream
-    "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
-    # L, part, out, n, r0, B, k_chunk, stream
-    "s_diag_f32": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_i64, _c_i64, _c_ptr],
+    # L, S, part, n, r0, B, k_chunk, scale, stream
+    "s_panel_f32": [_c_ptr] * 3 + [_c_i64] * 4 + [_c_ptr, _c_ptr],
+    # L, part, S, n, r0, B, splits, scale, stream
+    "s_panel_reduce_f32": [_c_ptr] * 3 + [_c_i64] * 4 + [_c_ptr, _c_ptr],
+    # L, S, Ljj, inv, n, r0, B, zero_upper, scale, stream
+    "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr, _c_ptr],
+    # L, part, out, n, r0, B, splits, scale, stream
+    "s_diag_f32": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_i64, _c_i64, _c_ptr, _c_ptr],
     # L, inv, n, r0, B, stream
     "below_trsm_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_i64, _c_ptr],
     # L, Ljj, n, r0, B, zero_upper, stream
@@ -71,8 +71,10 @@ SIGNATURES = {
                          + [_c_ptr] * 3 + [_c_int, _c_int] + [_c_ptr] * 3,
     # L, invs, V, Z, X, n, B, R, stream
     "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
-    # x, c, stats, V, out, N, R, O, Q, D, generic, stream
-    "mosm_matvec_f32": [_c_ptr] * 5 + [_c_i64, _c_int, _c_int, _c_int, _c_int, _c_int, _c_ptr],
+    # x, c, stats, V, items, n_items, part, N, R, nb, O, Q, D, generic, stream
+    "mosm_matvec_fold_f32": [_c_ptr] * 5 + [_c_i64, _c_ptr, _c_i64] + [_c_int] * 6 + [_c_ptr],
+    # part, out, N, R, stream
+    "mosm_matvec_reduce_f32": [_c_ptr] * 2 + [_c_i64, _c_int, _c_ptr],
     # x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, generic, stream
     "mosm_gram_matvec_f32": [_c_ptr] * 7 + [_c_i64, _c_i64] + [_c_int] * 5 + [_c_ptr],
     # idx, x1, rmap, x2, cmap, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, generic, stream

@@ -31,6 +31,19 @@ The factor is built in the buffer that holds K: K is overwritten. When n is
 not a multiple of the block, K is copied into a padded buffer with an
 identity tail first, and K itself is left as it was. Every step reads and
 writes the same buffer and runs on one stream in order.
+
+Two shape and range rules hold where the kernels run (float32 on the card;
+the plain twins need neither). The width: K-colwrite takes panels of a
+multiple of 64 columns, so `factor_plan` rounds the panel width up to one
+and the identity-tail padding covers n (a shape gate, decided from n and
+the block alone). The range: the 3xTF32 kernels scale their operands by
+2^16 and so need every sum of |products| below ~7.9e28, which for a factor
+is max diag(K). `range_scale` takes, on the device and with no host read,
+an exact power of two s = r^2 from max diag(K + shift) that brings it
+below 1 (exactly 1 below 2^64), and the kernels apply it inside their
+epilogues: the factorization runs on s K, L comes out unscaled by 1/r and
+the panel inverses by r, all exact, so a factor in range is bit-identical
+to the unscaled one and one out of range is the factor of s K, unscaled.
 """
 import functools
 
@@ -49,6 +62,45 @@ def effective_block(n, block_size):
             if n % cand == 0:
                 return cand
     return B
+
+
+# K-colwrite's panel widths (its GEMM's tiles and float4 copies)
+KERNEL_WIDTH_MULTIPLE = 64
+# below this max diag(K + shift) the range scale is exactly 1; far inside
+# the 3xTF32 kernels' cap of ~7.9e28 (2^96) on the sums of |products|
+RANGE_LIMIT = 2.0 ** 64
+
+
+def factor_plan(n, block_size, kernels):
+    """(B, npad): the panel width blocked_cholesky factors an n×n matrix
+    with, and n padded to a multiple of it (the identity tail). B is
+    effective_block's; where the kernels run (kernels=True: float32 on the
+    card) a width that is no multiple of 64 is rounded up to one, the width
+    K-colwrite takes (n = 300 factors as one 320-wide panel, a 200-wide
+    block at n = 4,000 as sixteen 256-wide ones). The twins take any
+    width."""
+    B = effective_block(n, block_size)
+    if kernels:
+        B += -B % KERNEL_WIDTH_MULTIPLE
+    return B, -(-n // B) * B
+
+
+def range_scale(diag):
+    """The factor's range scale from the diagonal of K + shift, computed on
+    its device with no host read: a (3,) tensor [s, r, 1/r] with r = 2^-k
+    and s = r², k = 0 where max(diag) < 2^64 (RANGE_LIMIT) and otherwise
+    the least k with max(diag)·s < 1. Exact powers of two, so scaling by
+    them is exact (the kernels' use: module docstring)."""
+    m = torch.amax(diag)
+    e = torch.frexp(m).exponent
+    k = torch.where(m < RANGE_LIMIT, 0, torch.div(e + 1, 2, rounding_mode="floor")).to(torch.int32)
+    r = torch.bitwise_left_shift(127 - k, 23).view(torch.float32)
+    rinv = torch.bitwise_left_shift(127 + k, 23).view(torch.float32)
+    return torch.stack([r * r, r, rinv]).to(diag.dtype)
+
+
+def _scale_ptr(scale):
+    return None if scale is None else scale.data_ptr()
 
 
 def s_panel_plain(L, S, j, B):
@@ -124,15 +176,15 @@ def spanel_plan(n, r0, B):
     return best[1], best[2]
 
 
-def s_panel(L, S, j, B):
+def s_panel(L, S, j, B, scale=None):
     """Step 1 for block column j, into S's first n − j·B rows. CPU or
     float64: plain twin. float32 CUDA: csrc/blocked_cholesky.cu s_panel_f32
     (3xTF32 tensor cores), with spanel_plan's split-K and, for more than one
     chunk, s_panel_reduce; or raises. For j > 0 the kernel's TMA copies
-    need n a multiple of 4 (16-byte rows of L) and L on 16 bytes. Its range
-    is FP32's down to the subnormals and up to sums of |products| of
-    ~7.9e28 (the operands scaled by 2^16 on the tensor cores; for a
-    factor, max diag(K) below that)."""
+    need n a multiple of 4 (16-byte rows of L) and L on 16 bytes. scale:
+    the factor's range_scale (a CUDA tensor) or None for 1; with it S is
+    s·K − (r·L)(r·L)ᵀ, which keeps the tensor cores' sums below max
+    diag(s·K) (without it they must stay below ~7.9e28)."""
     if _build.runs_plain(L):
         return s_panel_plain(L, S, j, B)
     _check_shapes("s_panel", L, S, B)
@@ -145,11 +197,11 @@ def s_panel(L, S, j, B):
     part = torch.empty((splits, n - r0, B), dtype=L.dtype, device=L.device) if splits > 1 else None
     err = _build.library().s_panel_f32(L.data_ptr(), S.data_ptr(),
                                        None if part is None else part.data_ptr(), n, r0, B,
-                                       k_chunk, _build.stream_ptr(L))
+                                       k_chunk, _scale_ptr(scale), _build.stream_ptr(L))
     _build.check(err, "s_panel_f32")
     s_panel.launches += 1
     if part is not None:
-        s_panel_reduce(L, part, S, j, B)
+        s_panel_reduce(L, part, S, j, B, scale)
 
 
 def s_panel_reduce_plain(L, part, S, j, B):
@@ -162,10 +214,10 @@ def s_panel_reduce_plain(L, part, S, j, B):
     torch.sub(L[r0:, r0:r0 + B], acc, out=S[:L.shape[0] - r0])
 
 
-def s_panel_reduce(L, part, S, j, B):
+def s_panel_reduce(L, part, S, j, B, scale=None):
     """K-spanel's second pass where its plan split k. CPU or float64: plain
     twin. float32 CUDA: csrc/blocked_cholesky.cu s_panel_reduce_f32 (the
-    same order of sums), or raises."""
+    same order of sums; K times s of the range scale), or raises."""
     if _build.runs_plain(L):
         return s_panel_reduce_plain(L, part, S, j, B)
     _check_shapes("s_panel_reduce", L, S, B)
@@ -174,17 +226,20 @@ def s_panel_reduce(L, part, S, j, B):
         raise ValueError("s_panel_reduce: part must be (splits, n − j·B, B)")
     _build.require_cuda_inputs("s_panel_reduce", floats=(L, part, S))
     err = _build.library().s_panel_reduce_f32(L.data_ptr(), part.data_ptr(), S.data_ptr(), n, r0,
-                                              B, part.shape[0], _build.stream_ptr(L))
+                                              B, part.shape[0], _scale_ptr(scale),
+                                              _build.stream_ptr(L))
     _build.check(err, "s_panel_reduce_f32")
     s_panel_reduce.launches += 1
 
 
-def col_write(L, S, Ljj, inv, j, B, zero_upper=True):
+def col_write(L, S, Ljj, inv, j, B, zero_upper=True, scale=None):
     """Step 3 for block column j. CPU or float64: plain twin. float32 CUDA:
     csrc/blocked_cholesky.cu col_write_f32 (3xTF32 tensor cores for the
-    rows below), or raises. B must be a multiple of 64, and the TMA copies
-    and float4 stores need L, S, Ljj and inv on 16 bytes. Range as
-    s_panel's: sums of |S[B:]|·|inv|ᵀ below ~7.9e28."""
+    rows below), or raises. B must be a multiple of 64 (factor_plan), and
+    the TMA copies and float4 stores need L, S, Ljj and inv on 16 bytes.
+    scale: the factor's range_scale or None; with it S, Ljj and inv are
+    those of s·K and the kernel writes Ljj and S[B:]·invᵀ times 1/r, the
+    true factor's rows."""
     if _build.runs_plain(L):
         return col_write_plain(L, S, Ljj, inv, j, B, zero_upper)
     _check_shapes("col_write", L, S, B)
@@ -199,7 +254,8 @@ def col_write(L, S, Ljj, inv, j, B, zero_upper=True):
         raise ValueError("col_write: L, S, Ljj and inv must start on 16 bytes (TMA, float4)")
     err = _build.library().col_write_f32(L.data_ptr(), S.data_ptr(), Ljj.data_ptr(),
                                          inv.data_ptr(), L.shape[0], j * B, B,
-                                         int(bool(zero_upper)), _build.stream_ptr(L))
+                                         int(bool(zero_upper)), _scale_ptr(scale),
+                                         _build.stream_ptr(L))
     _build.check(err, "col_write_f32")
     col_write.launches += 1
 
@@ -209,9 +265,8 @@ s_panel_reduce.launches = 0
 col_write.launches = 0
 
 
-# k columns per block of K-sdiag's split sum (its partials are summed in a
-# fixed order, so repeats are bit-identical)
-SDIAG_K_CHUNK = 512
+# K-sdiag's plan: a k chunk holds at least this many 32-deep slices
+SDIAG_MIN_SLICES = 4
 # the blocks the fused kernels take on the card: K-below-trsm keeps whole
 # B-wide rows of the accumulator on chip, 4 or 8 columns a thread
 FUSED_BLOCKS = (256, 512)
@@ -223,6 +278,33 @@ def fused_applicable(L, B):
     FUSED_BLOCKS (the JAX package's gate is its own tiling's, B a multiple
     of 512). Otherwise the unfused loop."""
     return _build.runs_plain(L) or B in FUSED_BLOCKS
+
+
+def sdiag_tiles(B):
+    """K-sdiag's output tiles in its launch order: the 128 × 128 tiles
+    (ti, tj) on and below the diagonal of the B × B block, row by row."""
+    t1 = -(-B // TF32X3_TILE)
+    return [(ti, tj) for ti in range(t1) for tj in range(ti + 1)]
+
+
+@functools.lru_cache(maxsize=4096)
+def sdiag_plan(r0, B):
+    """K-sdiag's split-K plan for block column offset r0 > 0: the number of
+    k chunks. Chunk z covers the 32-deep slices [z·S/splits, (z+1)·S/splits)
+    of S = ⌈r0/32⌉ (sdiag_chunks): each lower tile's k once, in order. As
+    many chunks as fill the 132 SMs with the lower tiles × chunks in one
+    wave, each at least SDIAG_MIN_SLICES slices long: 13 × 10 tiles at
+    B = 512 from j = 4 on, 44 × 3 at B = 256."""
+    slices = -(-r0 // TF32X3_K_SLICE)
+    return max(1, min(H100_SMS // len(sdiag_tiles(B)), slices // SDIAG_MIN_SLICES))
+
+
+def sdiag_chunks(r0, splits):
+    """The k range [begin, end) of each of K-sdiag's chunks, as the kernel
+    computes them."""
+    slices = -(-r0 // TF32X3_K_SLICE)
+    return [(z * slices // splits * TF32X3_K_SLICE,
+             min(r0, (z + 1) * slices // splits * TF32X3_K_SLICE)) for z in range(splits)]
 
 
 def s_diag_plain(L, j, B):
@@ -252,18 +334,23 @@ def col_commit_plain(L, Ljj, j, B, zero_upper=True):
         L[r0:r0 + B, r0 + B:] = 0
 
 
-def s_diag(L, j, B):
-    """S_jj for block column j > 0, a new (B, B) tensor. CPU or float64:
-    plain twin. float32 CUDA: csrc/fused_trsm.cu s_diag_f32, or raises."""
+def s_diag(L, j, B, scale=None):
+    """S_jj for block column j > 0, a new (B, B) symmetric tensor. CPU or
+    float64: plain twin. float32 CUDA: csrc/fused_trsm.cu s_diag_f32
+    (3xTF32 tensor cores on the lower tiles, sdiag_plan's split-K, the
+    strict upper's product the mirror of the lower's), or raises. scale as
+    s_panel's: with it S_jj is s·K_jj − (r·C)(r·C)ᵀ."""
     if _build.runs_plain(L):
         return s_diag_plain(L, j, B)
     _check_fused("s_diag", L, j, B)
     _build.require_cuda_inputs("s_diag", floats=(L,))
-    splits = -(-j * B // SDIAG_K_CHUNK)
+    if L.shape[0] % 4 or L.data_ptr() % 16:
+        raise ValueError("s_diag: the TMA copies need n a multiple of 4 and L on 16 bytes")
+    splits = sdiag_plan(j * B, B)
     out = torch.empty((B, B), dtype=L.dtype, device=L.device)
     part = torch.empty((splits, B, B), dtype=L.dtype, device=L.device)
     err = _build.library().s_diag_f32(L.data_ptr(), part.data_ptr(), out.data_ptr(), L.shape[0],
-                                      j * B, B, SDIAG_K_CHUNK, _build.stream_ptr(L))
+                                      j * B, B, splits, _scale_ptr(scale), _build.stream_ptr(L))
     _build.check(err, "s_diag_f32")
     s_diag.launches += 1
     return out
@@ -328,7 +415,7 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
     Args:
         K: (n, n) symmetric positive-definite matrix. Overwritten by the
             factor when it is contiguous and the block divides n.
-        block_size: panel width B (see effective_block).
+        block_size: panel width B (see factor_plan).
         diag_shift: None, a scalar or an (n,) vector added to the diagonal
             inside the factorization (the noisy Gram is never formed).
         zero_upper: zero the strict upper triangle (L's contract). False
@@ -346,14 +433,16 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
     an (n/B, B, B) tensor, one lower inverse per block column in solve order,
     or None when n needed padding. Where a diagonal block is not positive
     definite, that block and every later one come out NaN, as in the JAX
-    package (which returns NaN rows instead of raising).
+    package (which returns NaN rows instead of raising). Where the kernels
+    run, any n and block_size factor (factor_plan pads), and K up to
+    FP32's range (range_scale).
     """
     if K.ndim != 2 or K.shape[0] != K.shape[1]:
         raise ValueError("blocked_cholesky expects a square 2-D matrix; got shape %r" % (tuple(K.shape),))
     n = K.shape[0]
-    B = effective_block(n, block_size)
-    nb = -(-n // B)
-    npad = nb * B
+    kernels = not _build.runs_plain(K)
+    B, npad = factor_plan(n, block_size, kernels)
+    nb = npad // B
     shift = None
     if diag_shift is not None:
         shift = torch.as_tensor(diag_shift, dtype=K.dtype, device=K.device)
@@ -368,6 +457,12 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
             shift = torch.cat([shift, shift.new_zeros(npad - n)])
     else:
         L = K if K.is_contiguous() else K.contiguous()
+    scale = None
+    if kernels:
+        d = L.diagonal()
+        scale = range_scale(d if shift is None else d + shift)
+        if shift is not None:
+            shift = shift * scale[0]
     S = torch.empty((npad, B), dtype=K.dtype, device=K.device)
     eye = torch.eye(B, dtype=K.dtype, device=K.device)
     invs = None
@@ -378,9 +473,9 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
     for j in range(nb):
         r0 = j * B
         if fused and j > 0:
-            Sjj = s_diag(L, j, B)
+            Sjj = s_diag(L, j, B, scale)
         else:
-            s_panel(L, S, j, B)
+            s_panel(L, S, j, B, scale)
             Sjj = S[:B]
         if shift is not None:
             Sjj = Sjj + torch.diag(shift[r0:r0 + B])
@@ -389,16 +484,19 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
         # below it, every later one
         failed = failed | (info != 0)
         Ljj = torch.where(failed, torch.full_like(Ljj, float("nan")), Ljj).contiguous()
-        inv = None
+        inv = inv_true = None
         if j < nb - 1 or invs is not None:
             inv = torch.linalg.solve_triangular(Ljj, eye, upper=False).contiguous()
+            r = 1.0 if scale is None else scale[1]   # Ljj, inv are s·K's: the true inverse is inv·r
             if invs is not None:
-                invs[j] = inv
+                inv_true = torch.mul(inv, r, out=invs[j])
+            elif fused and j > 0:
+                inv_true = inv * r
         if fused and j > 0:
             if j < nb - 1:
-                below_trsm(L, inv, j, B)
-            col_commit(L, Ljj, j, B, zero_upper)
+                below_trsm(L, inv_true, j, B)
+            col_commit(L, Ljj if scale is None else Ljj * scale[2], j, B, zero_upper)
         else:
-            col_write(L, S, Ljj, inv, j, B, zero_upper)
+            col_write(L, S, Ljj, inv, j, B, zero_upper, scale)
     L = L[:n, :n] if npad != n else L
     return (L, invs) if return_panel_invs else L

@@ -10,18 +10,30 @@ the same product for any channel IDs, and mogptk_tpu/ops/pallas_mosm.py
 and x1 ≠ x2 (K-gram-matvec; its raw-parameter entry point is this port's
 ops/pallas_mosm.py). All are one function of the channel-pair statistics
 (ops/block_mosm.mosm_pair_stats), as K-gram is; csrc/mosm_matvec.cu
-computes it for any channel order in one launch, K-matvec as the square
-case (the iterative engine, gpr/iterative.py, passes channel-sorted rows).
-On a CPU tensor the wrappers run the plain twins; on a CUDA tensor they
-launch the kernel (float32, FP32 FFMA, no TF32) or raise.
+computes it for any channel order: K-gram-matvec in one FFMA launch, and
+K-matvec, the square case (the iterative engine, gpr/iterative.py, passes
+channel-sorted rows), by the fold: each 128 × 128 tile of the upper
+triangle of the tile grid evaluated once and used for both K·V and Kᵀ·V,
+the products on the tensor cores in 3xTF32, the transposed contributions
+summed through partial slabs by a fixed-order second pass
+(`mosm_matvec_reduce`, K-matvec-reduce). The folded operator is exactly
+symmetric, as the JAX D1's is. On a CPU tensor the wrappers run the plain
+twins; on a CUDA tensor they launch the kernels (float32) or raise.
 """
+import functools
+
+import numpy as np
 import torch
 
 from . import _build
 from .mosm_gram import mosm_gram_pairstats_plain, stats_table, check_gram_inputs, generic_flag
 
 PLAIN_ROWS = 2048    # rows of the Gram the plain twins form at a time
-MAX_R = 2048         # columns of V one launch takes
+MAX_R = 2048         # columns of V one K-gram-matvec launch takes
+FOLD_TILE = 128      # K-matvec's tile edge
+FOLD_SUPER = 4       # tiles per super-block of a work item
+FOLD_MAX_NB = 5      # n-blocks of 8 columns of V a K-matvec CTA takes
+FOLD_SLAB_BYTES = 4 << 30   # the partial slabs one K-matvec launch may fill
 
 
 def mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V):
@@ -70,20 +82,191 @@ def _launch_matvec(name, x1, c1, x2, c2, st3, st2, V):
     return out, launches
 
 
+def fold_tiles(N):
+    """(ntiles, nsupers): K-matvec's 128-row tiles of N rows and its
+    super-blocks of four tiles."""
+    ntiles = -(-N // FOLD_TILE)
+    return ntiles, -(-ntiles // FOLD_SUPER)
+
+
+def fold_slot_count(t, nsupers):
+    """The partial slab slots of row tile t: t for the transposed products
+    of row tiles 0..t-1, then one for each super-block t/4..nsupers-1."""
+    return t + nsupers - t // FOLD_SUPER
+
+
+def fold_slab_base(t, nsupers):
+    """The first slot of row tile t (the sum of the counts before it), in
+    the closed form csrc/mosm_matvec.cu fold_slab_base computes."""
+    q, rem = divmod(t, FOLD_SUPER)
+    return t * (t - 1) // 2 + t * nsupers - (2 * q * (q - 1) + rem * q)
+
+
+def fold_item_tiles(i, J, ntiles):
+    """The column tiles work item (row tile i, super-block J) evaluates:
+    J's tiles from i on."""
+    return range(max(FOLD_SUPER * J, i), min(FOLD_SUPER * J + FOLD_SUPER, ntiles))
+
+
+def fold_row_slot(i, J, nsupers):
+    """The slot item (i, J) writes its G·V[J] rows into (row tile i's)."""
+    return fold_slab_base(i, nsupers) + i + (J - i // FOLD_SUPER)
+
+
+def fold_col_slot(j, i, nsupers):
+    """The slot item (i, ·) writes Gᵀ·V[i] into for column tile j > i."""
+    return fold_slab_base(j, nsupers) + i
+
+
+@functools.lru_cache(maxsize=64)
+def fold_items(N):
+    """K-matvec's work items, (n_items, 2) int32: (row tile i, super-block
+    J) for every J from i's own on, so the tile pairs (i, j ≥ i) of the
+    upper triangle are each evaluated once. The items with four column
+    tiles first and the diagonal super-block's shorter ones last, so these
+    fill the tail of the last wave."""
+    ntiles, nsupers = fold_tiles(N)
+    full = [(i, J) for i in range(ntiles) for J in range(i // FOLD_SUPER + 1, nsupers)]
+    diag = [(i, i // FOLD_SUPER) for i in range(ntiles)]
+    return np.asarray(full + diag, dtype=np.int32).reshape(-1, 2)
+
+
+_fold_items_on = {}
+
+
+def _device_items(N, device):
+    key = (N, str(device))
+    if key not in _fold_items_on:
+        _fold_items_on[key] = torch.as_tensor(fold_items(N), device=device).contiguous()
+    return _fold_items_on[key]
+
+
+def fold_group(N, R):
+    """(nb, columns): K-matvec's n-blocks of 8 columns a CTA takes and the
+    columns of V one launch takes, so its partial slabs stay within
+    FOLD_SLAB_BYTES (every R up to 3,000 at N = 16,384, up to ~200 at
+    65,536)."""
+    ntiles, nsupers = fold_tiles(N)
+    nb = min(FOLD_MAX_NB, -(-R // 8))
+    per_col = 4 * FOLD_TILE * fold_slab_base(ntiles, nsupers)
+    cols = max(8 * nb, FOLD_SLAB_BYTES // per_col // (8 * nb) * (8 * nb))
+    return nb, min(R, cols)
+
+
+def fold_partials(x, c, st3, st2, V):
+    """K-matvec's first pass on the card: the (slots·128, R) partial slabs
+    of K(x, x)·V, one launch of csrc/mosm_matvec.cu mosm_matvec_fold_f32
+    (counted on mosm_matvec), R within one fold_group. Raises on what the
+    kernel does not take."""
+    O, _, Q, D, _ = st3.shape
+    N = x.shape[0]
+    stats = stats_table(st3, st2)
+    check_gram_inputs("mosm_matvec", x, c, x, c, stats, D)
+    _build.require_cuda_inputs("mosm_matvec", floats=(V,))
+    if V.dim() != 2 or V.shape[0] != N or V.shape[1] < 1:
+        raise ValueError("mosm_matvec: V must be (N, R) with N = %d rows and R >= 1" % N)
+    R = V.shape[1]
+    nb, cols = fold_group(N, R)
+    if cols < R:
+        raise ValueError("mosm_matvec: R = %d exceeds one launch's %d columns" % (R, cols))
+    ntiles, nsupers = fold_tiles(N)
+    part = torch.empty((fold_slab_base(ntiles, nsupers) * FOLD_TILE, R), dtype=torch.float32,
+                       device=x.device)
+    items = _device_items(N, x.device)
+    err = _build.library().mosm_matvec_fold_f32(
+        x.data_ptr(), c.data_ptr(), stats.data_ptr(), V.data_ptr(), items.data_ptr(),
+        items.shape[0], part.data_ptr(), N, R, nb, O, Q, D, generic_flag("forward", st3),
+        _build.stream_ptr(x))
+    _build.check(err, "mosm_matvec_fold_f32")
+    mosm_matvec.launches += 1
+    return part
+
+
+def fold_partials_plain(x, c, st3, st2, V):
+    """Plain twin of K-matvec's first pass: the partial slabs fold_partials
+    fills, from the plain Gram of each tile pair (i, j ≥ i) of fold_items,
+    G·V[j] summed over the item's tiles into slot fold_row_slot(i, J) and
+    Gᵀ·V[i] into slot fold_col_slot(j, i); rows past N stay NaN."""
+    N, R = V.shape
+    T = FOLD_TILE
+    ntiles, nsupers = fold_tiles(N)
+    part = V.new_full((fold_slab_base(ntiles, nsupers) * T, R), float("nan"))
+    for i, J in fold_items(N).tolist():
+        ri = slice(i * T, min(N, (i + 1) * T))
+        acc = V.new_zeros((ri.stop - ri.start, R))
+        for j in fold_item_tiles(i, J, ntiles):
+            rj = slice(j * T, min(N, (j + 1) * T))
+            G = mosm_gram_pairstats_plain(x[ri], c[ri], x[rj], c[rj], st3, st2)
+            acc += G @ V[rj]
+            if j != i:
+                s = fold_col_slot(j, i, nsupers) * T
+                part[s:s + rj.stop - rj.start] = G.T @ V[ri]
+        s = fold_row_slot(i, J, nsupers) * T
+        part[s:s + ri.stop - ri.start] = acc
+    return part
+
+
+def mosm_matvec_reduce_plain(part, N):
+    """Plain twin of K-matvec's second pass: each row the sum of its row
+    tile's slots in slot order (slot 0 first), from part
+    (slots·128, R)."""
+    ntiles, nsupers = fold_tiles(N)
+    R = part.shape[1]
+    P = part.view(-1, FOLD_TILE, R)
+    counts = [fold_slot_count(t, nsupers) for t in range(ntiles)]
+    bases = torch.tensor([fold_slab_base(t, nsupers) for t in range(ntiles)], device=part.device)
+    out = P[bases].clone()
+    for k in range(1, max(counts)):
+        t0 = next(t for t in range(ntiles) if counts[t] > k)   # counts grow with t
+        out[t0:] += P[bases[t0:] + k]
+    return out.reshape(-1, R)[:N]
+
+
+def mosm_matvec_reduce(part, N):
+    """K-matvec's second pass, K-matvec-reduce: (N, R) from the partial
+    slabs of fold_partials. CPU or float64: the plain twin. float32 CUDA:
+    csrc/mosm_matvec.cu mosm_matvec_reduce_f32 (the same order of sums), or
+    raises."""
+    if _build.runs_plain(part):
+        return mosm_matvec_reduce_plain(part, N)
+    ntiles, nsupers = fold_tiles(N)
+    R = part.shape[1] if part.dim() == 2 else 0
+    if part.shape != (fold_slab_base(ntiles, nsupers) * FOLD_TILE, R) or R < 1:
+        raise ValueError("mosm_matvec_reduce: part must be (slots·128, R) for N = %d" % N)
+    _build.require_cuda_inputs("mosm_matvec_reduce", floats=(part,))
+    out = torch.empty((N, R), dtype=torch.float32, device=part.device)
+    err = _build.library().mosm_matvec_reduce_f32(part.data_ptr(), out.data_ptr(), N, R,
+                                                  _build.stream_ptr(part))
+    _build.check(err, "mosm_matvec_reduce_f32")
+    mosm_matvec_reduce.launches += 1
+    return out
+
+
 def mosm_matvec(x, c, st3, st2, V):
     """K(x, x)·V for the MOSM Gram of the pair statistics (st3, st2), with
     x (N, D), channel IDs c (N,) int32 and V (N, R). Not differentiable: the
     iterative engine calls it inside the forward of its autograd Function.
-    CPU or float64: the plain twin. float32 CUDA, contiguous: one launch of
-    csrc/mosm_matvec.cu per 2,048 columns of V, or raises."""
+    CPU or float64: the plain twin. float32 CUDA, contiguous: per
+    fold_group of columns of V one K-matvec launch (fold_partials) and one
+    K-matvec-reduce launch, or raises. (The fold beats the FFMA kernel at
+    every R measured, R = 1 included: PERF.md §6.)"""
     if _build.runs_plain(x):
         return mosm_matvec_plain(x, c, st3, st2, V)
-    out, launches = _launch_matvec("mosm_matvec", x, c, x, c, st3, st2, V)
-    mosm_matvec.launches += launches
+    R = V.shape[1] if V.dim() == 2 else 0
+    N = x.shape[0]
+    _, cols = fold_group(N, max(R, 1))
+    if cols >= R:
+        return mosm_matvec_reduce(fold_partials(x, c, st3, st2, V), N)
+    out = torch.empty((N, R), dtype=torch.float32, device=x.device)
+    for r0 in range(0, R, cols):
+        r1 = min(R, r0 + cols)
+        out[:, r0:r1] = mosm_matvec_reduce(
+            fold_partials(x, c, st3, st2, V[:, r0:r1].contiguous()), N)
     return out
 
 
 mosm_matvec.launches = 0
+mosm_matvec_reduce.launches = 0
 
 
 def mosm_gram_matvec_pairstats(x1, c1, x2, c2, st3, st2, V):

@@ -77,6 +77,41 @@ def test_effective_block():
     assert tbc.effective_block(160, 64) == 64
 
 
+def test_factor_plan_rounds_the_kernels_widths_up_to_64():
+    """The width gate of the card's route, on shapes alone: where the
+    kernels run, a panel width that is no multiple of 64 (K-colwrite's) is
+    rounded up to one and n padded to it with the identity tail, n = 300 as
+    one 320-wide panel and a 200-wide block at n = 4,000 as sixteen
+    256-wide ones; the twins keep effective_block's width, and widths the
+    kernels took before are unchanged."""
+    assert tbc.factor_plan(300, 512, kernels=False) == (300, 300)
+    assert tbc.factor_plan(300, 512, kernels=True) == (320, 320)
+    assert tbc.factor_plan(4000, 200, kernels=False) == (200, 4000)
+    assert tbc.factor_plan(4000, 200, kernels=True) == (256, 4096)
+    for n, block in ((16384, 512), (7680, 1024), (160, 64), (1280, 256)):
+        B = tbc.effective_block(n, block)
+        assert tbc.factor_plan(n, block, True) == tbc.factor_plan(n, block, False) == (B, -(-n // B) * B)
+
+
+def test_range_scale_is_one_in_range_and_exact_beyond():
+    """The range scale: exactly 1 (all three entries) while max diag(K) is
+    below 2⁶⁴; for diag(K) ~ 1e30 an exact power of two s = r² that brings
+    max diag(K) below 1, and the twins' factor of s·K, unscaled by 1/r, is
+    bit-identical to the factor of K (scaling by a power of two is exact,
+    sqrt included)."""
+    assert torch.equal(tbc.range_scale(torch.tensor([1.0, 2.0 ** 63])), torch.ones(3))
+    K = _spd(64, 46, np.float64).astype(np.float32) * np.float32(1e30)
+    sc = tbc.range_scale(torch.from_numpy(np.diag(K).copy()))
+    s, r, rinv = (float(v) for v in sc)
+    m = float(np.max(np.diag(K)))
+    assert np.frexp(r)[0] == 0.5 and s == r * r and r * rinv == 1.0
+    assert m * s < 1.0 <= m * s * 4
+    L = tbc.blocked_cholesky(torch.from_numpy(K.copy()), block_size=32)
+    Ls = tbc.blocked_cholesky(torch.from_numpy(K.copy()) * sc[0], block_size=32)
+    assert torch.isfinite(L).all()
+    assert torch.equal(Ls * sc[2], L)
+
+
 @pytest.mark.parametrize("n, B", [(16384, 512), (1024, 64)], ids=["bench", "small"])
 def test_spanel_plan_covers_k_once(n, B):
     """K-spanel's split-K plan at every block column: the chunks cover

@@ -182,6 +182,34 @@ def test_switches_default_off_and_route_the_training_factor(monkeypatch):
     np.testing.assert_allclose(got[True][1].numpy(), ref, rtol=1e-10, atol=1e-12)
 
 
+def test_sdiag_plan_covers_each_lower_tile_once():
+    """K-sdiag's work: the lower 128 × 128 tiles of the B × B block in the
+    kernel's order (10 at B = 512, 3 at 256), each over the same chunks of
+    k, which cover [0, r0) once in order, each a whole number of 32-deep
+    slices; the tiles × chunks fit in one wave of the 132 SMs and, where k
+    is long enough, fill it (more than 132 − tiles CTAs)."""
+    for B in (256, 512):
+        tiles = tbc.sdiag_tiles(B)
+        t1 = B // tbc.TF32X3_TILE
+        assert len(tiles) == t1 * (t1 + 1) // 2 == len(set(tiles))
+        assert all(0 <= tj <= ti < t1 for ti, tj in tiles)
+        for t, tile in enumerate(tiles):   # the kernel's walk from the tile index
+            ti = 0
+            while (ti + 1) * (ti + 2) // 2 <= t:
+                ti += 1
+            assert tile == (ti, t - ti * (ti + 1) // 2)
+        for j in range(1, 16384 // B):
+            r0 = j * B
+            splits = tbc.sdiag_plan(r0, B)
+            chunks = tbc.sdiag_chunks(r0, splits)
+            assert chunks[0][0] == 0 and chunks[-1][1] == r0
+            assert all(a < b and a % tbc.TF32X3_K_SLICE == 0 for a, b in chunks)
+            assert all(chunks[z][1] == chunks[z + 1][0] for z in range(splits - 1))
+            assert len(tiles) * splits <= tbc.H100_SMS
+            if r0 // tbc.TF32X3_K_SLICE >= tbc.SDIAG_MIN_SLICES * (tbc.H100_SMS // len(tiles)):
+                assert len(tiles) * splits > tbc.H100_SMS - len(tiles), (B, j)
+
+
 def test_fused_gates():
     """Where the fused loop and K-syrk apply: the twins take any block; on
     the card the fused kernels take a block of 256 or 512 and K-syrk a

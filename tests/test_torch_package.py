@@ -131,12 +131,60 @@ def test_gram_matvec_and_lowrank_vjp_route_by_device_and_dtype():
                 tbm.mosm_gram_lowrank_vjp_pairstats.launches) == before
 
 
+@pytest.mark.parametrize("N", [557, 16384], ids=["ragged", "bench"])
+def test_matvec_fold_plan_covers_each_tile_pair_once(N):
+    """K-matvec's work plan: every tile pair (a, b) of the N × N tile grid
+    is covered exactly once, as a row contribution (item (a, J) evaluating
+    tile b ≥ a) or a column one (the transposed product of tile (b, a),
+    b < a); every slab slot is written exactly once and lies in its row
+    tile's range; the items off the diagonal super-block come first. On the ragged N the fold's
+    plain twins (first pass and fixed-order second pass) give the plain
+    matvec in float64, channels permuted."""
+    ntiles, nsupers = tmv.fold_tiles(N)
+    total = tmv.fold_slab_base(ntiles, nsupers)
+    bases = [tmv.fold_slab_base(t, nsupers) for t in range(ntiles + 1)]
+    assert all(bases[t + 1] - bases[t] == tmv.fold_slot_count(t, nsupers) for t in range(ntiles))
+    seen = np.zeros((ntiles, ntiles), dtype=int)
+    written = np.zeros(total, dtype=int)
+    items = tmv.fold_items(N)
+    assert all(len(tmv.fold_item_tiles(i, J, ntiles)) >= 1 for i, J in items)
+    assert all(J > i // 4 for i, J in items[:-ntiles]) and all(J == i // 4 for i, J in items[-ntiles:])
+    for i, J in items.tolist():
+        slot = tmv.fold_row_slot(i, J, nsupers)
+        assert bases[i] <= slot < bases[i + 1]
+        written[slot] += 1
+        for j in tmv.fold_item_tiles(i, J, ntiles):
+            seen[i, j] += 1
+            if j != i:
+                seen[j, i] += 1
+                slot = tmv.fold_col_slot(j, i, nsupers)
+                assert bases[j] <= slot < bases[j + 1]
+                written[slot] += 1
+    assert (seen == 1).all() and (written == 1).all()
+    if N < 1000:
+        rng = np.random.RandomState(7)
+        O, Q, D = 3, 2, 1
+        x = torch.as_tensor(rng.rand(N, D) * 20)
+        c = torch.as_tensor(rng.randint(0, O, N), dtype=torch.int32)
+        params = [torch.as_tensor(p) for p in (
+            0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+            0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))]
+        st3, st2 = tbm.mosm_pair_stats(*params, float(np.sqrt(2 * np.pi)))
+        V = torch.as_tensor(rng.randn(N, 5))
+        got = tmv.mosm_matvec_reduce_plain(tmv.fold_partials_plain(x, c, st3, st2, V), N)
+        torch.testing.assert_close(got, tmv.mosm_matvec_plain(x, c, st3, st2, V), rtol=1e-12,
+                                   atol=1e-12)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_twins():
     """Each kernel against its plain twin on the card, float32, small shapes.
     Tolerances: K-gram 2e-4·max|K| (float32 cosines of arguments up to
-    ~30 rad here); K-spanel and K-colwrite 2·k·2⁻²⁴·max(|A||B|ᵀ), the
-    summation-order bound of two float32 dot products of length k."""
+    ~30 rad here); K-spanel, K-colwrite and K-sdiag 2·k·2⁻²⁴·max(|A||B|ᵀ),
+    the summation-order bound of two float32 dot products of length k; the
+    repaired factors (n = 300 forced, diag ~ 1e30) 1e-4 of max|L| from
+    float64 (κ ≤ 5 here); K-matvec as test_cuda_matvec_matches_plain_twin,
+    K-matvec-reduce exact (the same order of sums)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     dev = torch.device("cuda")
@@ -189,6 +237,61 @@ def test_cuda_kernels_match_plain_twins():
                 assert torch.equal(again, L1), (n, B, j, zero_upper)
                 tbc.col_write_plain(L2, S, Ljj, inv, j, B, zero_upper)
                 assert float((L1 - L2).abs().max()) <= tol, (n, B, j, zero_upper)
+            if j > 0 and B in tbc.FUSED_BLOCKS:
+                # K-sdiag (3xTF32 on the lower tiles, the upper product mirrored) under
+                # the same summation bound, repeated bit-identically
+                Sjj = tbc.s_diag(L, j, B)
+                assert torch.equal(tbc.s_diag(L, j, B), Sjj) and torch.equal(Sjj, Sjj.T), (n, B, j)
+                C = L[r0:r0 + B, :r0].abs()
+                tolS = 2 * (r0 + 1) * u * (C @ C.T + L[r0:r0 + B, r0:r0 + B].abs())
+                assert bool(((Sjj - tbc.s_diag_plain(L, j, B)).abs() <= tolS).all()), (n, B, j)
+
+    # the blocked factor's repairs, against float64 of the same float32
+    # input: a forced factor at n = 300 (one 320-wide panel, padded), and
+    # a Gram with diag ~ 1e30, unfused and fused, which is moreover
+    # bit-identical to the factor of the same Gram times its range scale
+    # (in range: scale 1), unscaled
+    for n, big in ((300, False), (1280, True)):
+        A0 = rng.randn(n, n) / np.sqrt(n)
+        K = torch.as_tensor((A0 @ A0.T + np.eye(n)) * (1e30 if big else 1.0), dtype=torch.float32,
+                            device=dev)
+        ref = torch.linalg.cholesky(K.double())
+        for fused in ((False, True) if big else (False,)):
+            L = tbc.blocked_cholesky(K.clone(), block_size=256 if big else 512, fused_trsm=fused)
+            assert L.shape == (n, n) and bool(torch.isfinite(L).all()), (n, fused)
+            assert float((L.double() - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), (n, fused)
+            if big:
+                sc = tbc.range_scale(K.diagonal())
+                assert float(sc[0]) < 1.0
+                Ls = tbc.blocked_cholesky(K.clone() * sc[0], block_size=256, fused_trsm=fused)
+                assert torch.equal(L, Ls * sc[2]), fused
+
+    # K-matvec (the fold) and K-matvec-reduce against their twins: R = 1,
+    # 33, 300 and 2,100 (one, one, eight and 53 column chunks), channel-
+    # sorted and permuted, repeats bit-identical; tolerance as
+    # test_cuda_matvec_matches_plain_twin's
+    counts, O, Q, D = (300, 1, 257), 3, 2, 1
+    n = sum(counts)
+    x = torch.as_tensor(np.sort(rng.rand(n, D) * 20, axis=0), dtype=torch.float32, device=dev)
+    c = tbm.channel_ids(counts, dev)
+    params = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
+        0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+        0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))]
+    st3, st2 = tbm.mosm_pair_stats(*params, float(np.sqrt(2 * np.pi)))
+    perm = torch.as_tensor(rng.permutation(n), device=dev)
+    kmax = float(tmg.mosm_gram_pairstats_plain(x, c, x, c, st3, st2).abs().max())
+    for R in (1, 33, 300, 2100):
+        V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+        tol = (2e-4 + n * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
+        for xx, cc, VV in ((x, c, V), (x[perm].contiguous(), c[perm].contiguous(),
+                                       V[perm].contiguous())):
+            got = tmv.mosm_matvec(xx, cc, st3, st2, VV)
+            assert torch.equal(tmv.mosm_matvec(xx, cc, st3, st2, VV), got), R
+            assert bool(((got - tmv.mosm_matvec_plain(xx, cc, st3, st2, VV)).abs() <= tol).all()), R
+            if R == 33:
+                part = tmv.fold_partials(xx, cc, st3, st2, VV)
+                assert torch.equal(tmv.mosm_matvec_reduce(part, n),
+                                   tmv.mosm_matvec_reduce_plain(part, n))
     torch.cuda.synchronize()
 
 
