@@ -109,7 +109,11 @@ outside the tensor cores; for K-spanel, K-colwrite and K-sdiag, which run
 three TF32 passes on the tensor cores, 3 × their operations over 495
 TFLOP/s (the FP32 bound printed beside it); for K-matvec the larger of its
 folded element evaluations at the FP32 peak and its 3xTF32 products
-(matvec_bounds).
+(matvec_bounds), for K-lowrank-vjp the larger of its τ chain at the FP32
+peak and its cotangent product's 3xTF32 passes; K-solve's bytes count L's
+strictly lower blocks and the diagonal-block inverses twice, once a sweep
+(the backward sweep starts when the forward one ends, and L is far beyond
+the 50 MB L2).
 """
 import contextlib
 import json
@@ -436,17 +440,38 @@ def main():
         # twin, plus a floor of 1e-6 of the scale for summation order alone
         tol = 2 * err_t + 1e-6 * float(X64.abs().max())
         err = float((Xk - Xt).abs().max())
+        # repeats bit-identical: on the full grid (one CTA an SM), on a grid
+        # of a quarter of the SMs (the persistent launch's tickets: no grid
+        # can deadlock it), and with NaN in L's strict upper triangle (the
+        # solve reads only its strictly lower blocks)
+        quarter = torch.cuda.get_device_properties(dev).multi_processor_count // 4
+        Ln = L + torch.triu(torch.full_like(L, float("nan")), 1)
+        repeats = {"repeat": fs.fused_cho_solve(L, invs, rhs),
+                   "NaN upper": fs.fused_cho_solve(Ln, invs, rhs)}
+        fs._GRID_CAP = quarter
+        try:
+            repeats["%d CTAs" % quarter] = fs.fused_cho_solve(L, invs, rhs)
+        finally:
+            fs._GRID_CAP = 0
+        del Ln
+        same = {k: torch.equal(v, Xk) for k, v in repeats.items()}
         ms = median_ms(lambda: fs.fused_cho_solve(L, invs, rhs))
         pms = median_ms(lambda: bt.blocked_cho_solve(L, rhs, invs=invs))
         lms = median_ms(lambda: torch.cholesky_solve(rhs, Lc, upper=False))
         nb = invs.shape[0]
-        bnd = bound(4 * (n * (n + 1) // 2 + nb * band * band + 2 * n * R1),
+        # bytes: both sweeps read L's strictly lower blocks and the inverses
+        # (the backward sweep starts when the forward one ends, and L is far
+        # beyond the 50 MB L2), B read and X written once
+        bnd = bound(4 * (2 * ((n * n - nb * band * band) // 2 + nb * band * band) + 2 * n * R1),
                     2 * R1 * (n * n - nb * band * band) + 4 * R1 * nb * band * band)
         print("K-solve n=%d, %d panels, %d columns: vs float64 %.3e (twin %.3e, tol %.3e), "
-              "vs twin %.3e, kernel %.3f ms, plain %.3f ms, torch.cholesky_solve %.3f ms, "
-              "bound %.3f ms (%s)" % ((n, nb, R1, err_k, err_t, tol, err, ms, pms, lms) + bnd))
+              "vs twin %.3e, bit-identical %s, kernel %.3f ms (1 launch), plain %.3f ms, "
+              "torch.cholesky_solve %.3f ms, bound %.3f ms (%s)"
+              % ((n, nb, R1, err_k, err_t, tol, err, same, ms, pms, lms) + bnd))
         if not err_k <= tol:
             fail("K-solve is further from the float64 solve than twice its plain twin")
+        if not all(same.values()):
+            fail("K-solve is not bit-identical across repeats, grids and L's upper triangle")
         report["fused_cho_solve"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms,
                                          bound=bnd)
         del Lc, X64, Xt, L, Kl
@@ -457,10 +482,10 @@ def main():
         A = 0.5 * torch.cat([alpha, -U / PROBES], dim=1)
         Bm = torch.cat([alpha, model.probes], dim=1)
         params = [p.detach() for p in model.kernel._params()]
-        err, ms, pms, bnd = lowrank_vjp_check(bm, x, counts, params, model.kernel.twopi, st3, st2,
-                                              A, Bm, "training shape")
+        err, ms, pms, bnd, bnd32 = lowrank_vjp_check(bm, x, counts, params, model.kernel.twopi,
+                                                     st3, st2, A, Bm, "training shape")
         report["mosm_lowrank_vjp"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-                                          bound=bnd)
+                                          bound=bnd, bound_fp32=bnd32)
         del A, Bm, Xk
     torch.cuda.empty_cache()
 
@@ -1344,11 +1369,20 @@ def lowrank_vjp_check(bm, x, counts, params, twopi, st3, st2, A, Bm, label, reps
                       plain_reps=10, plain_warmup=2):
     """K-lowrank-vjp against its float32 twin and a float64 twin on the same
     inputs, compared as parameter cotangents (pair_stats_vjp, the chain the
-    training paths apply). Tolerance: float32 sums over the N² elements in
-    two orders, so at most twice the float32 twin's error against float64,
-    plus a floor of 1e-5 of the cotangents' scale. Returns (max |kernel −
-    twin|, kernel ms, twin ms, bound)."""
-    got = bm.pair_stats_vjp(params, twopi, *bm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, Bm))
+    training paths apply), and a repeat bit-identical. Tolerance: float32
+    sums over the N² elements in two orders, so at most twice the float32
+    twin's error against float64, plus a floor of 1e-5 of the cotangents'
+    scale. Returns (max |kernel − twin|, kernel ms, twin ms, bound, FP32
+    bound): the bound is the larger of the bytes, the τ chain's operations
+    at the FP32 peak and the cotangent product's as three TF32 passes on
+    the tensor cores (two pipes that can overlap, as K-matvec's); the FP32
+    bound counts both at the FP32 peak."""
+    import torch
+    raw = bm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, Bm)
+    again = bm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, Bm)
+    repeat = all(torch.equal(a, b) for a, b in zip(raw, again))
+    got = bm.pair_stats_vjp(params, twopi, *raw)
+    del raw, again
     twin = bm.pair_stats_vjp(params, twopi, *bm.mosm_lowrank_vjp_plain(x, counts, st3, st2, A, Bm))
     p64 = [p.double() for p in params]
     ref = bm.pair_stats_vjp(p64, twopi, *bm.mosm_lowrank_vjp_plain(
@@ -1365,16 +1399,23 @@ def lowrank_vjp_check(bm, x, counts, params, twopi, st3, st2, A, Bm, label, reps
     idx, _ = bm._pair_layout(tuple(counts), bm.BWD_TILE)
     sym = int((idx[:, 0] != idx[:, 1]).sum())
     n, D, R1, tile = x.shape[0], x.shape[1], A.shape[1], bm.BWD_TILE ** 2
-    ops = (tile * R1 * (4 * sym + 2 * (idx.shape[0] - sym))
-           + tile * idx.shape[0] * Q * (18 * D + 16))
-    bnd = bound(4 * n * (2 * R1 + D), ops)
+    product = tile * R1 * (4 * sym + 2 * (idx.shape[0] - sym))
+    chain = tile * idx.shape[0] * Q * (18 * D + 16)
+    nbytes = 4 * n * (2 * R1 + D)
+    bnd32 = bound(nbytes, product + chain)
+    bnd = max((1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"),
+              (1e3 * chain / PEAK_FP32_PER_S, "operations"),
+              (1e3 * 3 * product / PEAK_TF32_PER_S, "operations"))
     print("K-lowrank-vjp %s, %d tiles of %d^2 (R=%d): parameter cotangents vs float64 %.3e "
-          "(twin %.3e, tol %.3e, scale %.3e), vs twin %.3e, kernel %.3f ms, plain %.3f ms, "
-          "bound %.3f ms (%s)"
-          % ((label, idx.shape[0], bm.BWD_TILE, R1, err_k, err_t, tol, scale, err, ms, pms) + bnd))
+          "(twin %.3e, tol %.3e, scale %.3e), vs twin %.3e, repeat bit-identical %s, kernel "
+          "%.3f ms, plain %.3f ms, bound %.3f ms (%s; 3xTF32 product, FP32 chain), FP32 bound "
+          "%.3f ms" % ((label, idx.shape[0], bm.BWD_TILE, R1, err_k, err_t, tol, scale, err,
+                        repeat, ms, pms) + bnd + bnd32[:1]))
     if not err_k <= tol:
         fail("K-lowrank-vjp (%s) is further from float64 than twice its plain twin" % label)
-    return err, ms, pms, bnd
+    if not repeat:
+        fail("K-lowrank-vjp (%s) repeated is not bit-identical" % label)
+    return err, ms, pms, bnd, bnd32
 
 
 def check_matvec(gpr, X, Y, dev):

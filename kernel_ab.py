@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of the MOSM Gram and blocked Cholesky kernels of two source trees on
-one NVIDIA GPU.
+"""A/B of the MOSM Gram, blocked Cholesky, solve and low-rank VJP kernels of
+two source trees on one NVIDIA GPU.
 
     python3 kernel_ab.py OLD_ROOT [NEW_ROOT] [--rounds N] [--only SOURCE[,SOURCE]]
 
@@ -28,8 +28,11 @@ j = 16 in both zero_upper forms (each side on its own copy of that
 buffer). A root whose K-spanel takes a split-K plan (`k_chunk`) gets this
 root's ops/blocked_cholesky.spanel_plan and, where it splits, its second
 pass s_panel_reduce_f32; another root gets the one-pass entry. A root
-whose entries take the factor's range scale gets null (scale 1). --only
-restricts the sources built and timed. A root whose kernels
+whose entries take the factor's range scale gets null (scale 1). From
+fused_cho_solve.cu it times K-solve on the bench factor at R = 17, 1 and
+64, and from mosm_lowrank_vjp.cu K-lowrank-vjp at N = 16,384 and 65,536
+with R = 17 (solve_cases and lowrank_vjp_cases say how each root's entry
+is called). --only restricts the sources built and timed. A root whose kernels
 take an instance argument (`int generic`) gets 0, the unrolled instance;
 K-gram-bwd's input half is off (inputs = 0). Every case runs once on
 each side, checked, before the timing. Rounds
@@ -45,7 +48,7 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu",
-           "fused_trsm.cu")
+           "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
 # instances with the input half are compiled from a file of their own)
 COMPANIONS = {"mosm_gram_bwd.cu": ("mosm_gram_bwd_inputs.cu",)}
@@ -187,6 +190,84 @@ def sdiag_cases(libs, roots, Lb, bc, stream):
     return cases
 
 
+def solve_cases(libs, roots, Lb, bt, stream):
+    """K-solve on the bench factor (N = 16,384, B = 512) with R = 17 (the
+    probe-trace step's y and 16 probes), 1 and 64: a root with the persistent
+    kernel (`int* counts`) gets a zeroed count tensor each call, another its
+    launch-per-step entry, which overwrites its right-hand side (copied in
+    each call)."""
+    import torch
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    n, B = Lb.shape[0], 512
+    nb = n // B
+    Lb = Lb.contiguous()     # row-major, as the factor reaches the solve
+    invs = bt.panel_inverses(Lb, block_size=B)
+    gen = torch.Generator(device=Lb.device).manual_seed(3)
+    persistent = {side: has(root, "fused_cho_solve.cu", "int* counts")
+                  for side, root in roots.items()}
+    cases = []
+    for R in (17, 1, 64):
+        rhs = torch.randn((n, R), generator=gen, device=Lb.device)
+        calls = {}
+        for side in libs:
+            lib = libs[side]["fused_cho_solve.cu"]
+            V, Z, X = (torch.empty_like(rhs) for _ in range(3))
+            if persistent[side]:
+                counts = torch.zeros(1 + 4 * nb, dtype=torch.int32, device=Lb.device)
+                # v, z and x in rows of the kernel's stride
+                zs = lib.fused_cho_solve_rhs_stride(I32(R))
+                V, Z, Xp = torch.empty((3, n, zs), device=Lb.device)
+                call = (lambda l, rhs, V, Z, Xp, X, counts: lambda: (
+                    counts.zero_(), l.fused_cho_solve_f32(
+                        P(Lb.data_ptr()), P(invs.data_ptr()), P(rhs.data_ptr()), P(V.data_ptr()),
+                        P(Z.data_ptr()), P(Xp.data_ptr()), P(X.data_ptr()), P(counts.data_ptr()),
+                        I64(n), I64(B), I32(rhs.shape[1]), I32(0), P(stream)))[1])(
+                            lib, rhs, V, Z, Xp, X, counts)
+            else:
+                call = (lambda l, rhs, V, Z, X: lambda: (V.copy_(rhs), l.fused_cho_solve_f32(
+                    P(Lb.data_ptr()), P(invs.data_ptr()), P(V.data_ptr()), P(Z.data_ptr()),
+                    P(X.data_ptr()), I64(n), I64(B), I32(rhs.shape[1]), P(stream)))[1])(
+                        lib, rhs, V, Z, X)
+            calls[side] = (call, X)
+        cases.append(("K-solve N=%d B=%d R=%d" % (n, B, R), "fused_cho_solve.cu", 10, calls))
+    return cases
+
+
+def lowrank_vjp_cases(libs, roots, points, stats, Q, D, stream):
+    """K-lowrank-vjp at the probe-trace step's shape (N = 16,384) and the
+    iterative step's (N = 65,536), R = 17: points is a list of channel-sorted
+    (x, counts) whose channels are multiples of 256 rows. A root whose entry
+    takes the k padding (`int KH`) gets this root's lowrank_kpad."""
+    import torch
+    from mogptk_tpu_torch.ops import block_mosm as bm
+    P, I32 = ctypes.c_void_p, ctypes.c_int
+    cases = []
+    for x, counts in points:
+        n, R = x.shape[0], 17
+        gen = torch.Generator(device=x.device).manual_seed(4)
+        A = 1e-2 * torch.randn((n, R), generator=gen, device=x.device)
+        Bm = torch.randn((n, R), generator=gen, device=x.device)
+        idx, pairs = bm._device_layout(counts, bm.BWD_TILE, x.device)
+        nout = 3 * Q * D + 2 * Q
+        RC = bm.lowrank_chunk(R)
+        calls = {}
+        for side, root in roots.items():
+            lib = libs[side]["mosm_lowrank_vjp.cu"]
+            partial = torch.empty((4 * idx.shape[0], nout), device=x.device)
+            out = torch.zeros((len(counts) ** 2, nout), device=x.device)
+            kh = [I32(bm.lowrank_kpad(RC))] if has(root, "mosm_lowrank_vjp.cu", "int KH") else []
+            calls[side] = ((lambda l, x, A, Bm, idx, pairs, partial, out, kh: lambda: (
+                l.mosm_lowrank_vjp_f32(
+                    P(idx.data_ptr()), P(x.data_ptr()), P(A.data_ptr()), P(Bm.data_ptr()),
+                    P(stats.data_ptr()), P(partial.data_ptr()), P(pairs.data_ptr()),
+                    P(out.data_ptr()), I32(idx.shape[0]), I32(pairs.shape[0]), I32(Q), I32(D),
+                    I32(R), I32(RC), *kh, I32(0), P(stream))))(
+                        lib, x, A, Bm, idx, pairs, partial, out, kh), out)
+        cases.append(("K-lowrank-vjp N=%d R=%d (%d tiles)" % (n, R, idx.shape[0]),
+                      "mosm_lowrank_vjp.cu", 10 if n <= 16384 else 5, calls))
+    return cases
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -297,14 +378,23 @@ def main():
     cases = []   # (name, source, reps, {side: (call, output)})
     if all("blocked_cholesky.cu" in l for l in libs.values()):
         cases += cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream)
-    if all("fused_trsm.cu" in l for l in libs.values()):
+    built = {src for src in SOURCES if all(src in l for l in libs.values())}
+    if built & {"fused_trsm.cu", "fused_cho_solve.cu"}:
         counts = tuple(int(k) for k in torch.bincount(c.long(), minlength=O).tolist())
         with torch.no_grad():
             Kb = bm.mosm_gram_sorted(x, counts, *kernel._params(), kernel.twopi)
             Kb.diagonal().add_(0.1)   # the bench model's noise variance
             Lb = torch.linalg.cholesky(Kb)
         del Kb
-        cases += sdiag_cases(libs, roots, Lb, bc, stream)
+        if "fused_trsm.cu" in built:
+            cases += sdiag_cases(libs, roots, Lb, bc, stream)
+        if "fused_cho_solve.cu" in built:
+            from mogptk_tpu_torch.ops import blocked_trisolve as bt
+            cases += solve_cases(libs, roots, Lb, bt, stream)
+    if "mosm_lowrank_vjp.cu" in built:
+        points = [(xx, tuple(int(k) for k in torch.bincount(cc.long(), minlength=O).tolist()))
+                  for xx, cc in ((x, c), (xb, cb))]
+        cases += lowrank_vjp_cases(libs, roots, points, stats, Q, D, stream)
     gram_cases = (("K-gram %dx%d" % (n, n), (n, n), lambda lib, o: gram(lib, o, x, c)),
                   ("K-gram %dx%d" % (n, xq.shape[0]), (n, xq.shape[0]),
                    lambda lib, o: gram(lib, o, xq, cq)),

@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
 #include "mosm_element.cuh"
 
 namespace {
@@ -303,33 +304,9 @@ __host__ __device__ inline FoldLayout fold_layout(int vs, int O, int Q, int D, b
     return s;
 }
 
-__device__ __forceinline__ uint32_t tf32_rna_bits(float x) {
-    uint32_t r;
-    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-    return r;
-}
-
-// big = rna(x), small = rna(x - big), as TF32 bit patterns
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-    big = tf32_rna_bits(x);
-    small = tf32_rna_bits(x - __uint_as_float(big));
-}
-
-// d += a . b for one m16n8k8 TF32 step (FP32 accumulators)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[u] += A . V[k rows, 8u..8u+7] over one 8-deep k step, 3xTF32: A split
-// in (ab, as), V's rows ka and ka+4 from the staged tile vs (stride VS).
-// The three products go into fresh accumulators and their sum into acc by
-// FP32 adds: the tensor cores truncate each sum they accumulate, a bias
-// that grows with the length of the chain, so the chain is one k step
-// long and the running sums round to nearest.
+// acc[u] += A . V[k rows, 8u..8u+7] over one 8-deep k step, 3xTF32
+// (mma_tf32.cuh mma3_add): A split in (ab, as), V's rows ka and ka+4 from
+// the staged tile vs (stride VS).
 template <int NB, int VS>
 __device__ __forceinline__ void fold_step(float (&acc)[NB][4], const uint32_t (&ab)[4],
                                           const uint32_t (&as)[4], const float* __restrict__ vs,
@@ -339,12 +316,7 @@ __device__ __forceinline__ void fold_step(float (&acc)[NB][4], const uint32_t (&
         uint32_t bb0, bs0, bb1, bs1;
         split_tf32(vs[ka * VS + 8 * u + g], bb0, bs0);
         split_tf32(vs[(ka + 4) * VS + 8 * u + g], bb1, bs1);
-        float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(t, as, bb0, bb1);
-        mma_tf32(t, ab, bs0, bs1);
-        mma_tf32(t, ab, bb0, bb1);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[u][e] += t[e];
+        mma3_add(acc[u], ab, as, bb0, bs0, bb1, bs1);
     }
 }
 

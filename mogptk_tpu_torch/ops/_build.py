@@ -63,14 +63,16 @@ SIGNATURES = {
     # x, c, stats, out, N, O, Q, D, tile, band, generic, stream
     "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_int,
                                            _c_ptr],
-    # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, generic, stream
-    "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 7 + [_c_ptr],
+    # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, KH, generic, stream
+    "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 8 + [_c_ptr],
     # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, S, P, M, Q, D, generic, inputs,
     # rowpart, colpart, tiles, nrt, nct, dx1, dx2, stream
     "mosm_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64, _c_int, _c_int, _c_int, _c_int]
                          + [_c_ptr] * 3 + [_c_int, _c_int] + [_c_ptr] * 3,
-    # L, invs, V, Z, X, n, B, R, stream
-    "fused_cho_solve_f32": [_c_ptr] * 5 + [_c_i64, _c_i64, _c_int, _c_ptr],
+    # L, invs, B, V, Z, X, Xout, counts, n, Bs, R, max_ctas, stream
+    "fused_cho_solve_f32": [_c_ptr] * 8 + [_c_i64, _c_i64, _c_int, _c_int, _c_ptr],
+    # R
+    "fused_cho_solve_rhs_stride": [_c_int],
     # x, c, stats, V, items, n_items, part, N, R, nb, O, Q, D, generic, stream
     "mosm_matvec_fold_f32": [_c_ptr] * 5 + [_c_i64, _c_ptr, _c_i64] + [_c_int] * 6 + [_c_ptr],
     # part, out, N, R, stream

@@ -254,13 +254,21 @@ def lowrank_chunk(R):
     return min(int(R), LOWRANK_MAX_CHUNK)
 
 
+def lowrank_kpad(chunk):
+    """K-lowrank-vjp's k padding: each half of its tensor-core product
+    [A_i | B_i]·[B_j | A_j]ᵀ holds a chunk's columns zero-padded to this
+    multiple of 8 (the m16n8k8 product's depth)."""
+    return -(-int(chunk) // 8) * 8
+
+
 def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
     """Cotangents (dst3, dst2) of the pair statistics for dK = A·Bᵀ, without
     forming dK, for channel-sorted x (N, D) with per-channel `counts` and A,
     B (N, R), any R. Rows of lower pairs (a > b) stay zero: each upper pair's
     rows carry both of its blocks. CPU or float64: the plain twin. float32
     CUDA: one call of csrc/mosm_lowrank_vjp.cu (the tile kernel, R in chunks
-    of lowrank_chunk(R) columns, and its per-pair reduction), or raises."""
+    of lowrank_chunk(R) columns padded to lowrank_kpad, and its per-pair
+    reduction), or raises."""
     counts = tuple(int(n) for n in counts)
     if _build.runs_plain(x):
         return mosm_lowrank_vjp_plain(x, counts, st3, st2, A, B)
@@ -281,8 +289,8 @@ def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
         err = _build.library().mosm_lowrank_vjp_f32(
             idx.data_ptr(), xp.data_ptr(), ap.data_ptr(), bp.data_ptr(), stats.data_ptr(),
             partial.data_ptr(), pairs.data_ptr(), out.data_ptr(), idx_np.shape[0],
-            pairs_np.shape[0], Q, D, R, lowrank_chunk(R), generic_flag("backward", st3),
-            _build.stream_ptr(x))
+            pairs_np.shape[0], Q, D, R, lowrank_chunk(R), lowrank_kpad(lowrank_chunk(R)),
+            generic_flag("backward", st3), _build.stream_ptr(x))
         _build.check(err, "mosm_lowrank_vjp_f32")
         mosm_lowrank_vjp_sorted.launches += 1
     return (out[:, :3 * Q * D].reshape(O, O, Q, D, 3), out[:, 3 * Q * D:].reshape(O, O, Q, 2))

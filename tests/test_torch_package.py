@@ -73,6 +73,19 @@ def test_lowrank_vjp_takes_any_rank_in_chunks():
         tbm.lowrank_chunk(0)
 
 
+def test_lowrank_kpad_covers_every_column():
+    """K-lowrank-vjp's k plan: R in chunks of lowrank_chunk(R) columns, each
+    half of the tensor-core product's k padded to lowrank_kpad(chunk), a
+    multiple of 8 that holds every chunk, the last (shorter) one included;
+    the chunks cover each column of A and B once."""
+    for R in (1, 7, 8, 17, 33, 64, 65, 129, 1025):
+        rc = tbm.lowrank_chunk(R)
+        kh = tbm.lowrank_kpad(rc)
+        assert kh % 8 == 0 and rc <= kh < rc + 8 and kh <= 64
+        cols = [r0 + k for r0 in range(0, R, rc) for k in range(min(rc, R - r0))]
+        assert cols == list(range(R)), R
+
+
 def test_float64_routes_to_the_plain_twins_on_any_device():
     """The one dtype route (ops/_build.runs_plain): float64 runs the plain
     twin on the tensor's own device and counts no launch; float32 off the
@@ -307,7 +320,8 @@ def test_cuda_training_kernels_match_plain_twins():
     the card, float32, small shapes. Tolerances: K-gram-lower 2e-4·max|K| on
     the written tiles, as K-gram; K-solve and K-lowrank-vjp no more than
     2× the float32 twin's error against a float64 twin on the same inputs,
-    plus a floor of 1e-5 relative (summation order alone)."""
+    plus a floor of 1e-5 relative (summation order alone). Repeats of
+    K-solve and K-lowrank-vjp are bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from mogptk_tpu_torch.ops import blocked_trisolve as tbt
@@ -329,16 +343,47 @@ def test_cuda_training_kernels_match_plain_twins():
         written = ~torch.isnan(ref)
         assert float((got - ref)[written].abs().max()) <= 2e-4 * float(ref[written].abs().max())
 
-    n, Bs, r = 1024, 256, 17
+    # K-solve: R = 1, 17 and 64 with Bs = 256 and 512; the strict upper holds
+    # NaN (neither solve may read it); a repeat, and grids forced to a quarter
+    # of the SMs and to one CTA, bit-identical: the persistent launch cannot
+    # deadlock (one CTA runs every ticket in order, so a wait on a later
+    # ticket would hang it) and sums each output in one order
+    n = 1024
     A = torch.as_tensor(rng.randn(n, n) / np.sqrt(n), dtype=torch.float64, device=dev)
     L64 = torch.linalg.cholesky(A @ A.T + 2 * torch.eye(n, dtype=torch.float64, device=dev))
-    # the strict upper holds NaN: neither solve may read it
     L = torch.tril(L64).float() + torch.triu(torch.full((n, n), float("nan"), device=dev), 1)
-    invs = tbt.panel_inverses(torch.tril(L64).float(), block_size=Bs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def capped(cap, *args):
+        tfs._GRID_CAP = cap
+        try:
+            return tfs.fused_cho_solve(*args)
+        finally:
+            tfs._GRID_CAP = 0
+
+    for Bs in (256, 512):
+        invs = tbt.panel_inverses(torch.tril(L64).float(), block_size=Bs)
+        for r in (1, 17, 64):
+            B = torch.as_tensor(rng.randn(n, r), dtype=torch.float32, device=dev)
+            launches = tfs.fused_cho_solve.launches
+            X = tfs.fused_cho_solve(L, invs, B)
+            repeats = [capped(m, L, invs, B) for m in (0, sms // 4, 1)]
+            assert tfs.fused_cho_solve.launches == launches + 4
+            X_twin = tbt.blocked_cho_solve(L, B, invs=invs)
+            X64 = torch.cholesky_solve(B.double(), torch.tril(L.nan_to_num(0.0)).double(),
+                                       upper=False)
+            torch.cuda.synchronize()
+            assert _rel_err([X], [X64]) <= 2 * _rel_err([X_twin], [X64]) + 1e-5, (Bs, r)
+            assert all(torch.equal(X, Xr) for Xr in repeats), (Bs, r)
+    # a panel width that is no multiple of 4 (element-wise copies, ragged
+    # row tiles) still solves
+    n, Bs, r = 300, 50, 5
+    L = torch.tril(L64[:n, :n]).float()
+    invs = tbt.panel_inverses(L, block_size=Bs)
     B = torch.as_tensor(rng.randn(n, r), dtype=torch.float32, device=dev)
     X = tfs.fused_cho_solve(L, invs, B)
     X_twin = tbt.blocked_cho_solve(L, B, invs=invs)
-    X64 = torch.cholesky_solve(B.double(), torch.tril(L.nan_to_num(0.0)).double(), upper=False)
+    X64 = torch.cholesky_solve(B.double(), L.double(), upper=False)
     torch.cuda.synchronize()
     assert _rel_err([X], [X64]) <= 2 * _rel_err([X_twin], [X64]) + 1e-5
 
@@ -352,14 +397,81 @@ def test_cuda_training_kernels_match_plain_twins():
         st3, st2 = tbm.mosm_pair_stats(*params, twopi)
         Am = torch.as_tensor(rng.randn(n, 17) / n, dtype=torch.float32, device=dev)
         Bm = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
-        got = tbm.pair_stats_vjp(params, twopi, *tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, Am, Bm))
+        raw = tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, Am, Bm)
+        again = tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, Am, Bm)
+        got = tbm.pair_stats_vjp(params, twopi, *raw)
         twin = tbm.pair_stats_vjp(params, twopi, *tbm.mosm_lowrank_vjp_plain(x, counts, st3, st2, Am, Bm))
         p64 = [p.double() for p in params]
         st64 = tbm.mosm_pair_stats(*p64, twopi)
         ref = tbm.pair_stats_vjp(p64, twopi, *tbm.mosm_lowrank_vjp_plain(
             x.double(), counts, *st64, Am.double(), Bm.double()))
         torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(raw, again))
         assert _rel_err(got, ref) <= 2 * _rel_err(twin, ref) + 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_spread_nan_made_on_the_card():
+    """NaN made by the card's own FP32 operations (torch.sqrt(-1): the
+    canonical NaN 0x7fffffff, which an integer TF32 rounding could carry
+    into -0) spreads through K-solve, K-lowrank-vjp and K-matvec as through
+    their plain twins: the same entries are NaN, and none of the others."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mogptk_tpu_torch.ops import blocked_trisolve as tbt
+    from mogptk_tpu_torch.ops import fused_solve as tfs
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    nan = torch.sqrt(-torch.ones((), device=dev))
+
+    def same_nan(got, twin):
+        for g, t in zip(got, twin):
+            assert bool(torch.isnan(t).any()) and torch.equal(torch.isnan(g), torch.isnan(t))
+
+    # K-solve: NaN in one entry of B (its column only), then in the
+    # inverse of one panel (every column)
+    n, Bs = 1024, 256
+    A = torch.as_tensor(rng.randn(n, n) / np.sqrt(n), dtype=torch.float64, device=dev)
+    L = torch.tril(torch.linalg.cholesky(A @ A.T + 2 * torch.eye(n, dtype=torch.float64,
+                                                                 device=dev))).float()
+    invs = tbt.panel_inverses(L, block_size=Bs)
+    B = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
+    Bn = B.clone()
+    Bn[300, 2] = nan
+    invn = invs.clone()
+    invn[1] = invn[1] * nan
+    for args in ((L, invs, Bn), (L, invn, B)):
+        same_nan([tfs.fused_cho_solve(*args)], [tbt.blocked_cho_solve(args[0], args[2],
+                                                                      invs=args[1])])
+
+    counts, O, Q, D = (300, 260), 2, 2, 1
+    n = sum(counts)
+    x = torch.as_tensor(np.sort(rng.rand(n, D) * 20, axis=0), dtype=torch.float32, device=dev)
+    params = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
+        0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
+        0.1 * rng.randn(O, Q, D), 0.1 * rng.randn(O, Q))]
+    twopi = float(np.sqrt(2 * np.pi))
+    st3, st2 = tbm.mosm_pair_stats(*params, twopi)
+    # K-lowrank-vjp: NaN in one row of A, then of B
+    Am = torch.as_tensor(rng.randn(n, 17) / n, dtype=torch.float32, device=dev)
+    Bm = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
+    for which in (0, 1):
+        AB = [Am.clone(), Bm.clone()]
+        AB[which][100] = nan
+        same_nan(tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, *AB),
+                 tbm.mosm_lowrank_vjp_plain(x, counts, st3, st2, *AB))
+    # K-matvec: NaN in one entry of V (its column only), then in channel 1's
+    # weight, so the Gram the kernel evaluates holds NaN
+    c = tbm.channel_ids(counts, dev)
+    V = torch.as_tensor(rng.randn(n, 33), dtype=torch.float32, device=dev)
+    Vn = V.clone()
+    Vn[400, 5] = nan
+    pn = [p.clone() for p in params]
+    pn[0][1, 0] = nan
+    stn = tbm.mosm_pair_stats(*pn, twopi)
+    for s3, s2, VV in ((st3, st2, Vn), (*stn, V)):
+        same_nan([tmv.mosm_matvec(x, c, s3, s2, VV)], [tmv.mosm_matvec_plain(x, c, s3, s2, VV)])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -112,6 +112,27 @@ def test_fused_solve_twin_matches_jax(n, Bs, r, nan_upper):
     np.testing.assert_allclose(got, X_ref, rtol=RTOL, atol=1e-10 * scale)
 
 
+def test_fused_solve_twin_matches_jax_at_the_widest_rhs():
+    """As test_fused_solve_twin_matches_jax, at the kernel's widest right-hand
+    side (MAX_RHS = 64 columns) and its narrowest panel (Bs = 64, four
+    panels), L's strict upper triangle NaN."""
+    n, Bs, r = 256, 64, tfs.MAX_RHS
+    L = np.linalg.cholesky(_spd(n, 24))
+    B = np.random.RandomState(25).randn(n, r)
+    invs = np.stack([np.linalg.inv(L[i * Bs:(i + 1) * Bs, i * Bs:(i + 1) * Bs])
+                     for i in range(n // Bs)])
+    Lin = L + np.triu(np.full((n, n), np.nan), 1)
+    got = tfs.fused_cho_solve(_t(Lin), _t(invs), _t(B)).numpy()
+    ref_f32, ref_f64 = map(np.asarray, jax_reference.jit(lambda Lin_, B_, invs_: (
+        jax_fused_cho_solve(Lin_.astype(jnp.float32), invs_.astype(jnp.float32),
+                            B_.astype(jnp.float32), block_size=Bs),
+        jax_blocked_cho_solve(Lin_, B_, invs=list(invs_), block_size=Bs)))(
+            jnp.asarray(Lin), jnp.asarray(B), jnp.asarray(invs)))
+    scale = np.abs(ref_f64).max()
+    np.testing.assert_allclose(got, ref_f32, rtol=0, atol=3e-5 * max(scale, 1.0))
+    np.testing.assert_allclose(got, ref_f64, rtol=RTOL, atol=1e-12 * scale)
+
+
 def test_fused_solve_identity_launches_nothing_on_cpu():
     L = torch.eye(256, dtype=torch.float64)
     invs = torch.eye(128, dtype=torch.float64).expand(2, 128, 128)
