@@ -8,15 +8,18 @@ Builds the CUDA kernels from mogptk_tpu_torch/csrc/, holds each against its
 plain PyTorch twin on the card at the shapes of the two paths it drives, on
 the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
 
-- serving: three predict_y requests, the first checked against a float64
-  reference computed on the card with the plain functions;
+- serving: K-gram's square launch (the lower tiles mirrored, bitwise
+  symmetric) and cross launch against the twin, repeats bit-identical;
+  three predict_y requests, the first checked against a float64 reference
+  computed on the card with the plain functions;
 - training: Exact(trace_probes=16) steps of gpr.train (LML, probe-trace
   gradient through the K-gram-lower, K-spanel, K-colwrite, K-solve and
   K-lowrank-vjp kernels, one Adam update), the first step's LML and gradient
   checked against a float64 reference on the card, the first step repeated
   for an identical loss, then three steps;
 - closed-form training: K-gram-bwd against its twin on the first step's
-  dense cotangent (channel-sorted, and the same points permuted), then
+  dense cotangent (channel-sorted, and the same points permuted; repeats
+  bit-identical), then
   Exact(trace_probes=None) steps (K-gram, K-spanel, K-colwrite, K-solve, the
   inverse from the factor and K-gram-bwd), checked as above;
 - the user API: mogptk_tpu_torch.MOSM on a DataSet of the same data trains
@@ -255,23 +258,48 @@ def main():
         cq, xq = model.kernel._split(reqs["b"])
         params = model.kernel._params()
         st3, st2 = bm.mosm_pair_stats(*params, model.kernel.twopi)
-        for name, args in (("sorted Kff %dx%d" % (n, n), (x, c, x, c, st3, st2)),
+        # the square call (x1 is x2: the lower launch with band = N, the
+        # lower 64² tiles, each written to its place and its mirror), then
+        # the cross call
+        for name, args in (("sorted Kff %dx%d (square: lower tiles mirrored)" % (n, n),
+                            (x, c, x, c, st3, st2)),
                            ("cross Kfs %dx%d" % (n, xq.shape[0]), (x, c, xq, cq, st3, st2))):
             got = mg.mosm_gram(*args)
+            again = mg.mosm_gram(*args)
             ref = mg.mosm_gram_pairstats_plain(*args)
             err = float((got - ref).abs().max())
             # float32 cosines of arguments up to ~250 rad: one ulp of the
             # argument is ~1.5e-5 rad, and the two evaluation orders (FMA
             # contraction) differ by a few ulps
             tol = 2e-4 * float(ref.abs().max())
+            square = args[0] is args[2]
+            symmetric = bool(torch.equal(got, got.T)) if square else None
+            repeat = bool(torch.equal(got, again))
+            del again
             ms = median_ms(lambda: mg.mosm_gram(*args))
             pms = median_ms(lambda: mg.mosm_gram_pairstats_plain(*args))
             elems = args[0].shape[0] * args[2].shape[0]
-            bnd = bound(4 * elems, gram_ops(elems, D))
-            print("K-gram %s: max_abs_err %.3e (tol %.3e), max|K| %.4f, kernel %.3f ms, plain %.3f ms, "
-                  "bound %.3f ms (%s)" % ((name, err, tol, float(ref.abs().max()), ms, pms) + bnd))
+            tiles = -(-args[0].shape[0] // 64)
+            evaluated = tiles * (tiles + 1) // 2 * 64 * 64 if square else elems
+            bnd = bound(4 * elems, gram_ops(evaluated, D))
+            print("K-gram %s: max_abs_err %.3e (tol %.3e), max|K| %.4f, bitwise symmetric %s, "
+                  "repeat bit-identical %s, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
+                  % ((name, err, tol, float(ref.abs().max()), symmetric, repeat, ms, pms) + bnd))
             if not err <= tol:
                 fail("K-gram %s disagrees with its plain twin" % name)
+            if not repeat or symmetric is False:
+                fail("K-gram %s: a repeat differs or the square Gram is not symmetric" % name)
+            if square:
+                # the same points as other tensors: the cross launch, every tile
+                x2, c2 = x.clone(), c.clone()
+                cross = mg.mosm_gram(x, c, x2, c2, st3, st2)
+                cerr = float((cross - ref).abs().max())
+                cms = median_ms(lambda: mg.mosm_gram(x, c, x2, c2, st3, st2))
+                print("K-gram sorted Kff %dx%d through the cross launch (every tile): max_abs_err "
+                      "%.3e, kernel %.3f ms" % (n, n, cerr, cms))
+                if not cerr <= tol:
+                    fail("K-gram's cross launch disagrees with its plain twin")
+                del cross, x2, c2
             if "mosm_gram" not in report:
                 report["mosm_gram"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
                                            bound=bnd)
@@ -411,7 +439,10 @@ def main():
         err = float((Kl - ref)[written].abs().max())
         tol = 2e-4 * float(ref[written].abs().max())   # as K-gram
         nw = int(written.sum())
-        del written, ref
+        again = bm.mosm_gram_sorted_lower(x, counts, st3, st2, band=band)
+        if not torch.equal(again[written], Kl[written]):
+            fail("K-gram-lower: a repeat differs on the written tiles")
+        del written, ref, again
         ms = median_ms(lambda: bm.mosm_gram_sorted_lower(x, counts, st3, st2, band=band))
         pms = median_ms(lambda: bm.mosm_gram_sorted_lower_plain(x, c, st3, st2, band))
         bnd = bound(4 * nw, gram_ops(nw, D))
@@ -933,8 +964,9 @@ def check_repairs(gpr, bm, mg, X, Y, dev):
         A, Bm = (torch.randn((ns, 17), generator=gen, device=dev) for _ in range(2))
         lowrank_vjp_check(bm, xs3, sc, ps, tp, s3, s2, A, Bm, "generic (Q=5, D=3)", reps=3,
                           plain_reps=1, plain_warmup=0)
-        # the generic forward instances
-        for O, Qg, Dg in ((20, 4, 2), (2, 1, 9)):
+        # the generic forward instances, then K-gram's unrolled instances
+        # with the component loop at run time (D = 4; Q = 5)
+        for O, Qg, Dg in ((20, 4, 2), (2, 1, 9), (3, 2, 4), (2, 5, 1)):
             n = 4096
             xg = torch.as_tensor(rng.rand(n, Dg) * 10, dtype=torch.float32, device=dev)
             cg = torch.as_tensor(rng.randint(0, O, n), dtype=torch.int32, device=dev)
@@ -950,10 +982,11 @@ def check_repairs(gpr, bm, mg, X, Y, dev):
                                                   mg.kernel_instance("forward", O, Qg, Dg), err,
                                                   2e-4 * kmax, ms))
             if not err <= 2e-4 * kmax:
-                fail("K-gram's generic instance disagrees with its plain twin")
+                fail("K-gram at O=%d Q=%d D=%d disagrees with its plain twin" % (O, Qg, Dg))
             del K, Kp
             V = torch.randn((n, 33), generator=gen, device=dev)
-            matvec_check(mv, mg, xg, cg, s3, s2, V, "generic O=%d Q=%d D=%d" % (O, Qg, Dg), reps=3)
+            matvec_check(mv, mg, xg, cg, s3, s2, V, "%s O=%d Q=%d D=%d"
+                         % (mg.kernel_instance("forward", O, Qg, Dg), O, Qg, Dg), reps=3)
 
     # float64 on the card: the plain twins on the card against the CPU
     saved = gpr.config._dtype
@@ -1980,8 +2013,8 @@ def check_readout_and_predict(gpr, xs, ys, X, Y, Xq, dev):
 def check_gram_bwd(model, bm, mg):
     """K-gram-bwd against its plain twin on the first closed-form step's
     dense cotangent dK = ½(ααᵀ − K⁻¹) of `model`, channel-sorted and with the
-    points permuted, each against a float64 evaluation of the twin. Returns
-    the channel-sorted call's report entry."""
+    points permuted, each against a float64 evaluation of the twin, a
+    repeat bit-identical. Returns the channel-sorted call's report entry."""
     import torch
     from mogptk_tpu_torch.ops import linalg as la
     n, dev, D = model.X.shape[0], model.X.device, model.kernel.input_dims
@@ -2003,6 +2036,10 @@ def check_gram_bwd(model, bm, mg):
         for label, args, cnt in (("channel-sorted", (x, c, x, c, st3, st2, G), counts),
                                  ("permuted", (xp, cp, xp, cp, st3, st2, Gp), None)):
             got = mg.mosm_gram_bwd(*args, cnt, cnt)
+            again = mg.mosm_gram_bwd(*args, cnt, cnt)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail("K-gram-bwd (%s): a repeated call differs" % label)
+            del again
             twin = mg.mosm_gram_bwd_plain(*args)
             err_k = max(float((a.double() - r).abs().max()) for a, r in zip(got, ref))
             err_t = max(float((a.double() - r).abs().max()) for a, r in zip(twin, ref))

@@ -12,7 +12,10 @@ mosm_matvec.cu (K-matvec) and mosm_gram_bwd.cu (K-gram-bwd) with that
 root's own headers and the nvcc flags of ops/_build.py, each into a library
 of its own under NEW_ROOT/mogptk_tpu_torch/_build/ab/, and calls them in the
 same process on the same inputs: the 4 x 4,096-point bench model of
-chip_smoke.py (K-gram over 16,384^2, 16,384 x 4,096 and the band-lower Gram;
+chip_smoke.py (K-gram over 16,384^2, 16,384 x 4,096 and the band-lower Gram,
+a root whose band-lower entry takes no tile argument taking it with band =
+N for the 16,384^2 Gram, as its wrapper does; K-gram over 16,384 x 4,096 at
+D = 4 on random statistics;
 K-matvec at R = 33; K-gram-bwd's parameter half on a dense 16,384^2
 cotangent, its unrolled instance, the closed-form step's call) and K-matvec
 at benchmarks/bignum_exact.py's N = 65,536, R = 33 (a root with the fold,
@@ -328,16 +331,41 @@ def main():
     def ptr(t):
         return P(t.data_ptr())
 
+    def lower_takes_tile(side):
+        return has(roots[side], "mosm_gram.cu", "int64_t tile, int64_t band")
+
     def gram(lib, out, x2, c2):
-        tail = inst[side_of[id(lib)]] + [P(stream)]
+        side = side_of[id(lib)]
+        tail = inst[side] + [P(stream)]
+        if x2 is x and not lower_takes_tile(side):   # the square call: band = N
+            return lambda: lib.mosm_gram_lower_f32(ptr(x), ptr(c), ptr(stats), ptr(out), I64(n),
+                                                   I32(O), I32(Q), I32(D), I64(n), *tail)
         return lambda: lib.mosm_gram_f32(ptr(x), ptr(c), ptr(x2), ptr(c2), ptr(stats), ptr(out),
                                          I64(n), I64(x2.shape[0]), I32(O), I32(Q), I32(D), *tail)
 
     def lower(lib, out):
-        tail = inst[side_of[id(lib)]] + [P(stream)]
+        side = side_of[id(lib)]
+        tile = [I64(bm.TILE)] if lower_takes_tile(side) else []
         return lambda: lib.mosm_gram_lower_f32(ptr(x), ptr(c), ptr(stats), ptr(out), I64(n),
-                                               I32(O), I32(Q), I32(D), I64(bm.TILE), I64(512),
-                                               *tail)
+                                               I32(O), I32(Q), I32(D), *tile, I64(512),
+                                               *inst[side], P(stream))
+
+    # K-gram at D = 4 on random pair statistics
+    gen4 = torch.Generator(device=dev).manual_seed(4)
+    D4 = 4
+    x4 = torch.cat([x * s for s in (1.0, 0.8, 0.6, 0.4)], 1).contiguous()
+    xq4 = x4[::4].contiguous()
+    params4 = [0.5 + torch.rand((O, Q), generator=gen4, device=dev)] + [
+        lo + sc * torch.rand((O, Q, D4), generator=gen4, device=dev)
+        for lo, sc in ((0.1, 1.0), (0.2, 1.0), (-0.05, 0.1))] + [
+        0.1 * torch.randn((O, Q), generator=gen4, device=dev)]
+    stats4 = mg.stats_table(*bm.mosm_pair_stats(*params4, (2 * torch.pi) ** (D4 / 2)))
+
+    def gram4(lib, out):
+        tail = inst[side_of[id(lib)]] + [P(stream)]
+        return lambda: lib.mosm_gram_f32(ptr(x4), ptr(c), ptr(xq4), ptr(cq), ptr(stats4),
+                                         ptr(out), I64(n), I64(xq4.shape[0]), I32(O), I32(Q),
+                                         I32(D4), *tail)
 
     def matvec(lib, out, xx, cc, VV):
         side = side_of[id(lib)]
@@ -398,7 +426,8 @@ def main():
     gram_cases = (("K-gram %dx%d" % (n, n), (n, n), lambda lib, o: gram(lib, o, x, c)),
                   ("K-gram %dx%d" % (n, xq.shape[0]), (n, xq.shape[0]),
                    lambda lib, o: gram(lib, o, xq, cq)),
-                  ("K-gram-lower %dx%d band 512" % (n, n), (n, n), lower))
+                  ("K-gram-lower %dx%d band 512" % (n, n), (n, n), lower),
+                  ("K-gram %dx%d D=%d" % (n, xq4.shape[0], D4), (n, xq4.shape[0]), gram4))
     for name, shape, make in gram_cases if all("mosm_gram.cu" in l for l in libs.values()) else ():
         cases.append((name, "mosm_gram.cu", 10, {
             side: (lambda o: (make(libs[side]["mosm_gram.cu"], o), o))(

@@ -1,5 +1,6 @@
-// One element of the MOSM Gram from the channel-pair statistics, shared by
-// K-gram (csrc/mosm_gram.cu) and K-matvec (csrc/mosm_matvec.cu):
+// One element of the MOSM Gram from the channel-pair statistics, for K-matvec
+// and K-gram-matvec (csrc/mosm_matvec.cu; K-gram has its own, in
+// csrc/mosm_gram.cu):
 //   K = sum_q alpha_q exp(-1/2 sum_d V_qd tau_d^2) cos(2 pi (sum_d M_qd tau_d + dphi_q)),
 //   tau_d = xi[d] - xj[d] + dtheta_qd,
 // where p is the pair's row of the table (ops/mosm_gram.stats_table):

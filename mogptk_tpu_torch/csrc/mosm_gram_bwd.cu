@@ -29,29 +29,34 @@
 // g = 0, contribute nothing and are written nowhere.
 //
 // Bound: the read of g, N*M*4 bytes (1.07 GB at N = 16,384; 67 MB for the
-// sparse models' Kuf at M = 1,024, N = 16,384), against Q expf and Q sincosf
-// with ~20 FMAs per element. Design: K-lowrank-vjp's (same tau chain and
-// reductions, mosm_pair_vjp.cuh) with g loaded from memory instead of formed
-// as A_i B_j^T: a block takes a 128 x 128 quarter of a tile, 256 threads of
-// 8 x 8 elements, rows ty + 16u and columns tx + 16v, so 16 neighbouring
-// threads read 16 neighbouring columns of a row. Each thread first loads its
-// 64 values of g (64 loads in flight), then runs the chain. Each block
-// writes its partial sums; a second kernel sums each pair's partials in a
-// fixed order in float64. The input half keeps per-thread sums of d tau per
-// row and per column in registers, sums them over the block in a fixed order
+// sparse models' Kuf at M = 1,024, N = 16,384), against Q exp and Q sin/cos
+// with ~20 FMAs per element. A block takes a 128 x 128 quarter of a tile,
+// 256 threads of 8 x 8 elements, rows ty + 16u and columns tx + 16v, so 16
+// neighbouring threads read 16 neighbouring columns of a row. Each thread
+// first loads its 64 values of g (64 loads in flight), then runs the chain
+// four elements at a time with the component loop outermost, so four
+// independent exp and sin/cos chains overlap on the special-function units:
+// the exponential on ex2 (__expf) and sin/cos(2 pi (a + dphi)) after an exact
+// reduction by whole turns (mosm_pair_vjp.cuh pair_cotangents4 and
+// sincos_two_pi, shared with K-lowrank-vjp, which say why their error is far
+// below the float32 twin's). Each block writes its partial sums; a second
+// kernel sums each pair's partials in a fixed order in float64, 256 threads
+// a pair (pair_reduce_wide_kernel).
+//
+// The input half (inputs != 0) keeps per-thread sums of d tau per row and
+// per column in registers, sums them over the block in a fixed order
 // (shuffles, then the warps in order) into per-block 128 x D row and column
 // slabs, and two more small kernels sum each laid-out row over the tiles of
 // its row and each column over the tiles of its column, in a fixed order in
 // float64, and scatter to the caller's rows. The input half is a template
-// flag, so the parameter-only instance is the same code as before it; its
-// instances are compiled from csrc/mosm_gram_bwd_inputs.cu, beside this
-// file's, in parallel (csrc/mosm_gram_bwd.cuh holds the shared tile kernel).
-// No atomics anywhere: deterministic.
+// flag; its instances are compiled from csrc/mosm_gram_bwd_inputs.cu, beside
+// this file's, in parallel (csrc/mosm_gram_bwd.cuh holds the shared tile
+// kernel). No atomics anywhere: deterministic.
 //
 // Two instances (ops/mosm_gram.kernel_instance chooses): unrolled over Q and
 // D for Q <= 4, D <= 2, and a generic one for any Q and D
-// (mosm_pair_vjp.cuh generic_tile: runtime loops, the pair statistics read
-// from global memory).
+// (mosm_pair_vjp.cuh generic_tile: runtime loops, full-precision expf and
+// sincosf, the pair statistics read from global memory).
 #include "mosm_gram_bwd.cuh"
 
 namespace {
@@ -109,6 +114,35 @@ __global__ void input_reduce_kernel(const float* __restrict__ part, const int* _
     }
 }
 
+// out[pair] = the sum of the pair's partial rows in float64, in a fixed
+// order: thread t sums rows t, t + 256, ... in order, then the block's sums
+// meet by warp shuffles and the eight warp sums in order. pairs: (P, 3)
+// int32 [pair id, first partial row, row count]. A block a pair: each
+// pair's thousands of rows at N = 16,384 in a few loads a thread, where the
+// 32-thread pair_reduce_kernel (K-lowrank-vjp's and the other kernels',
+// whose sums stay as they are) runs each column's rows through one thread.
+__global__ void __launch_bounds__(256)
+pair_reduce_wide_kernel(const float* __restrict__ partial, const int* __restrict__ pairs,
+                        float* __restrict__ out, int nout) {
+    __shared__ double wsum[8];
+    const int p = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
+    const int pair = pairs[3 * p], first = pairs[3 * p + 1], count = pairs[3 * p + 2];
+    for (int k = 0; k < nout; ++k) {
+        double v = 0.0;
+        for (int i = t; i < count; i += 256) v += (double)partial[(int64_t)(first + i) * nout + k];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+        if (lane == 0) wsum[warp] = v;
+        __syncthreads();
+        if (t == 0) {
+            double s = 0.0;
+            for (int w = 0; w < 8; ++w) s += wsum[w];
+            out[(int64_t)pair * nout + k] = (float)s;
+        }
+        __syncthreads();
+    }
+}
+
 }  // namespace
 
 // idx (S, 3) int32 tiles [ti, tj, pair]; g (N, M) row-major; x1 (N, D),
@@ -158,7 +192,8 @@ extern "C" int mosm_gram_bwd_f32(const int* idx, const float* g, const float* x1
     if (!launched) return (int)cudaErrorInvalidValue;
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    pair_reduce_kernel<<<(unsigned)P, 32, 0, stream>>>(partial, pairs, out, 3 * Q * D + 2 * Q);
+    pair_reduce_wide_kernel<<<(unsigned)P, 256, 0, stream>>>(partial, pairs, out,
+                                                             3 * Q * D + 2 * Q);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     if (rows) {

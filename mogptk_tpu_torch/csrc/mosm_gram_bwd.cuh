@@ -33,8 +33,10 @@ __device__ __forceinline__ void load_tile(const int* __restrict__ idx, const flo
             gt[u][v] = (ri[u] >= 0 && cj[v] >= 0) ? g[(int64_t)ri[u] * M + cj[v]] : 0.0f;
 }
 
+// Two blocks an SM (at most 128 registers a thread) where the chain's sums
+// are few.
 template <int Q, int D, bool kInputs>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (!kInputs && Q * D <= 2) ? 2 : 1)
 gram_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ g, int64_t M,
                 const float* __restrict__ x1, const int* __restrict__ rmap,
                 const float* __restrict__ x2, const int* __restrict__ cmap,
@@ -62,38 +64,44 @@ gram_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ g, int64_
     float acc[NOUT];
 #pragma unroll
     for (int k = 0; k < NOUT; ++k) acc[k] = 0.0f;
+    float racc[kInputs ? kMicro : 1][D], cacc[kInputs ? kMicro : 1][D];
     if constexpr (kInputs) {
-        __shared__ float colred[kThreads / 32][kSub][D];
-        float racc[kMicro][D], cacc[kMicro][D];
 #pragma unroll
         for (int u = 0; u < kMicro; ++u)
 #pragma unroll
             for (int d = 0; d < D; ++d) racc[u][d] = cacc[u][d] = 0.0f;
+    }
 #pragma unroll
-        for (int u = 0; u < kMicro; ++u)
+    for (int u = 0; u < kMicro; ++u)
 #pragma unroll
-            for (int v = 0; v < kMicro; ++v) {
-                float tau[D];
+        for (int v0 = 0; v0 < kMicro; v0 += 4) {
+            float gv[4], xs[4][D], tau[4][D];
 #pragma unroll
-                for (int d = 0; d < D; ++d) tau[d] = 0.0f;
-                add_pair_cotangents<Q, D, true>(gt[u][v], xi[u], xj[v], st, acc, tau);
+            for (int k = 0; k < 4; ++k) {
+                gv[k] = gt[u][v0 + k];
 #pragma unroll
                 for (int d = 0; d < D; ++d) {
-                    racc[u][d] += tau[d];
-                    cacc[v][d] += tau[d];
+                    xs[k][d] = xj[v0 + k][d];
+                    tau[k][d] = 0.0f;
                 }
             }
-        block_reduce_store<NOUT>(acc, red, partial + (int64_t)blockIdx.x * NOUT);
+            pair_cotangents4<Q, D, kInputs>(gv, xi[u], xs, st, acc, tau);
+            if constexpr (kInputs) {
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+#pragma unroll
+                    for (int d = 0; d < D; ++d) {
+                        racc[u][d] += tau[k][d];
+                        cacc[v0 + k][d] += tau[k][d];
+                    }
+            }
+        }
+    block_reduce_store<NOUT>(acc, red, partial + (int64_t)blockIdx.x * NOUT);
+    if constexpr (kInputs) {
+        __shared__ float colred[kThreads / 32][kSub][D];
         if (rows) store_row_sums<D>(racc, rowpart + (int64_t)blockIdx.x * kSub * D, D, 0, D);
         if (cols)
             store_col_sums<D>(cacc, colred, colpart + (int64_t)blockIdx.x * kSub * D, D, 0, D);
-    } else {
-#pragma unroll
-        for (int u = 0; u < kMicro; ++u)
-#pragma unroll
-            for (int v = 0; v < kMicro; ++v)
-                add_pair_cotangents<Q, D>(gt[u][v], xi[u], xj[v], st, acc);
-        block_reduce_store<NOUT>(acc, red, partial + (int64_t)blockIdx.x * NOUT);
     }
 }
 

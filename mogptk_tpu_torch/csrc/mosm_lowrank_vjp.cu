@@ -34,8 +34,9 @@
 // the component loop outermost, so four independent exp and sin/cos chains
 // overlap, on the special-function units: sin/cos(2 pi (a + dphi)) after an
 // exact reduction by whole turns, where sincosf's slow path past |x| ~ 1e5
-// keeps the chains apart (sincos_two_pi says why its error is far below the
-// float32 twin's; the unrolled instance only, the generic one keeps
+// keeps the chains apart (add_pair_cotangents4 and sincos_two_pi in
+// mosm_pair_vjp.cuh, shared with K-gram-bwd, say why its error is far below
+// the float32 twin's; the unrolled instance only, the generic one keeps
 // mosm_pair_vjp.cuh's library functions). No 2^16
 // prescale: a product below FLT_MIN that the tensor cores flush moves an
 // element of g by < 2^-126 R, far below the float32 rounding of the
@@ -45,8 +46,8 @@
 // across the TPU's sequential grid: each block writes its 3QD + 2Q partial
 // sums (a fixed-order warp and block reduction, no atomics), and a second
 // kernel sums each pair's partials in a fixed order in float64. The result
-// is deterministic. The reductions (and the generic instance's tile) are
-// shared with csrc/mosm_gram_bwd.cu (mosm_pair_vjp.cuh).
+// is deterministic. The reductions, the four-element chain and the generic
+// instance's tile are shared with csrc/mosm_gram_bwd.cu (mosm_pair_vjp.cuh).
 //
 // Any R: the operands hold RC <= 64 columns of A and B at a time
 // (ops/block_mosm.lowrank_chunk chooses RC, lowrank_kpad its KH), and g
@@ -138,73 +139,6 @@ __device__ __forceinline__ int elem_row(int u) {
 __device__ __forceinline__ int elem_col(int v) {
     const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
     return 32 * (w & 3) + 8 * (v >> 1) + 2 * (lane & 3) + (v & 1);
-}
-
-// S, C = sin, cos (2 pi y): y2 = 2 y exactly, k = rint(y2), and the reduced
-// argument pi (y2 - k) in [-pi/2, pi/2], exact but for the product by pi
-// (< 2^-24 relative), on the hardware's sin and cos (absolute error
-// < 2^-21.4 there), the sign flipped for odd k. A float32 y of ~40 (the
-// bench data's angles reach ~250 rad) carries an absolute error of 2 pi
-// ulp(y) / 2 ~ 1.5e-5 rad in the plain twin's cos(2 pi y), far above these.
-__device__ __forceinline__ void sincos_two_pi(float y, float& S, float& C) {
-    const float y2 = 2.0f * y;
-    const float k = rintf(y2);
-    float s, c;
-    __sincosf(3.14159265358979f * (y2 - k), &s, &c);
-    const float sign = ((int)k & 1) ? -1.0f : 1.0f;
-    S = sign * s;
-    C = sign * c;
-}
-
-// acc += gv[k] * dK/dst for four elements at once (inputs xi, xj[k]) under
-// the pair table st: add_pair_cotangents's arithmetic, with the component
-// loop outermost so the four exp and sin/cos chains are independent, the
-// exponential on the hardware's ex2 (__expf: a few ulp, plus |x| 2^-24
-// relative from scaling x by log2 e, < 1.2e-6 where E > e^-20) and sin/cos
-// by sincos_two_pi.
-template <int Q, int D>
-__device__ __forceinline__ void add_pair_cotangents4(const float (&gv)[4], const float (&xi)[D],
-                                                     const float (&xj)[4][D], const float* st,
-                                                     float (&acc)[3 * Q * D + 2 * Q]) {
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-        float td[4][D], e[4], a[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            e[k] = a[k] = 0.0f;
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                const float* s3 = st + 3 * (q * D + d);
-                td[k][d] = (xi[d] - xj[k][d]) + s3[2];
-                e[k] += td[k][d] * td[k][d] * s3[0];
-                a[k] += td[k][d] * s3[1];
-            }
-        }
-        const float alpha = st[3 * Q * D + 2 * q], dphi = st[3 * Q * D + 2 * q + 1];
-        float E[4], S[4], C[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            E[k] = __expf(-0.5f * e[k]);
-            sincos_two_pi(a[k] + dphi, S[k], C[k]);
-        }
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const float gE = gv[k] * E[k];
-            const float P = alpha * gE;
-            const float dang = -P * S[k];
-            const float de = -0.5f * P * C[k];
-            const float da = kTwoPi * dang;
-            acc[3 * Q * D + 2 * q] += gE * C[k];
-            acc[3 * Q * D + 2 * q + 1] += kTwoPi * dang;
-#pragma unroll
-            for (int d = 0; d < D; ++d) {
-                const float* s3 = st + 3 * (q * D + d);
-                acc[3 * (q * D + d)] += de * td[k][d] * td[k][d];
-                acc[3 * (q * D + d) + 1] += da * td[k][d];
-                acc[3 * (q * D + d) + 2] += de * (2.0f * s3[0]) * td[k][d] + da * s3[1];
-            }
-        }
-    }
 }
 
 template <int Q, int D>

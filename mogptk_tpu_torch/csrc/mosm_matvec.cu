@@ -19,7 +19,7 @@
 //     and V with zero rows to its tile; here the kernel masks the ragged
 //     row and column edges itself and reads nothing past N or M.
 // Per element, the statistics those of the pair (c1[i], c2[j]), as K-gram
-// (csrc/mosm_element.cuh, shared with csrc/mosm_gram.cu):
+// (csrc/mosm_element.cuh, at full precision):
 //   K[i,j] = sum_q alpha_q * exp(-1/2 sum_d V_qd tau_d^2) * cos(2 pi (sum_d M_qd tau_d + dphi_q)),
 //   tau_d = x1[i,d] - x2[j,d] + dtheta_qd.
 //

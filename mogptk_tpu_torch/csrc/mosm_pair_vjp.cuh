@@ -1,11 +1,12 @@
 // Shared parts of the two kernels that reduce a Gram cotangent to
 // channel-pair statistics cotangents (csrc/mosm_lowrank_vjp.cu, where the
 // cotangent is A B^T, and csrc/mosm_gram_bwd.cu, where it is read from
-// memory): the tile geometry, the per-element backward of the tau chain,
-// the fixed-order block reductions, the fixed-order per-pair reduction in
-// float64 and, for csrc/mosm_gram_bwd.cu's input half, the per-row and
-// per-column sums of d tau and their fixed-order float64 reduction. No
-// atomics, so both kernels are deterministic.
+// memory): the tile geometry, the per-element backward of the tau chain
+// (at full precision one element at a time, and on the hardware's exp and
+// sin/cos four elements at a time), the fixed-order block reductions, the
+// fixed-order per-pair reduction in float64 and, for csrc/mosm_gram_bwd.cu's
+// input half, the per-row and per-column sums of d tau and their fixed-order
+// float64 reduction. No atomics, so both kernels are deterministic.
 //
 // Per pair the statistics are [V, M, dtheta] x (q, d), then [alpha, dphi] x q
 // (ops/mosm_gram.stats_table), NOUT = 3QD + 2Q numbers, and
@@ -82,6 +83,94 @@ __device__ __forceinline__ void add_pair_cotangents(float gv, const float (&xi)[
                                                     float (&acc)[3 * Q * D + 2 * Q]) {
     float unused[D];
     add_pair_cotangents<Q, D, false>(gv, xi, xj, st, acc, unused);
+}
+
+// S, C = sin, cos (2 pi y): y2 = 2 y exactly, k = rint(y2), and the reduced
+// argument pi (y2 - k) in [-pi/2, pi/2], exact but for the product by pi
+// (< 2^-24 relative), on the hardware's sin and cos (absolute error
+// < 2^-21.4 there), the sign flipped for odd k. A float32 y of ~40 (the
+// bench data's angles reach ~250 rad) carries an absolute error of 2 pi
+// ulp(y) / 2 ~ 1.5e-5 rad in the plain twin's cos(2 pi y), far above these.
+// A NaN y gives NaN for both ((int)k is then 0, the sign +1).
+__device__ __forceinline__ void sincos_two_pi(float y, float& S, float& C) {
+    const float y2 = 2.0f * y;
+    const float k = rintf(y2);
+    float s, c;
+    __sincosf(3.14159265358979f * (y2 - k), &s, &c);
+    const float sign = ((int)k & 1) ? -1.0f : 1.0f;
+    S = sign * s;
+    C = sign * c;
+}
+
+// acc += gv[k] * dK/dst for four elements at once (inputs xi, xj[k]) under
+// the pair table st: add_pair_cotangents's arithmetic, with the component
+// loop outermost so the four exp and sin/cos chains are independent, the
+// exponential on the hardware's ex2 (__expf: a few ulp, plus |x| 2^-24
+// relative from scaling x by log2 e, < 1.2e-6 where E > e^-20) and sin/cos
+// by sincos_two_pi. Shared by K-lowrank-vjp (csrc/mosm_lowrank_vjp.cu) and
+// K-gram-bwd (csrc/mosm_gram_bwd.cuh).
+//
+// kTau (K-gram-bwd's input half): tau[k][d] += sum_q the cotangent of tau_qd
+// of element k, the term summed into dtheta_qd's slot.
+template <int Q, int D, bool kTau>
+__device__ __forceinline__ void pair_cotangents4(const float (&gv)[4], const float (&xi)[D],
+                                                 const float (&xj)[4][D], const float* st,
+                                                 float (&acc)[3 * Q * D + 2 * Q],
+                                                 float (&tau)[4][D]) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+        float td[4][D], e[4], a[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            e[k] = a[k] = 0.0f;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float* s3 = st + 3 * (q * D + d);
+                td[k][d] = (xi[d] - xj[k][d]) + s3[2];
+                e[k] += td[k][d] * td[k][d] * s3[0];
+                a[k] += td[k][d] * s3[1];
+            }
+        }
+        const float alpha = st[3 * Q * D + 2 * q], dphi = st[3 * Q * D + 2 * q + 1];
+        float E[4], S[4], C[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            E[k] = __expf(-0.5f * e[k]);
+            sincos_two_pi(a[k] + dphi, S[k], C[k]);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const float gE = gv[k] * E[k];
+            const float P = alpha * gE;
+            const float dang = -P * S[k];
+            const float de = -0.5f * P * C[k];
+            const float da = kTwoPi * dang;
+            acc[3 * Q * D + 2 * q] += gE * C[k];
+            acc[3 * Q * D + 2 * q + 1] += kTwoPi * dang;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float* s3 = st + 3 * (q * D + d);
+                acc[3 * (q * D + d)] += de * td[k][d] * td[k][d];
+                acc[3 * (q * D + d) + 1] += da * td[k][d];
+                if constexpr (kTau) {
+                    const float dt = de * (2.0f * s3[0]) * td[k][d] + da * s3[1];
+                    acc[3 * (q * D + d) + 2] += dt;
+                    tau[k][d] += dt;
+                } else {
+                    acc[3 * (q * D + d) + 2] += de * (2.0f * s3[0]) * td[k][d] + da * s3[1];
+                }
+            }
+        }
+    }
+}
+
+// The four-element chain without the input half (K-lowrank-vjp).
+template <int Q, int D>
+__device__ __forceinline__ void add_pair_cotangents4(const float (&gv)[4], const float (&xi)[D],
+                                                     const float (&xj)[4][D], const float* st,
+                                                     float (&acc)[3 * Q * D + 2 * Q]) {
+    float tau[4][D];
+    pair_cotangents4<Q, D, false>(gv, xi, xj, st, acc, tau);
 }
 
 // Sums acc over the block in a fixed order (warp shuffles, then the warp

@@ -60,9 +60,8 @@ SIGNATURES = {
     "col_commit_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
     # W, out, n, block, stream
     "syrk_lower_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_ptr],
-    # x, c, stats, out, N, O, Q, D, tile, band, generic, stream
-    "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_i64, _c_int,
-                                           _c_ptr],
+    # x, c, stats, out, N, O, Q, D, band, generic, stream
+    "mosm_gram_lower_f32": [_c_ptr] * 4 + [_c_i64, _c_int, _c_int, _c_int, _c_i64, _c_int, _c_ptr],
     # idx, x, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, KH, generic, stream
     "mosm_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 8 + [_c_ptr],
     # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, S, P, M, Q, D, generic, inputs,

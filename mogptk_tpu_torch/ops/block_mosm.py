@@ -135,7 +135,7 @@ def mosm_gram_sorted_lower(x, counts, st3, st2, band=1024):
     check_gram_inputs("mosm_gram_sorted_lower", x, c, x, c, stats, D)
     out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     err = _build.library().mosm_gram_lower_f32(
-        x.data_ptr(), c.data_ptr(), stats.data_ptr(), out.data_ptr(), n, O, Q, D, TILE, band,
+        x.data_ptr(), c.data_ptr(), stats.data_ptr(), out.data_ptr(), n, O, Q, D, band,
         generic_flag("forward", st3), _build.stream_ptr(x))
     _build.check(err, "mosm_gram_lower_f32")
     mosm_gram_sorted_lower.launches += 1

@@ -30,7 +30,8 @@ from . import _build
 
 _two_pi = 2.0 * np.pi
 SMEM_TABLE_BYTES = 48 * 1024   # the unrolled forward kernels' pair table in shared memory
-FWD_MAX_D = 8                  # the unrolled forward element (csrc/mosm_element.cuh kMaxD)
+FWD_MAX_D = 8                  # the unrolled forward instances (csrc/mosm_element.cuh kMaxD,
+                               # csrc/mosm_gram.cu kGMaxD)
 BWD_MAX_Q, BWD_MAX_D = 4, 2    # the unrolled (Q, D) instances of the backward kernels
 BWD_TILE = 256                 # K-gram-bwd's tile edge: channels are padded to it
 
@@ -44,7 +45,8 @@ def kernel_instance(kind, O, Q, D):
     else generic (the input-dim loop to the runtime D, the pair table read
     from global memory). kind "backward" (K-gram-bwd, K-lowrank-vjp):
     unrolled over Q and D for Q <= 4 and D <= 2; else generic (runtime loops
-    over Q and D). Both instances take any shape their kind allows."""
+    over Q and D). Both instances take any shape their kind allows; the C
+    entries refuse an unrolled call of a shape they have no instance of."""
     if kind == "forward":
         table = 4 * O * O * (3 * Q * D + 2 * Q)
         fast = D <= FWD_MAX_D and table <= SMEM_TABLE_BYTES
@@ -159,18 +161,35 @@ def check_gram_inputs(name, x1, c1, x2, c2, stats, D):
         raise ValueError("%s: x1 (N, D), c1 (N,), x2 (M, D), c2 (M,) expected" % name)
 
 
+def same_tensor(a, b):
+    """True when a and b are the same tensor or views of the same memory with
+    the same shape, strides and dtype (MosmGram detaches its inputs, which
+    makes new tensor objects of one x)."""
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride() and a.dtype == b.dtype)
+
+
 def _mosm_gram_kernel(x1, c1, x2, c2, st3, st2):
     """(N, M) Gram: one launch of csrc/mosm_gram.cu (float32, contiguous,
-    CUDA), or raises."""
+    CUDA), or raises. Where x1 and x2 are the same tensor and c1 and c2 are
+    the same tensor (mosm_gram_sorted, K(X) and K(Z)), the lower launch with
+    band = N: the lower tiles only, each written to its place and its
+    mirror, so the Gram is bitwise symmetric."""
     O, _, Q, D, _ = st3.shape
     stats = stats_table(st3, st2)
     check_gram_inputs("mosm_gram", x1, c1, x2, c2, stats, D)
     N, M = x1.shape[0], x2.shape[0]
     out = torch.empty((N, M), dtype=torch.float32, device=x1.device)
-    err = _build.library().mosm_gram_f32(
-        x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), stats.data_ptr(),
-        out.data_ptr(), N, M, O, Q, D, generic_flag("forward", st3), _build.stream_ptr(x1))
-    _build.check(err, "mosm_gram_f32")
+    if same_tensor(x1, x2) and same_tensor(c1, c2):
+        err = _build.library().mosm_gram_lower_f32(
+            x1.data_ptr(), c1.data_ptr(), stats.data_ptr(), out.data_ptr(), N, O, Q, D, N,
+            generic_flag("forward", st3), _build.stream_ptr(x1))
+        _build.check(err, "mosm_gram_lower_f32")
+    else:
+        err = _build.library().mosm_gram_f32(
+            x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), stats.data_ptr(),
+            out.data_ptr(), N, M, O, Q, D, generic_flag("forward", st3), _build.stream_ptr(x1))
+        _build.check(err, "mosm_gram_f32")
     mosm_gram.launches += 1
     return out
 
@@ -277,7 +296,9 @@ def mosm_gram_bwd(x1, c1, x2, c2, st3, st2, g, counts1=None, counts2=None, input
     dx2 = torch.zeros_like(x2) if inputs & 2 else None
     S = idx_np.shape[0]
     if S:
-        rmap, cmap = channel_map(c1, counts1), channel_map(c2, counts2)
+        rmap = channel_map(c1, counts1)
+        # one channel order for rows and columns (K(X), K(Z)): one map
+        cmap = rmap if same_tensor(c1, c2) and counts1 == counts2 else channel_map(c2, counts2)
         idx, pairs = _device_gram_layout(counts1, counts2, BWD_TILE, x1.device)
         partial = torch.empty((4 * S, nout), dtype=torch.float32, device=x1.device)
         floats, null = [g, partial], 0

@@ -314,6 +314,19 @@ def test_gram_layout():
     assert tmg.channel_map(c, counts, T=4).tolist() == [1, 3, 4, -1, 0, 2, -1, -1]
 
 
+@pytest.mark.parametrize("other,same", [
+    (lambda x: x, True), (lambda x: x.detach(), True), (lambda x: x.clone(), False),
+    (lambda x: x[:-1], False)], ids=["itself", "detached", "copy", "shorter"])
+def test_same_tensor_tells_the_same_memory_from_a_copy(other, same):
+    """same_tensor, which picks K-gram's lower launch (band = N, the lower
+    tiles mirrored) and K-gram-bwd's one channel map for rows and columns:
+    true for the tensor itself and for views of its memory with its shape
+    and strides (MosmGram detaches its inputs), false for a copy and for a
+    view of another shape."""
+    x = torch.arange(12.0).reshape(4, 3)
+    assert tmg.same_tensor(x, other(x)) is same
+
+
 def _spd(n, seed):
     rng = np.random.RandomState(seed)
     A = rng.randn(n, n) / np.sqrt(n)

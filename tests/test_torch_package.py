@@ -193,7 +193,11 @@ def test_matvec_fold_plan_covers_each_tile_pair_once(N):
 def test_cuda_kernels_match_plain_twins():
     """Each kernel against its plain twin on the card, float32, small shapes.
     Tolerances: K-gram 2e-4·max|K| (float32 cosines of arguments up to
-    ~30 rad here); K-spanel, K-colwrite and K-sdiag 2·k·2⁻²⁴·max(|A||B|ᵀ),
+    ~30 rad here), its square launch (x1 is x2: the lower launch with band
+    = N, the lower tiles mirrored) bitwise symmetric, at n = 300 and 557
+    (partial tiles, rows not 16-byte aligned) and channel-sorted, repeats
+    bit-identical, and at D = 4 and Q = 5 (the component loop at run
+    time); K-spanel, K-colwrite and K-sdiag 2·k·2⁻²⁴·max(|A||B|ᵀ),
     the summation-order bound of two float32 dot products of length k; the
     repaired factors (n = 300 forced, diag ~ 1e30) 1e-4 of max|L| from
     float64 (κ ≤ 5 here); K-matvec as test_cuda_matvec_matches_plain_twin,
@@ -215,6 +219,38 @@ def test_cuda_kernels_match_plain_twins():
     ref = tmg.mosm_gram_pairstats_plain(x1, c1, x2, c2, st3, st2)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= 2e-4 * float(ref.abs().max())
+    xs = torch.as_tensor(np.sort(rng.rand(557, D) * 50, axis=0), dtype=torch.float32, device=dev)
+    for xx, cc in ((x1, c1), (xs, torch.as_tensor(rng.randint(0, O, 557), dtype=torch.int32,
+                                                  device=dev)),
+                   (xs, tbm.channel_ids((300, 1, 256), dev))):
+        launches = tmg.mosm_gram.launches
+        got = tmg.mosm_gram(xx, cc, xx, cc, st3, st2)
+        assert tmg.mosm_gram.launches == launches + 1
+        ref = tmg.mosm_gram_pairstats_plain(xx, cc, xx, cc, st3, st2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, got.T) and torch.equal(tmg.mosm_gram(xx, cc, xx, cc, st3, st2), got)
+        assert float((got - ref).abs().max()) <= 2e-4 * float(ref.abs().max()), xx.shape
+        # the same points as another tensor: the cross launch, every tile
+        cross = tmg.mosm_gram(xx, cc, xx.clone(), cc.clone(), st3, st2)
+        assert float((cross - ref).abs().max()) <= 2e-4 * float(ref.abs().max()), xx.shape
+    # K-gram's unrolled instances with the component loop at run time (D = 4;
+    # Q = 5), square and cross, channels sorted and not
+    rk = np.random.RandomState(5)
+    for Qk, Dk in ((2, 4), (5, 1)):
+        pk = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
+            0.5 + rk.rand(O, Qk), 0.1 + rk.rand(O, Qk, Dk), 0.2 + rk.rand(O, Qk, Dk),
+            0.1 * rk.randn(O, Qk, Dk), 0.1 * rk.randn(O, Qk))]
+        s3, s2 = tbm.mosm_pair_stats(*pk, float((2 * np.pi) ** (Dk / 2)))
+        assert tmg.kernel_instance("forward", O, Qk, Dk) == "unrolled"
+        xk = torch.as_tensor(np.sort(rk.rand(557, Dk) * 20, axis=0), dtype=torch.float32,
+                             device=dev)
+        for ck in (tbm.channel_ids((300, 1, 256), dev),
+                   torch.as_tensor(rk.randint(0, O, 557), dtype=torch.int32, device=dev)):
+            for x2k, c2k in ((xk, ck), (xk[::3].contiguous(), ck[::3].contiguous())):
+                got = tmg.mosm_gram(xk, ck, x2k, c2k, s3, s2)
+                ref = tmg.mosm_gram_pairstats_plain(xk, ck, x2k, c2k, s3, s2)
+                torch.cuda.synchronize()
+                assert float((got - ref).abs().max()) <= 2e-4 * float(ref.abs().max()), (Qk, Dk)
 
     # K-spanel (3xTF32, split-K where planned) and K-colwrite at every block
     # column of real factors, B = 64 (masked column tiles), 256 and 512,
@@ -414,8 +450,9 @@ def test_cuda_training_kernels_match_plain_twins():
 def test_cuda_kernels_spread_nan_made_on_the_card():
     """NaN made by the card's own FP32 operations (torch.sqrt(-1): the
     canonical NaN 0x7fffffff, which an integer TF32 rounding could carry
-    into -0) spreads through K-solve, K-lowrank-vjp and K-matvec as through
-    their plain twins: the same entries are NaN, and none of the others."""
+    into -0) spreads through K-solve, K-lowrank-vjp, K-matvec, K-gram and
+    K-gram-bwd as through their plain twins: the same entries are NaN, and
+    none of the others."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from mogptk_tpu_torch.ops import blocked_trisolve as tbt
@@ -471,14 +508,37 @@ def test_cuda_kernels_spread_nan_made_on_the_card():
     stn = tbm.mosm_pair_stats(*pn, twopi)
     for s3, s2, VV in ((st3, st2, Vn), (*stn, V)):
         same_nan([tmv.mosm_matvec(x, c, s3, s2, VV)], [tmv.mosm_matvec_plain(x, c, s3, s2, VV)])
+    # K-gram, square (mirrored) and cross: NaN in channel 1's weight, then in
+    # one point (the turn reduction's rounding and the hardware cos on NaN)
+    xn = x.clone()
+    xn[200] = nan
+    x3, c3 = x[::3].contiguous(), c[::3].contiguous()
+    for s3, s2, xx in ((*stn, x), (st3, st2, xn)):
+        same_nan([tmg.mosm_gram(xx, c, xx, c, s3, s2), tmg.mosm_gram(xx, c, x3, c3, s3, s2)],
+                 [tmg.mosm_gram_pairstats_plain(xx, c, xx, c, s3, s2),
+                  tmg.mosm_gram_pairstats_plain(xx, c, x3, c3, s3, s2)])
+    # K-gram-bwd: NaN in g below the diagonal, then above it, then in
+    # channel 1's weight (sincos_two_pi's rint and (int)k on NaN); x2 as x
+    # (one channel map) and as a copy of x
+    g = torch.as_tensor(rng.randn(n, n), dtype=torch.float32, device=dev)
+    for i, j in ((400, 10), (10, 400)):
+        gn = g.clone()
+        gn[i, j] = nan
+        for x2 in (x, x.clone()):
+            same_nan(tmg.mosm_gram_bwd(x, c, x2, c, st3, st2, gn, counts, counts),
+                     tmg.mosm_gram_bwd_plain(x, c, x2, c, st3, st2, gn))
+    same_nan(tmg.mosm_gram_bwd(x, c, x, c, *stn, g, counts, counts),
+             tmg.mosm_gram_bwd_plain(x, c, x, c, *stn, g))
     torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
 def test_cuda_gram_bwd_matches_plain_twin():
     """K-gram-bwd against its plain twin on the card, float32, small shapes:
-    unsorted channel IDs with a cross-Gram (N ≠ M), and channel-sorted data
-    with ragged channels and D = 2 (padding on every channel). Tolerance: no
+    unsorted channel IDs with a cross-Gram (N ≠ M); channel-sorted data with
+    unequal ragged channels and D = 2 (padding on every channel); and n = 300
+    points with channels permuted. The square cases run with x2 as x1 (one
+    channel map for rows and columns) and as a copy of x1. Tolerance: no
     more than 2x the float32 twin's error against a float64 twin on the same
     inputs, plus a floor of 1e-5 relative (summation order alone). A repeated
     call is bit-identical (no atomics)."""
@@ -488,19 +548,24 @@ def test_cuda_gram_bwd_matches_plain_twin():
     rng = np.random.RandomState(2)
     O, Q = 3, 2
     cases = []
-    for D, sorted_counts in ((1, None), (2, (300, 1, 257))):
-        if sorted_counts is None:
+    for D, layout in ((1, "cross"), (2, "sorted"), (1, "permuted")):
+        if layout == "cross":
             N, M = 700, 500
             c1 = torch.as_tensor(rng.randint(0, O, N), dtype=torch.int32, device=dev)
             c2 = torch.as_tensor(rng.randint(0, O, M), dtype=torch.int32, device=dev)
             x1 = torch.as_tensor(rng.rand(N, D) * 20, dtype=torch.float32, device=dev)
             x2 = torch.as_tensor(rng.rand(M, D) * 20, dtype=torch.float32, device=dev)
-        else:
-            N = M = sum(sorted_counts)
-            c1 = c2 = tbm.channel_ids(sorted_counts, dev)
-            x1 = x2 = torch.as_tensor(np.sort(rng.rand(N, D) * 20, axis=0), dtype=torch.float32,
-                                      device=dev)
-        cases.append((D, sorted_counts, x1, c1, x2, c2))
+            cases.append((D, None, x1, c1, x2, c2))
+            continue
+        counts = (300, 1, 257) if layout == "sorted" else (200, 60, 40)
+        N = sum(counts)
+        x = torch.as_tensor(np.sort(rng.rand(N, D) * 20, axis=0), dtype=torch.float32, device=dev)
+        c = tbm.channel_ids(counts, dev)
+        if layout == "permuted":
+            perm = torch.as_tensor(rng.permutation(N), device=dev)
+            x, c = x[perm].contiguous(), c[perm].contiguous()
+        cases.append((D, counts, x, c, x, c))                   # one channel map
+        cases.append((D, counts, x, c, x.clone(), c.clone()))   # two
     for D, counts, x1, c1, x2, c2 in cases:
         params = [torch.as_tensor(p, dtype=torch.float32, device=dev) for p in (
             0.5 + rng.rand(O, Q), 0.1 + rng.rand(O, Q, D), 0.2 + rng.rand(O, Q, D),
@@ -517,7 +582,7 @@ def test_cuda_gram_bwd_matches_plain_twin():
                                       st2.double(), g.double())
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, again))
-        assert _rel_err(got, ref) <= 2 * _rel_err(twin, ref) + 1e-5
+        assert _rel_err(got, ref) <= 2 * _rel_err(twin, ref) + 1e-5, (D, counts, x1 is x2)
         # through autograd: the Gram on the card carries MosmGram's backward
         ps = [p.clone().requires_grad_() for p in params]
         K = tmg.mosm_gram(x1, c1, x2, c2, *tbm.mosm_pair_stats(*ps, twopi), counts, counts)
