@@ -58,7 +58,8 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   K-fam-gram-bwd, K-fam-matvec and K-fam-lowrank-vjp against their plain
   twins at benchmarks/family_bench.py's configuration (2 channels x 2,048
   points, N = 4,096; R = 1, 17, 33 and 65; channel-sorted and permuted
-  points; each repeat bit-identical), and for CSM and SM-LMC at bench.py's
+  points; each repeat bit-identical; K-fam-matvec, the fold, also at D = 2,
+  its runtime-D instance), and for CSM and SM-LMC at bench.py's
   full width (N = 16,384); each family through gpr.Exact at N = 4,096
   (probe-trace and closed-form first steps against a float64 execution on
   the card and the float32 twins, three counted Adam steps each, predict_y
@@ -78,8 +79,8 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   summation bounds, each launch repeated bit-identically and timed in
   turns beside cuBLAS addmm and torch.matmul S·invᵀ, and every block
   column of the fused factor held to K-sdiag's and K-below-trsm's
-  summation bounds on its own left columns, which checks each row-tile
-  instance of K-below-trsm where the path runs it (phase 19); then with
+  summation bounds on its own left columns, which checks each split-K
+  plan of K-below-trsm where the path runs it (phase 19); then with
   both switches on the closed-form and the probe-trace steps at full
   width through gpr.train, each first step
   against the float64 reference of the switches-off step and its distance
@@ -108,11 +109,12 @@ line, when there is no CUDA device, when run without the repository beside
 it, or when any check fails. Times come from CUDA events (kernels, median of
 10) and from the host clock between synchronizations (requests, steps).
 Bounds use the H100 SXM's published peaks: 3.35 TB/s and 67 TFLOP/s FP32
-outside the tensor cores; for K-spanel, K-colwrite and K-sdiag, which run
-three TF32 passes on the tensor cores, 3 × their operations over 495
-TFLOP/s (the FP32 bound printed beside it); for K-matvec the larger of its
-folded element evaluations at the FP32 peak and its 3xTF32 products
-(matvec_bounds), for K-lowrank-vjp the larger of its τ chain at the FP32
+outside the tensor cores; for K-spanel, K-colwrite, K-sdiag and
+K-below-trsm, which run three TF32 passes on the tensor cores, 3 × their
+operations over 495 TFLOP/s (the FP32 bound printed beside it); for
+K-matvec and K-fam-matvec the larger of the folded element evaluations at
+the FP32 peak and the 3xTF32 products (fold_bounds; the unfolded FP32
+bound beside it), for K-lowrank-vjp the larger of its τ chain at the FP32
 peak and its cotangent product's 3xTF32 passes; K-solve's bytes count L's
 strictly lower blocks and the diagonal-block inverses twice, once a sweep
 (the backward sweep starts when the forward one ends, and L is far beyond
@@ -687,8 +689,8 @@ def main():
          "path": "iterative train", "launches": iter_launches["mosm_matvec"]},
         {"name": "mosm_matvec_reduce", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/mosm_matvec.cu",
-         "replaces": "mogptk_tpu/ops/block_mosm.py:530 (the transposed products' sum of "
-                     "_matvec_offdiag_kernel)",
+         "replaces": "mogptk_tpu/ops/block_mosm.py:530; mogptk_tpu/ops/block_families.py:525 "
+                     "(the transposed products' sum of _matvec_offdiag_kernel)",
          "path": "iterative train", "launches": iter_launches["mosm_matvec_reduce"]},
         {"name": "mosm_gram_bwd_inputs", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/mosm_gram_bwd.cu",
@@ -1329,19 +1331,26 @@ def matvec_scale(mg, x, c, st3, st2, V, rows=2048, x2=None, c2=None):
 
 
 def matvec_bounds(n, R, D):
-    """K-matvec's (bound, FP32 bound): the fold evaluates each element of
-    the upper triangle once (n(n+1)/2 of them, FP32 at 67 TFLOP/s) and runs
-    2n²R multiply-add flops as three TF32 passes on the tensor cores (495
+    """K-matvec's (bound, FP32 bound): fold_bounds with the MOSM element's
+    Q·(6D + 7) operations."""
+    return fold_bounds(n, R, D, Q * (6 * D + 7))
+
+
+def fold_bounds(n, R, D, elem_ops):
+    """The fold's (bound, FP32 bound), K-matvec's and K-fam-matvec's: the
+    fold evaluates each element of the upper triangle once (n(n+1)/2 of
+    them, elem_ops FP32 operations each at 67 TFLOP/s) and runs 2n²R
+    multiply-add flops as three TF32 passes on the tensor cores (495
     TFLOP/s), two pipes that can overlap, so the larger of the two, or the
     bytes (x and c read, V read and the output written once); the FP32
-    bound of the unfolded FFMA kernel (n² elements and 2n²R flops at the
+    bound of an unfolded FFMA kernel (n² elements and 2n²R flops at the
     FP32 peak) beside it."""
     nbytes = 4 * (n * (D + 1) + 2 * n * R)
     b = 1e3 * nbytes / PEAK_BYTES_PER_S
-    fp32 = 1e3 * gram_ops(n * (n + 1) // 2, D) / PEAK_FP32_PER_S
+    fp32 = 1e3 * elem_ops * (n * (n + 1) // 2) / PEAK_FP32_PER_S
     tf32 = 1e3 * 3 * 2 * n * n * R / PEAK_TF32_PER_S
     folded = max((b, "bytes"), (fp32, "operations"), (tf32, "operations"))
-    return folded, bound(nbytes, gram_ops(n * n, D) + 2 * n * n * R)
+    return folded, bound(nbytes, elem_ops * n * n + 2 * n * n * R)
 
 
 def matvec_check(mv, mg, x, c, st3, st2, V, label, reps=10):
@@ -2442,6 +2451,26 @@ def family_kernel(gpr, name, channels=FAM_CHANNELS):
     return k
 
 
+def family_kernel_2d(gpr, name, channels=FAM_CHANNELS):
+    """A kernel of each block family at input dims 2 (CSM with Rq = 2,
+    SM-LMC with Q = 2 and Rq = 2, MOHSM under psd_safe), its raw parameters
+    the defaults moved by 0.3·N(0, 1) draws from RandomState(2)."""
+    import torch
+    O, D = channels, 2
+    k = {"umosm": lambda: gpr.UncoupledMultiOutputSpectralKernel(O, D),
+         "csm": lambda: gpr.CrossSpectralKernel(O, D, Rq=2),
+         "conv": lambda: gpr.GaussianConvolutionProcessKernel(O, D),
+         "mohsm": lambda: gpr.MultiOutputHarmonizableSpectralKernel(O, D, psd_safe=True),
+         "lmc_sm": lambda: gpr.LinearModelOfCoregionalizationKernel(
+             [gpr.SpectralKernel(D) for _ in range(2)], output_dims=O, input_dims=D, Q=2,
+             Rq=2)}[name]()
+    rng = np.random.RandomState(2)
+    with torch.no_grad():
+        for r in k.trainable_raws():
+            r.add_(0.3 * torch.as_tensor(rng.randn(*r.shape), dtype=r.dtype))
+    return k
+
+
 def family_ops(family, D, kind):
     """FP32 operations of one element of a family's Gram (a transcendental
     function counted as one, as gram_ops does): its value chain (kind
@@ -2543,39 +2572,7 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
                                                              for a, b in zip(k, t)),
                                              ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
         del G, Gs, got, again, got_s
-    with torch.no_grad():
-        for R in FAM_RANKS:
-            V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
-            for how, xx, cc, VV in (("sorted", x, c, V), ("permuted", xp, cp, V[perm].contiguous())):
-                got = bf.family_matvec(family, xx, cc, p, VV)
-                if not torch.equal(got, bf.family_matvec(family, xx, cc, p, VV)):
-                    fail("K-fam-matvec %s %s R=%d: a repeated call differs" % (label, how, R))
-                twin = bf.family_matvec_plain(family, xx, cc, p, VV)
-                ref = bf.family_matvec_plain(family, xx.double(), cc, p64, VV.double())
-                scale = max(float((bf.family_gram_plain(family, xx[r0:r0 + 2048], cc[r0:r0 + 2048],
-                                                        xx, cc, p).abs() @ VV.abs()).max())
-                            for r0 in range(0, n, 2048))
-                d_k = float((got.double() - ref).abs().max())
-                d_t = float((twin.double() - ref).abs().max())
-                tol = 2 * d_t + 1e-6 * scale
-                if not d_k <= tol:
-                    fail("K-fam-matvec %s %s R=%d is further from float64 (%.3e) than twice its "
-                         "twin (%.3e)" % (label, how, R, d_k, d_t))
-                ms = median_ms(lambda: bf.family_matvec(family, xx, cc, p, VV), reps=5)
-                pms = median_ms(lambda: bf.family_matvec_plain(family, xx, cc, p, VV), reps=preps,
-                                warmup=pwarm)
-                lms = median_ms(lambda: torch.matmul(bf.family_gram(family, xx, cc, xx, cc, p), VV),
-                                reps=3)
-                bnd = bound(4 * (n * (D + 1) + 2 * n * R), n * n * (fwd_ops + 2 * R))
-                print("K-fam-matvec %s %s N=%d R=%d: vs float64 %.3e (twin %.3e, tol %.3e), "
-                      "bit-identical repeat, kernel %.3f ms, plain %.3f ms, K-fam-gram + "
-                      "torch.matmul %.3f ms, bound %.3f ms (%s)"
-                      % ((label, how, n, R, d_k, d_t, tol, ms, pms, lms) + bnd))
-                if how == "sorted" and R == 33:
-                    report["family_matvec"] = dict(max_abs_err=float((got - twin).abs().max()),
-                                                   ms=ms, plain_ms=pms, library_ms=None,
-                                                   yardstick_ms=lms, bound=bnd)
-                del got, twin, ref
+    report.update(check_family_matvec(bf, family, x, c, perm, p, label, rng, preps, pwarm))
     for R in FAM_RANKS:
         A = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
         B = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
@@ -2605,6 +2602,55 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
                                                 ms=ms, plain_ms=pms, library_ms=None, bound=bnd)
         del A, B, got
     torch.cuda.empty_cache()
+    return report
+
+
+def check_family_matvec(bf, family, x, c, perm, p, label, rng, preps=2, pwarm=1):
+    """Phase 16's K-fam-matvec (the fold) for one family at one size: R = 1,
+    17, 33 and 65 on channel-sorted points and on the same points permuted,
+    against a float64 twin within twice the float32 twin plus 1e-6 of
+    max|K|·|V|; each repeat bit-identical. Returns the report entry at R = 33
+    on sorted points (the iterative path's rank), bound and FP32 bound as
+    fold_bounds counts them."""
+    import torch
+    n, D = x.shape
+    p64 = p.double()
+    xp, cp = x[perm].contiguous(), c[perm].contiguous()
+    fwd_ops = family_ops(family, D, "value")
+    report = {}
+    with torch.no_grad():
+        for R in FAM_RANKS:
+            V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=x.device)
+            for how, xx, cc, VV in (("sorted", x, c, V), ("permuted", xp, cp, V[perm].contiguous())):
+                got = bf.family_matvec(family, xx, cc, p, VV)
+                if not torch.equal(got, bf.family_matvec(family, xx, cc, p, VV)):
+                    fail("K-fam-matvec %s %s R=%d: a repeated call differs" % (label, how, R))
+                twin = bf.family_matvec_plain(family, xx, cc, p, VV)
+                ref = bf.family_matvec_plain(family, xx.double(), cc, p64, VV.double())
+                scale = max(float((bf.family_gram_plain(family, xx[r0:r0 + 2048], cc[r0:r0 + 2048],
+                                                        xx, cc, p).abs() @ VV.abs()).max())
+                            for r0 in range(0, n, 2048))
+                d_k = float((got.double() - ref).abs().max())
+                d_t = float((twin.double() - ref).abs().max())
+                tol = 2 * d_t + 1e-6 * scale
+                if not d_k <= tol:
+                    fail("K-fam-matvec %s %s R=%d is further from float64 (%.3e) than twice its "
+                         "twin (%.3e)" % (label, how, R, d_k, d_t))
+                ms = median_ms(lambda: bf.family_matvec(family, xx, cc, p, VV), reps=5)
+                pms = median_ms(lambda: bf.family_matvec_plain(family, xx, cc, p, VV), reps=preps,
+                                warmup=pwarm)
+                lms = median_ms(lambda: torch.matmul(bf.family_gram(family, xx, cc, xx, cc, p), VV),
+                                reps=3)
+                bnd, bnd32 = fold_bounds(n, R, D, fwd_ops)
+                print("K-fam-matvec %s %s N=%d R=%d: vs float64 %.3e (twin %.3e, tol %.3e), "
+                      "bit-identical repeat, kernel %.3f ms, plain %.3f ms, K-fam-gram + "
+                      "torch.matmul %.3f ms, bound %.3f ms (%s; unfolded FP32 %.3f ms)"
+                      % ((label, how, n, R, d_k, d_t, tol, ms, pms, lms) + bnd + bnd32[:1]))
+                if how == "sorted" and R == 33:
+                    report["family_matvec"] = dict(max_abs_err=float((got - twin).abs().max()),
+                                                   ms=ms, plain_ms=pms, library_ms=None,
+                                                   yardstick_ms=lms, bound=bnd, bound_fp32=bnd32)
+                del got, twin, ref
     return report
 
 
@@ -2759,7 +2805,8 @@ def family_requests(dev, m=FAM_PREDICT):
 
 def drive_families(gpr, _build, dev, smi):
     """Phases 16 and 17: each family's four kernels against their twins at
-    family_bench.py's configuration (N = 4,096), then gpr.Exact on each;
+    family_bench.py's configuration (N = 4,096), K-fam-matvec also with a
+    second input dim (its runtime-D instance), then gpr.Exact on each;
     prints family_bench.py's JSON line per family."""
     import torch
     from mogptk_tpu_torch.ops import block_families as bf
@@ -2771,6 +2818,16 @@ def drive_families(gpr, _build, dev, smi):
         c, x = kernel._split(X)
         check_family_kernels(gpr, bf, kernel.family, kernel, x, c, perm, "%s N=%d" % (name,
                                                                                    X.shape[0]))
+    # K-fam-matvec's runtime-D instance: the same points with a second input dim
+    rng = np.random.RandomState(6)
+    X2 = torch.cat([X, torch.as_tensor(rng.uniform(0.0, 6.0, (X.shape[0], 1)), dtype=X.dtype,
+                                       device=dev)], 1)
+    for name in FAMILY_NAMES:
+        kernel = family_kernel_2d(gpr, name).to(dev)
+        c, x = kernel._split(X2)
+        p = bf.family_pack(kernel.family, kernel._fused_params()).detach()
+        check_family_matvec(bf, kernel.family, x, c, perm, p, "%s D=2 N=%d" % (name, X.shape[0]),
+                            rng)
     phase("phase 17: the five families through gpr.Exact (N=%d)" % X.shape[0])
     Xq = family_requests(dev)
     for name in FAMILY_NAMES:
@@ -2960,7 +3017,10 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
         # the panel step as the factorization takes it (the noise is in K)
         Ljj = torch.linalg.cholesky(ref).contiguous()
         inv = torch.linalg.solve_triangular(Ljj, torch.eye(B, device=dev), upper=False).contiguous()
-        err, worst, untouched, _ = below_trsm_against_twin(bc, buf, inv, j, B)
+        err, worst, untouched, _, note = below_trsm_against_twin(bc, buf, inv, j, B)
+        if note:
+            print("K-below-trsm: entries past the summation bound without its underflow term: "
+                  + note)
         A = buf[r0 + B:, :r0]
         Kb = buf[r0 + B:, r0:r0 + B]
         Lt = buf.clone()
@@ -2970,17 +3030,18 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
         lms = median_ms(lambda: torch.addmm(Kb, A, C.T, alpha=-1.0) @ invT)
         del Lt
         rows = m - B
-        bnd = bound(4 * (rows * r0 + B * r0 + 2 * rows * B + B * B),
-                    2 * rows * B * r0 + 2 * rows * B * B)
-        tr = below_trsm_tile(rows)
-        print("K-below-trsm j=%d (%d rows below, k=%d, row tile %d: %d blocks): max_abs_err %.3e, "
-              "worst err/bound %.3f, kernel %.3f ms, plain %.3f ms, cuBLAS addmm then @ invT "
-              "(two calls) %.3f ms, bound %.3f ms (%s)"
-              % ((j, rows, r0, tr, rows // tr, err, worst, ms, pms, lms) + bnd))
+        nbytes = 4 * (rows * r0 + B * r0 + 2 * rows * B + B * B)
+        nops = 2 * rows * B * r0 + 2 * rows * B * B
+        bnd, bnd32 = bound_tf32x3(nbytes, nops), bound(nbytes, nops)
+        print("K-below-trsm j=%d (%d rows below, k=%d, plan %d x %d-deep k chunks): max_abs_err "
+              "%.3e, worst err/bound %.3f, kernel %.3f ms, plain %.3f ms, cuBLAS addmm then @ invT "
+              "(two calls) %.3f ms, bound %.3f ms (%s, 3xTF32; FP32 %.3f ms)"
+              % ((j, rows, r0) + bc.below_trsm_plan(n, r0, B) + (err, worst, ms, pms, lms) + bnd
+                 + bnd32[:1]))
         if not worst <= 1.0 or not untouched:
             fail("K-below-trsm disagrees with its plain twin or wrote outside column j's rows below")
         report["below_trsm"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
-                                    yardstick_ms=lms, bound=bnd)
+                                    yardstick_ms=lms, bound=bnd, bound_fp32=bnd32)
 
         for zero_upper in (True, False):
             L1, L2 = buf.clone(), buf.clone()
@@ -3166,9 +3227,17 @@ def sdiag_against_twin(bc, buf, j, B):
 def below_trsm_against_twin(bc, buf, inv, j, B):
     """K-below-trsm and its plain twin, each on its own copy of buf, at
     block column j: (max_abs_err, worst err/bound, whether the kernel wrote
-    nothing outside column j's rows below, the kernel's rows). Bound: S =
+    nothing outside column j's rows below, the kernel's rows, a note on the
+    entries past the bound without its underflow term or None). Bound: S =
     K_below − A·Cᵀ to 2·(r0+1)·u·(|A||C|ᵀ + |K_below|), carried through
-    invᵀ, plus 2·(B+1)·u·|S||inv|ᵀ for the product with invᵀ."""
+    invᵀ, plus 2·(B+1)·u·|S||inv|ᵀ for the product with invᵀ, plus the
+    underflow term of the two sums, (r0+1)·2⁻¹⁴⁹ an entry of S carried
+    through |inv|ᵀ and (B+1)·2⁻¹⁴⁹, as K-spanel's check has it
+    (unfused_by_column): with gradual underflow each FP32 operation also
+    errs by up to 2⁻¹⁵⁰ absolute, where the twin's FFMA rounds every
+    product into the subnormal grid and the tensor cores round the scaled
+    sum once (negligible above FLT_MIN). The note names the worst such
+    entry with the kernel's, the twin's and the float64 value."""
     import torch
     u = TWO_POW_M24
     r0 = j * B
@@ -3177,12 +3246,25 @@ def below_trsm_against_twin(bc, buf, inv, j, B):
     bc.below_trsm_plain(L2, inv, j, B)
     C, A, Kb = buf[r0:r0 + B, :r0], buf[r0 + B:, :r0], buf[r0 + B:, r0:r0 + B]
     ainv = inv.abs().T
-    tol = (2 * (r0 + 1) * u * (A.abs() @ C.abs().T + Kb.abs())) @ ainv \
+    rel = (2 * (r0 + 1) * u * (A.abs() @ C.abs().T + Kb.abs())) @ ainv \
         + 2 * (B + 1) * u * ((Kb - A @ C.T).abs() @ ainv)
+    tol = rel + (r0 + 1) * 2.0 ** -149 * ainv.sum(dim=0) + (B + 1) * 2.0 ** -149
     got = L1[r0 + B:, r0:r0 + B].clone()
     diff = (got - L2[r0 + B:, r0:r0 + B]).abs()
+    over = torch.where(diff == 0, 0.0, diff / rel)
+    note = None
+    n_over = int((over > 1).sum())
+    if n_over:
+        r, c = divmod(int(over.argmax()), B)
+        exact = float((Kb[r].double() - A[r].double() @ C.double().T) @ inv[c].double())
+        twin = L2[r0 + B:, r0:r0 + B]
+        tiny = bool((torch.maximum(got.abs(), twin.abs())[over > 1] < 2.0 ** -126).all())
+        note = ("j=%d: %d entries (all below FLT_MIN: %s), worst at row %d, column %d: kernel "
+                "%.6e, twin %.6e, float64 %.6e, bound without the term %.3e"
+                % (j, n_over, tiny, r, c, float(got[r, c]), float(twin[r, c]), exact,
+                   float(rel[r, c])))
     L1[r0 + B:, r0:r0 + B] = L2[r0 + B:, r0:r0 + B]
-    return float(diff.max()), err_over_bound(diff, tol), torch.equal(L1, L2), got
+    return float(diff.max()), err_over_bound(diff, tol), torch.equal(L1, L2), got, note
 
 
 def err_over_bound(diff, tol):
@@ -3192,25 +3274,20 @@ def err_over_bound(diff, tol):
     return float(torch.where(diff == 0, 0.0, diff / tol).max())
 
 
-def below_trsm_tile(rows):
-    """The row tile csrc/fused_trsm.cu below_trsm_f32 picks for `rows` rows
-    below the diagonal block: the widest whose count fills 132 SMs once."""
-    return next(4 * rpt for rpt in (8, 4, 2, 1) if rows // (4 * rpt) >= 132 or rpt == 1)
-
-
 def fused_by_column(bc, K, F, invs, B):
     """Every block column j > 0 of the fused factor F of K (and invs, its
     panel inverses) held to the kernels' summation bounds: on K with F's
     left columns, K-sdiag and K-below-trsm against their twins, the
     kernels' S_jj factor and rows bit-identical to F's (the same launches on
-    the same inputs), so every K-below-trsm instance (row tile 32, 16, 8, 4)
-    is checked where the main path runs it. Then K-below-trsm against the
-    unfused pair (K-spanel + K-colwrite) that it replaces, CUDA-event medians
-    of 3 on the same buffer (their times do not depend on the values)."""
+    the same inputs), so every K-below-trsm plan (k in one chunk or split,
+    below_trsm_plan) is checked where the main path runs it. Then
+    K-below-trsm against the unfused pair (K-spanel + K-colwrite) that it
+    replaces, CUDA-event medians of 3 on the same buffer (their times do not
+    depend on the values)."""
     import torch
     n = K.shape[0]
     S = torch.empty((n, B), device=K.device)
-    rows, sums, worst, bad = [], [0.0, 0.0], {}, []
+    rows, sums, worst, bad, under = [], [0.0, 0.0], {}, [], []
     if torch.triu(F, 1).any():
         bad.append("the strict upper triangle is not zero")
     for j in range(1, n // B):
@@ -3227,14 +3304,17 @@ def fused_by_column(bc, K, F, invs, B):
         if j == n // B - 1:       # the last column has no rows below
             break
         below = n - r0 - B
-        tile = below_trsm_tile(below)
-        err, t_worst, untouched, got = below_trsm_against_twin(bc, buf, invs[j], j, B)
+        splits, _ = bc.below_trsm_plan(n, r0, B)
+        err, t_worst, untouched, got, note = below_trsm_against_twin(bc, buf, invs[j], j, B)
+        if note:
+            under.append(note)
         if not t_worst <= 1.0 or not untouched:
             bad.append("j=%d: K-below-trsm err/bound %.3f, wrote outside its rows: %s"
                        % (j, t_worst, not untouched))
         if not torch.equal(got, F[r0 + B:, r0:r0 + B]):
             bad.append("j=%d: the rows below are not K-below-trsm's on the same inputs" % j)
-        w = worst.setdefault("K-below-trsm row tile %d" % tile, [0.0, []])
+        w = worst.setdefault("K-below-trsm k %s" % ("split" if splits > 1 else "whole"),
+                             [0.0, []])
         w[0], w[1] = max(w[0], t_worst), w[1] + [j]
         del got
         fused = median_ms(lambda: bc.below_trsm(buf, invs[j], j, B), reps=3, warmup=1)
@@ -3243,14 +3323,16 @@ def fused_by_column(bc, K, F, invs, B):
                             reps=3, warmup=1)
         sums[0] += fused
         sums[1] += unfused
-        rows.append("j=%d: %d rows, tile %d, %d blocks, err/bound %.3f, %.3f vs %.3f ms"
-                    % (j, below, tile, below // tile, t_worst, fused, unfused))
+        rows.append("j=%d: %d rows, %d k chunks, err/bound %.3f, %.3f vs %.3f ms"
+                    % (j, below, splits, t_worst, fused, unfused))
         del buf
     print("the fused factor by column, each kernel against its twin on the factor's own left "
           "columns (worst err/bound, columns): %s" % "; ".join(
               "%s %.3f at j=%d..%d" % (k, v[0], v[1][0], v[1][-1]) for k, v in worst.items()))
-    print("K-below-trsm by column (%s) against K-spanel + K-colwrite: %s; sum %.2f ms vs %.2f ms"
-          % ("row tile, blocks on 132 SMs", "; ".join(rows), sums[0], sums[1]))
+    print("K-below-trsm by column against K-spanel + K-colwrite: %s; sum %.2f ms vs %.2f ms"
+          % ("; ".join(rows), sums[0], sums[1]))
+    print("K-below-trsm: entries past the summation bound without its underflow term: %s"
+          % ("; ".join(under) if under else "none"))
     if bad:
         fail("the fused factor by column: " + "; ".join(bad))
     del S

@@ -23,7 +23,13 @@ mosm_matvec_fold_f32, runs its first pass and its second pass
 mosm_matvec_reduce_f32; another its square-case entry mosm_matvec_f32).
 From fused_trsm.cu it times K-sdiag at every block column of the bench
 factor (a root with the 3xTF32 K-sdiag gets this root's sdiag_plan,
-another its 512-column k chunks). From blocked_cholesky.cu
+another its 512-column k chunks) and K-below-trsm at every block column
+with rows below (below_trsm_cases: a root with the 3xTF32 kernel gets this
+root's below_trsm_plan; with blocked_cholesky.cu also built, the unfused
+K-spanel + K-colwrite pair of the same column beside it). From
+family_matvec.cu (with mosm_matvec.cu's second pass) it times K-fam-matvec
+for CSM and SM-LMC on the bench points at R = 33 and 1 (a root with the
+fold runs its two passes, another its FFMA entry). From blocked_cholesky.cu
 (with its root's headers: gemm_tile.cuh or gemm_tf32x3.cuh) it times
 K-spanel at every block column of the bench factor (N = 16,384, B = 512;
 one buffer holding the factor serves every column) and K-colwrite at
@@ -51,10 +57,12 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu",
-           "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu")
+           "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu", "family_matvec.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
-# instances with the input half are compiled from a file of their own)
-COMPANIONS = {"mosm_gram_bwd.cu": ("mosm_gram_bwd_inputs.cu",)}
+# instances with the input half are compiled from a file of their own;
+# K-fam-matvec's fold ends in mosm_matvec.cu's second pass)
+COMPANIONS = {"mosm_gram_bwd.cu": ("mosm_gram_bwd_inputs.cu",),
+              "family_matvec.cu": ("mosm_matvec.cu",)}
 
 
 def takes_instance(root):
@@ -102,6 +110,36 @@ def build(root, out_dir, tag, nvcc, flags, sources=SOURCES):
     return libs
 
 
+def spanel_call(lib, split, sc, Lb, S, j, B, bc, stream):
+    """One K-spanel of block column j on the factor buffer Lb into S through
+    lib: with its split-K plan and second pass where the root's entry takes
+    one (split), else the one-pass entry; sc the range scale's argument."""
+    import torch
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    n, r0 = Lb.shape[0], j * B
+    splits, k_chunk = bc.spanel_plan(n, r0, B)
+    part = torch.empty((splits, n - r0, B), device=Lb.device) if splits > 1 else None
+
+    def call():
+        if not split:
+            return lib.s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()), I64(n), I64(r0), I64(B),
+                                   P(stream))
+        err = lib.s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()),
+                              P(None if part is None else part.data_ptr()), I64(n), I64(r0), I64(B),
+                              I64(k_chunk), *sc, P(stream))
+        if err or part is None:
+            return err
+        return lib.s_panel_reduce_f32(P(Lb.data_ptr()), P(part.data_ptr()), P(S.data_ptr()),
+                                      I64(n), I64(r0), I64(B), I64(splits), *sc, P(stream))
+    return call
+
+
+def scale_arg(root):
+    """The range scale's argument, null (scale 1), where root's blocked
+    Cholesky entries take it."""
+    return [ctypes.c_void_p(None)] if has(root, "blocked_cholesky.cu", "const float* scale") else []
+
+
 def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
     """The blocked Cholesky cases: K-spanel at every block column of the
     bench factor and K-colwrite at j = 16, both zero_upper forms."""
@@ -113,32 +151,11 @@ def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
     with torch.no_grad():
         K = bm.mosm_gram_sorted(x, counts, *kernel._params(), kernel.twopi)
         K.diagonal().add_(0.1)   # the bench model's noise variance
-        Lb = torch.linalg.cholesky(K)
+        Lb = torch.linalg.cholesky(K).contiguous()   # row-major, as the factor's buffer is
     del K
     lib = {side: libs[side]["blocked_cholesky.cu"] for side in libs}
     split = {side: splits_k(root) for side, root in roots.items()}
-    # the range scale's argument, null (scale 1), where root's entries take it
-    sc = {side: [P(None)] if has(root, "blocked_cholesky.cu", "const float* scale") else []
-          for side, root in roots.items()}
-
-    def spanel(side, S, j):
-        r0 = j * B
-        splits, k_chunk = bc.spanel_plan(n, r0, B)
-        part = torch.empty((splits, n - r0, B), device=dev) if splits > 1 else None
-
-        def call():
-            if not split[side]:
-                return lib[side].s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()), I64(n), I64(r0),
-                                             I64(B), P(stream))
-            err = lib[side].s_panel_f32(P(Lb.data_ptr()), P(S.data_ptr()),
-                                        P(None if part is None else part.data_ptr()), I64(n),
-                                        I64(r0), I64(B), I64(k_chunk), *sc[side], P(stream))
-            if err or part is None:
-                return err
-            return lib[side].s_panel_reduce_f32(P(Lb.data_ptr()), P(part.data_ptr()),
-                                                P(S.data_ptr()), I64(n), I64(r0), I64(B),
-                                                I64(splits), *sc[side], P(stream))
-        return call
+    sc = {side: scale_arg(root) for side, root in roots.items()}
 
     cases = []
     for j in range(n // B):
@@ -146,7 +163,8 @@ def cholesky_cases(libs, roots, kernel, x, c, st3, bm, bc, stream):
         calls = {}
         for side in libs:
             S = torch.zeros((n, B), device=dev)
-            calls[side] = (spanel(side, S, j), S)
+            calls[side] = (spanel_call(lib[side], split[side], sc[side], Lb, S, j, B, bc,
+                                       stream), S)
         cases.append(("K-spanel j=%d (plan %dx%d)" % ((j,) + plan), "blocked_cholesky.cu", 5, calls))
     j = 16
     r0 = j * B
@@ -193,6 +211,128 @@ def sdiag_cases(libs, roots, Lb, bc, stream):
     return cases
 
 
+def below_trsm_cases(libs, roots, Lb, K, bc, bt, stream):
+    """K-below-trsm at every block column 0 < j < n/B − 1 of the bench
+    factor Lb of K (N = 16,384, B = 512), the panel inverses of the
+    factor's own diagonal blocks: a root whose kernel runs on the 3xTF32 mainloop (its
+    entry takes the scratch strip S) gets this root's below_trsm_plan, scratch and
+    null for the range scale, another its FFMA entry. The kernel writes the
+    rows below column j's diagonal block in place, reading them first as K,
+    so each call first restores them from K (a copy of at most 31 MB, in
+    both sides' times); each side has its own buffer, which holds the
+    factor's columns, so the outputs (the factor's rows below) compare at
+    rounding level. Where both roots have
+    blocked_cholesky.cu, beside each column the unfused pair it replaces:
+    K-spanel over the column's n − j·B rows, then K-colwrite (zero_upper=0)
+    into a buffer of its own, each side its root's pair."""
+    import torch
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    n, B = Lb.shape[0], 512
+    dev = Lb.device
+    invs = bt.panel_inverses(Lb, block_size=B)
+    mainloop = {side: has(root, "fused_trsm.cu", "below_trsm_f32(float* L, const float* inv, float* S")
+                for side, root in roots.items()}
+    pair = all("blocked_cholesky.cu" in l for l in libs.values())
+    bufs = {side: Lb.clone() for side in libs}
+    outs = {side: Lb.clone() for side in libs} if pair else {}
+    cases = []
+    for j in range(1, n // B - 1):
+        r0 = j * B
+        m = n - r0 - B
+        splits, k_chunk = bc.below_trsm_plan(n, r0, B)
+        inv = invs[j]
+        calls = {}
+        for side in libs:
+            lib = libs[side]["fused_trsm.cu"]
+            rows = bufs[side][r0 + B:, r0:r0 + B]
+            S = torch.empty((m, B), device=dev)
+            part = torch.empty((splits, m, B), device=dev) if splits > 1 else None
+
+            def call(lib=lib, buf=bufs[side], rows=rows, S=S, part=part, tc=mainloop[side], r0=r0,
+                     inv=inv, k_chunk=k_chunk):
+                rows.copy_(K[r0 + B:, r0:r0 + B])
+                if not tc:
+                    return lib.below_trsm_f32(P(buf.data_ptr()), P(inv.data_ptr()), I64(n),
+                                              I64(r0), I64(B), P(stream))
+                return lib.below_trsm_f32(P(buf.data_ptr()), P(inv.data_ptr()), P(S.data_ptr()),
+                                          P(None if part is None else part.data_ptr()), I64(n),
+                                          I64(r0), I64(B), I64(k_chunk), P(None), P(stream))
+            calls[side] = (call, rows)
+        cases.append(("K-below-trsm j=%d (plan %dx%d)" % (j, splits, k_chunk), "fused_trsm.cu", 5,
+                      calls))
+        if not pair:
+            continue
+        Ljj = Lb[r0:r0 + B, r0:r0 + B].contiguous()
+        calls = {}
+        for side, root in roots.items():
+            lib = libs[side]["blocked_cholesky.cu"]
+            S = torch.empty((n, B), device=dev)
+            spanel = spanel_call(lib, splits_k(root), scale_arg(root), Lb, S, j, B, bc, stream)
+            rows = outs[side][r0 + B:, r0:r0 + B]
+
+            def call(lib=lib, S=S, spanel=spanel, out=outs[side], sc=scale_arg(root), r0=r0,
+                     inv=inv, Ljj=Ljj):
+                return spanel() or lib.col_write_f32(
+                    P(out.data_ptr()), P(S.data_ptr()), P(Ljj.data_ptr()), P(inv.data_ptr()),
+                    I64(n), I64(r0), I64(B), I32(0), *sc, P(stream))
+            calls[side] = (call, rows)
+        cases.append(("K-spanel + K-colwrite j=%d (the unfused pair)" % j, "fused_trsm.cu", 5,
+                      calls))
+    return cases
+
+
+def fam_call(lib, fold, x, c, table, V, out, items, part, nb, O, S, A, fam, stream):
+    """One K-fam-matvec call through lib: the fold's two passes, or the FFMA
+    entry of a root without the fold."""
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    (n, D), R = x.shape, V.shape[1]
+    if not fold:
+        return lambda: lib.family_matvec_f32(
+            P(x.data_ptr()), P(c.data_ptr()), P(table.data_ptr()), P(V.data_ptr()),
+            P(out.data_ptr()), I64(n), I32(R), I32(O), I32(S), I32(D), I32(A), I32(fam), P(stream))
+    return lambda: lib.family_matvec_fold_f32(
+        P(x.data_ptr()), P(c.data_ptr()), P(table.data_ptr()), P(V.data_ptr()),
+        P(items.data_ptr()), I64(items.shape[0]), P(part.data_ptr()), I64(n), I32(R), I32(nb),
+        I32(O), I32(S), I32(D), I32(A), I32(fam), P(stream)) or lib.mosm_matvec_reduce_f32(
+            P(part.data_ptr()), P(out.data_ptr()), I64(n), I32(R), P(stream))
+
+
+def family_matvec_cases(libs, roots, gpr, cs, X, stream):
+    """K-fam-matvec for CSM and SM-LMC (chip_smoke.py's phase 18 kernels,
+    family_kernel at bench width) on the bench points (N = 16,384) at R = 33
+    and 1: a root with the fold (family_matvec_fold_f32) runs its first
+    pass and the second pass mosm_matvec_reduce_f32 (mosm_matvec.cu, built
+    into the same library), another its FFMA entry family_matvec_f32."""
+    import torch
+    from mogptk_tpu_torch.ops import block_families as bf, mosm_matvec as mv
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = []
+    for name in ("csm", "lmc_sm"):
+        kernel = cs.family_kernel(gpr, name, channels=cs.CHANNELS).to(dev)
+        c, x = kernel._split(X)
+        n, D = x.shape
+        with torch.no_grad():
+            pack = bf.family_pack(kernel.family, kernel._fused_params())
+        fam, A, S = bf.family_dims(kernel.family, pack, D)
+        O = pack.shape[0]
+        table = pack.reshape(O * O, S).contiguous()
+        for R in (33, 1):
+            V = torch.randn((n, R), generator=gen, device=dev)
+            nb, _ = mv.fold_group(n, R)
+            items = mv.fold_items_on(n, dev)
+            part = torch.empty((mv.fold_slab_base(*mv.fold_tiles(n)) * mv.FOLD_TILE, R), device=dev)
+            calls = {}
+            for side, root in roots.items():
+                out = torch.empty((n, R), device=dev)
+                fold = has(root, "family_matvec.cu", "family_matvec_fold_f32")
+                calls[side] = (fam_call(libs[side]["family_matvec.cu"], fold, x, c, table, V, out,
+                                        items, part, nb, O, S, A, fam, stream), out)
+            cases.append(("K-fam-matvec %s N=%d R=%d" % (name, n, R), "family_matvec.cu", 10,
+                          calls))
+    return cases
+
+
 def solve_cases(libs, roots, Lb, bt, stream):
     """K-solve on the bench factor (N = 16,384, B = 512) with R = 17 (the
     probe-trace step's y and 16 probes), 1 and 64: a root with the persistent
@@ -203,7 +343,6 @@ def solve_cases(libs, roots, Lb, bt, stream):
     P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     n, B = Lb.shape[0], 512
     nb = n // B
-    Lb = Lb.contiguous()     # row-major, as the factor reaches the solve
     invs = bt.panel_inverses(Lb, block_size=B)
     gen = torch.Generator(device=Lb.device).manual_seed(3)
     persistent = {side: has(root, "fused_cho_solve.cu", "int* counts")
@@ -412,10 +551,12 @@ def main():
         with torch.no_grad():
             Kb = bm.mosm_gram_sorted(x, counts, *kernel._params(), kernel.twopi)
             Kb.diagonal().add_(0.1)   # the bench model's noise variance
-            Lb = torch.linalg.cholesky(Kb)
-        del Kb
+            Lb = torch.linalg.cholesky(Kb).contiguous()   # row-major, as the factor's buffer is
         if "fused_trsm.cu" in built:
+            from mogptk_tpu_torch.ops import blocked_trisolve as bt
             cases += sdiag_cases(libs, roots, Lb, bc, stream)
+            cases += below_trsm_cases(libs, roots, Lb, Kb, bc, bt, stream)
+        del Kb
         if "fused_cho_solve.cu" in built:
             from mogptk_tpu_torch.ops import blocked_trisolve as bt
             cases += solve_cases(libs, roots, Lb, bt, stream)
@@ -436,6 +577,8 @@ def main():
         cases.append(("K-gram-bwd %dx%d (parameter half)" % (n, n), "mosm_gram_bwd.cu", 10, {
             side: (lambda o: (gram_bwd(libs[side]["mosm_gram_bwd.cu"], o), o))(
                 torch.zeros((O * O, nout), device=dev)) for side in libs}))
+    if "family_matvec.cu" in built:
+        cases += family_matvec_cases(libs, roots, gpr, cs, X, stream)
     for name, xx, cc, VV, reps in (("K-matvec N=%d R=33" % n, x, c, V, 10),
                                    ("K-matvec N=%d R=33" % nb, xb, cb, Vb, 5)):
         if all("mosm_matvec.cu" in l for l in libs.values()):

@@ -75,59 +75,6 @@ using tf32x3::BK;
 using tf32x3::THREADS;
 
 __global__ void __launch_bounds__(THREADS, 1)
-s_panel_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ L,
-               float* __restrict__ S, float* __restrict__ part, int64_t n, int64_t r0, int64_t B,
-               int64_t k_chunk, const float* __restrict__ scale) {
-    extern __shared__ uint8_t smem_raw[];
-    const int64_t m = n - r0;
-    const int64_t tiles_b = (B + BN - 1) / BN, tiles_m = (m + BM - 1) / BM;
-    const int64_t col0 = (blockIdx.x % tiles_b) * BN;   // column tiles of a row block adjacent
-    const int64_t row0 = ((blockIdx.x / tiles_b) % tiles_m) * BM;
-    const int64_t z = blockIdx.x / (tiles_b * tiles_m);
-    const int64_t kbeg = z * k_chunk, kend = kbeg + k_chunk < r0 ? kbeg + k_chunk : r0;
-    const int nslices = (int)((kend - kbeg + BK - 1) / BK);
-    float acc[64];
-    if (!tf32x3::mainloop(&map, &map, (int)(r0 + row0), (int)(r0 + col0), (int)kbeg, nslices,
-                          tf32x3::PRESCALE * tf32x3::scale_at(scale, 1),
-                          tf32x3::aligned_smem(smem_raw), acc))
-        return;
-    const float s = tf32x3::scale_at(scale, 0);
-    const int64_t c0 = col0 + tf32x3::col_of();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-        const int64_t r = row0 + tf32x3::row_of(h);
-        if (r >= m) continue;
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                const int64_t c = c0 + 8 * i + e;
-                if (c >= B) continue;
-                const float v = acc[4 * i + 2 * h + e] * tf32x3::POSTSCALE;
-                if (part != nullptr)
-                    part[(z * m + r) * B + c] = v;
-                else
-                    S[r * B + c] = L[(r0 + r) * n + r0 + c] * s - v;
-            }
-        }
-    }
-}
-
-__global__ void __launch_bounds__(256)
-s_panel_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part,
-                      float* __restrict__ S, int64_t n, int64_t r0, int64_t B, int64_t splits,
-                      const float* __restrict__ scale) {
-    const int64_t m = n - r0, total = m * B;
-    const float sc = tf32x3::scale_at(scale, 0);
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
-        float s = part[e];
-        for (int64_t z = 1; z < splits; ++z) s += part[z * total + e];
-        S[e] = L[(r0 + e / B) * n + r0 + e % B] * sc - s;
-    }
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
 col_write_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constant__ CUtensorMap map_inv,
                  float* __restrict__ L, const float* __restrict__ Ljj, int64_t n, int64_t r0,
                  int64_t B, int zero_upper, int64_t n_gemm, const float* __restrict__ scale) {
@@ -136,27 +83,8 @@ col_write_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constan
     const int64_t below = n - r0 - B;   // rows below the diagonal block; also the strip's width
     if ((int64_t)blockIdx.x < n_gemm) {
         const int64_t tiles_b = (B + BN - 1) / BN;
-        const int64_t col0 = (blockIdx.x % tiles_b) * BN, row0 = (blockIdx.x / tiles_b) * BM;
-        float acc[64];
-        if (!tf32x3::mainloop(&map_s, &map_inv, (int)row0, (int)col0, 0, (int)((B + BK - 1) / BK),
-                              tf32x3::PRESCALE, tf32x3::aligned_smem(smem_raw), acc))
-            return;
-        const float post = tf32x3::POSTSCALE * unscale;
-        const int64_t c0 = col0 + tf32x3::col_of();
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-            const int64_t r = row0 + tf32x3::row_of(h);
-            if (r >= below) continue;
-            float* dst = L + (r0 + B + r) * n + r0;
-#pragma unroll
-            for (int i = 0; i < 16; ++i) {
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int64_t c = c0 + 8 * i + e;
-                    if (c < B) dst[c] = acc[4 * i + 2 * h + e] * post;
-                }
-            }
-        }
+        solve_tile(&map_s, &map_inv, L, n, r0, B, (blockIdx.x / tiles_b) * BM,
+                   (blockIdx.x % tiles_b) * BN, unscale, tf32x3::aligned_smem(smem_raw));
         return;
     }
     // the copy of Ljj, then (zero_upper) the strip of block row j right of
@@ -201,10 +129,10 @@ extern "C" int s_panel_f32(const float* L, float* S, float* part, int64_t n, int
         const int err = tf32x3::make_map(&map, L, r0, n, n);
         if (err) return err;
     }
-    const int err = tf32x3::allow_smem(s_panel_kernel);
+    const int err = tf32x3::allow_smem(panel_product_kernel<false>);
     if (err) return err;
     const int64_t blocks = ((m + BM - 1) / BM) * ((B + BN - 1) / BN) * splits;
-    s_panel_kernel<<<(unsigned)blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(
+    panel_product_kernel<false><<<(unsigned)blocks, THREADS, tf32x3::SMEM_BYTES, stream>>>(
         map, L, S, splits > 1 ? part : nullptr, n, r0, B, splits > 1 ? k_chunk : r0, scale);
     return (int)cudaGetLastError();
 }
@@ -216,8 +144,8 @@ extern "C" int s_panel_reduce_f32(const float* L, const float* part, float* S, i
     if (total <= 0 || splits < 1) return (int)cudaErrorInvalidValue;
     int64_t blocks = (total + 255) / 256;
     if (blocks > 8 * SMS) blocks = 8 * SMS;
-    s_panel_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(L, part, S, n, r0, B, splits,
-                                                                scale);
+    panel_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(L, part, S, n, r0, 0, B, splits,
+                                                              scale);
     return (int)cudaGetLastError();
 }
 

@@ -29,27 +29,32 @@
 //   sequential grid axis with the sum in VMEM.
 //
 // below_trsm_f32 replaces _below_trsm_pallas (pallas_call at :465, body
-// _below_trsm_kernel at :432) and the below half of _col_commit (:504):
+// _below_trsm_kernel at :431) and the below half of _col_commit (:504):
 //   for the rows below the diagonal block,
-//   L[r0+B:, r0:r0+B] = (K[r0+B:, r0:r0+B] - A . C^T) . inv^T,  A = L[r0+B:, :r0],
-//   written straight into column j: S below the diagonal block never goes to
-//   device memory (the unfused K-spanel + K-colwrite pair writes and reads
-//   it). Bound: operations, 2*(m-B)*B*(r0+B) flops (68.5 GFLOP, 1.02 ms at
-//   j = 16). B is 256 or 512. Design: one block owns TR = 4*RPT whole rows
-//   (all B columns), 256 threads, each RPT rows x B/64 columns of the
-//   accumulator in registers (64 floats at TR = 32, B = 512; columns
-//   g*256 + tx*4 + q, so the product reads shared memory as float4s). The k
-//   loop stages 8-deep slices of A's rows and of C k-major in shared memory;
-//   the next slice's global loads are issued into registers before the
-//   current slice is multiplied, so their latency hides behind the FFMAs.
-//   The TRSM epilogue stores the finished S rows in dynamic shared memory
-//   (TR x B floats, 64 KB at TR = 32, above the 48 KB static limit) and
-//   streams inv^T through the same slice buffer. Each block reads its own K
-//   rows of column j before it writes them, and no block reads another
-//   block's rows of column j; the left columns are read only. Late columns
-//   have few rows below and a long k: TR shrinks (32, 16, 8, 4) until the
-//   row tiles fill the SMs once, trading shared-memory reuse of C for
-//   occupancy.
+//   L[r0+B:, r0:r0+B] = (s K[r0+B:, r0:r0+B] - (r A) . (r C)^T) . inv^T / r,
+//   A = L[r0+B:, :r0], C = L[r0:r0+B, :r0], inv the inverse of s K's Ljj,
+//   written straight into column j, with the factor's range scale [s, r, 1/r]
+//   (1 without one) as K-spanel and K-colwrite take it. Bound: operations,
+//   2*(m-B)*B*(r0+B) flops (68.5 GFLOP at j = 16 of the N = 16,384 factor:
+//   0.415 ms for three TF32 passes, 1.022 ms at the FP32 peak). The TPU
+//   kernel computes the product with three bf16 passes (_bf16x3); here both
+//   products run on gemm_tf32x3.cuh's 3xTF32 wgmma mainloop (TMA ring,
+//   big/small split, 2^16 prescale) through the panel kernels K-spanel and
+//   K-colwrite run (panel_product_kernel<true>, from row r0 + B;
+//   panel_reduce_kernel, solve_tile):
+//   (1) A . C^T over 128 x 128 tiles of the m - B rows below, k split into
+//   chunks where the tiles fill the SMs poorly (ops/blocked_cholesky.
+//   below_trsm_plan, K-spanel's cost model on the rows below), each chunk's
+//   partial tile in a slab of its own; (2) where split, a second pass that
+//   sums the slabs in a fixed order (repeats bit-identical) and subtracts the
+//   sum from s K; either way the scaled S goes to a scratch strip of
+//   (m - B) x B floats (15.7 MB at j = 16, within the 50 MB L2); (3) the TRSM
+//   as K-colwrite's product S . inv^T, read through tensor maps, each tile
+//   written into column j's rows below. Column j's K rows are read by (1) or
+//   (2) and written by (3), a later launch on the same stream: no CTA reads
+//   rows another has overwritten. The unfused pair (K-spanel over all m rows,
+//   then K-colwrite) does the same work and the diagonal block's; the fused
+//   column's diagonal block is K-sdiag's lower tiles instead.
 //
 // col_commit_f32 replaces _col_commit (pallas_call at :504, the diagonal
 // half; the rows below are K-below-trsm's store) and, with zero_upper = 1,
@@ -144,183 +149,20 @@ s_diag_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part
 
 // -- K-below-trsm ---------------------------------------------------------------
 
-constexpr int T_THREADS = 256, T_BK = 8;
-
-// One 8-deep k slice of `rows` rows of M (leading dim ld; M[r*ld + k0 ..]),
-// two float4s per row, held in registers between its global load and its
-// store to shared memory, so the next slice's loads fly while this one is
-// multiplied.
-template <int NV>
-struct Slice {
-    float4 v[NV];
-
-    __device__ __forceinline__ void load(const float* __restrict__ M, int64_t ld, int rows,
-                                         int64_t k0) {
-#pragma unroll
-        for (int s = 0; s < NV; ++s) {
-            const int e = threadIdx.x + s * T_THREADS;
-            if (e < rows * 2)
-                v[s] = *reinterpret_cast<const float4*>(M + (int64_t)(e >> 1) * ld + k0 + (e & 1) * 4);
-        }
-    }
-
-    // k-major into dst[kk * pitch + r]: with pitch = 4 (mod 32) the 16 rows
-    // and two k halves of a warp land in distinct banks
-    __device__ __forceinline__ void store(float* __restrict__ dst, int pitch, int rows) const {
-#pragma unroll
-        for (int s = 0; s < NV; ++s) {
-            const int e = threadIdx.x + s * T_THREADS;
-            if (e < rows * 2) {
-                const int r = e >> 1, kq = (e & 1) * 4;
-                dst[(kq + 0) * pitch + r] = v[s].x;
-                dst[(kq + 1) * pitch + r] = v[s].y;
-                dst[(kq + 2) * pitch + r] = v[s].z;
-                dst[(kq + 3) * pitch + r] = v[s].w;
-            }
-        }
-    }
-};
-
-// acc[i][g*4+q] += sum_kk a(kk, ty*RPT+i) * b(kk, g*256 + tx*4 + q) over one
-// staged slice; a from As (k-major, pitch apitch), b from Bs (k-major, pitch
-// bpitch), both 16-byte aligned rows.
-template <int RPT, int G>
-__device__ __forceinline__ void slice_product(const float* __restrict__ As, int apitch,
-                                              const float* __restrict__ Bs, int bpitch,
-                                              float (&acc)[RPT][4 * G]) {
-    const int ty = threadIdx.x / 64, tx = threadIdx.x % 64;
-#pragma unroll
-    for (int kk = 0; kk < T_BK; ++kk) {
-        float a[RPT], b[4 * G];
-        const float* arow = As + kk * apitch + ty * RPT;
-        if constexpr (RPT % 4 == 0) {
-#pragma unroll
-            for (int i = 0; i < RPT; i += 4) {
-                const float4 v = *reinterpret_cast<const float4*>(arow + i);
-                a[i] = v.x; a[i + 1] = v.y; a[i + 2] = v.z; a[i + 3] = v.w;
-            }
-        } else {
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) a[i] = arow[i];
-        }
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-            const float4 v = *reinterpret_cast<const float4*>(Bs + kk * bpitch + g * 256 + tx * 4);
-            b[4 * g] = v.x; b[4 * g + 1] = v.y; b[4 * g + 2] = v.z; b[4 * g + 3] = v.w;
-        }
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-            for (int c = 0; c < 4 * G; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
-    }
+// The TRSM: one CTA per 128 x 128 tile of the rows below (gemm_tf32x3.cuh
+// solve_tile), the maps over the strip S and inv.
+__global__ void __launch_bounds__(tf32x3::THREADS, 1)
+below_solve_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constant__ CUtensorMap map_inv,
+                   float* __restrict__ L, int64_t n, int64_t r0, int64_t B,
+                   const float* __restrict__ scale) {
+    extern __shared__ uint8_t smem_raw[];
+    const int64_t tiles_b = (B + tf32x3::BN - 1) / tf32x3::BN;
+    solve_tile(&map_s, &map_inv, L, n, r0, B, (blockIdx.x / tiles_b) * tf32x3::BM,
+               (blockIdx.x % tiles_b) * tf32x3::BN, tf32x3::scale_at(scale, 2),
+               tf32x3::aligned_smem(smem_raw));
 }
 
-// TR = 4*RPT whole rows of column j below its diagonal block per block, B =
-// 256*G columns: thread (ty, tx) owns rows ty*RPT + i and columns
-// g*256 + tx*4 + q.
-template <int RPT, int G>
-__global__ void __launch_bounds__(T_THREADS, 2)
-below_trsm_kernel(float* __restrict__ L, const float* __restrict__ inv, int64_t n, int64_t r0) {
-    constexpr int TR = 4 * RPT, B = 256 * G;
-    constexpr int bpitch = B + 4, apitch = TR + 4, spitch = B + 4;
-    extern __shared__ __align__(16) float smem[];
-    float* Ss = smem;                      // TR x spitch: the finished S rows
-    float* Bs = Ss + TR * spitch;          // T_BK x bpitch: C's (then inv's) k slice
-    float* As = Bs + T_BK * bpitch;        // T_BK x apitch: A's k slice
-    const int ty = threadIdx.x / 64, tx = threadIdx.x % 64;
-    const int64_t row0 = r0 + B + (int64_t)blockIdx.x * TR;  // first global row of the tile
-    const float* Arows = L + row0 * n;     // A = L[row0:row0+TR, :r0]
-    const float* Crows = L + r0 * n;       // C = L[r0:r0+B, :r0]
-
-    float acc[RPT][4 * G];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.0f;
-
-    Slice<(2 * B + T_THREADS - 1) / T_THREADS> cs;
-    Slice<1> as;                           // 2*TR <= 64 float4s
-    cs.load(Crows, n, B, 0);
-    as.load(Arows, n, TR, 0);
-    for (int64_t k0 = 0; k0 < r0; k0 += T_BK) {
-        cs.store(Bs, bpitch, B);
-        as.store(As, apitch, TR);
-        __syncthreads();
-        if (k0 + T_BK < r0) {              // the next slice's loads fly during the product
-            cs.load(Crows, n, B, k0 + T_BK);
-            as.load(Arows, n, TR, k0 + T_BK);
-        }
-        slice_product<RPT, G>(As, apitch, Bs, bpitch, acc);
-        __syncthreads();
-    }
-
-    // S rows = K rows of column j minus the product, kept on chip
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        const int r = ty * RPT + i;
-        const float* krow = L + (row0 + r) * n + r0;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-            const int c = g * 256 + tx * 4;
-            const float4 k = *reinterpret_cast<const float4*>(krow + c);
-            float4 s;
-            s.x = k.x - acc[i][4 * g]; s.y = k.y - acc[i][4 * g + 1];
-            s.z = k.z - acc[i][4 * g + 2]; s.w = k.w - acc[i][4 * g + 3];
-            *reinterpret_cast<float4*>(Ss + r * spitch + c) = s;
-        }
-#pragma unroll
-        for (int c = 0; c < 4 * G; ++c) acc[i][c] = 0.0f;
-    }
-    __syncthreads();
-
-    // the TRSM as a product with the explicit inverse: out = S . inv^T,
-    // out[r][c] = sum_k S[r][k] * inv[c][k]; S read k-major through a
-    // transposing copy of the slice into As
-    cs.load(inv, B, B, 0);
-    for (int k0 = 0; k0 < B; k0 += T_BK) {
-        cs.store(Bs, bpitch, B);
-        for (int e = threadIdx.x; e < TR * T_BK; e += T_THREADS) {
-            const int r = e / T_BK, kk = e % T_BK;
-            As[kk * apitch + r] = Ss[r * spitch + k0 + kk];
-        }
-        __syncthreads();
-        if (k0 + T_BK < B) cs.load(inv, B, B, k0 + T_BK);
-        slice_product<RPT, G>(As, apitch, Bs, bpitch, acc);
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-        float* lrow = L + (row0 + ty * RPT + i) * n + r0;
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-            *reinterpret_cast<float4*>(lrow + g * 256 + tx * 4) =
-                make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
-    }
-}
-
-template <int RPT, int G>
-int launch_below_trsm(float* L, const float* inv, int64_t n, int64_t r0, cudaStream_t stream) {
-    constexpr int TR = 4 * RPT, B = 256 * G;
-    const size_t smem = sizeof(float) * ((size_t)TR * (B + 4) + (size_t)T_BK * (B + 4)
-                                         + (size_t)T_BK * (TR + 4));
-    cudaError_t err = cudaFuncSetAttribute(below_trsm_kernel<RPT, G>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    const int64_t tiles = (n - r0 - B) / TR;
-    below_trsm_kernel<RPT, G><<<(unsigned)tiles, T_THREADS, smem, stream>>>(L, inv, n, r0);
-    return (int)cudaGetLastError();
-}
-
-template <int G>
-int launch_below_trsm_rows(float* L, const float* inv, int64_t n, int64_t r0, cudaStream_t stream) {
-    // the widest row tile whose count still fills the H100's 132 SMs once
-    const int64_t rows = n - r0 - 256 * G;
-    const int64_t fill = 132;
-    if (rows / 32 >= fill) return launch_below_trsm<8, G>(L, inv, n, r0, stream);
-    if (rows / 16 >= fill) return launch_below_trsm<4, G>(L, inv, n, r0, stream);
-    if (rows / 8 >= fill) return launch_below_trsm<2, G>(L, inv, n, r0, stream);
-    return launch_below_trsm<1, G>(L, inv, n, r0, stream);
-}
+constexpr int64_t SMS = 132;   // the H100 SXM's: the second pass's grid fills the card 8 times
 
 // -- K-commit -------------------------------------------------------------------
 
@@ -356,14 +198,45 @@ extern "C" int s_diag_f32(const float* L, float* part, float* out, int64_t n, in
     return (int)cudaGetLastError();
 }
 
-extern "C" int below_trsm_f32(float* L, const float* inv, int64_t n, int64_t r0, int64_t B,
+// The rows of block column j below its diagonal block, in place: first
+// pass, with k in chunks of k_chunk (a multiple of 32; part holds the
+// ceil(r0 / k_chunk) > 1 slabs of (n - r0 - B) x B floats, else null), then
+// the second pass where split, then the TRSM; S is the (n - r0 - B) x B
+// strip of the scaled S. inv is the panel inverse of s K's Ljj and scale the
+// factor's range scale [s, r, 1/r] (null for 1). B 256 or 512, n and r0
+// multiples of B with rows below, n a multiple of 4 and L, S, inv on 16
+// bytes (TMA).
+extern "C" int below_trsm_f32(float* L, const float* inv, float* S, float* part, int64_t n,
+                              int64_t r0, int64_t B, int64_t k_chunk, const float* scale,
                               cudaStream_t stream) {
-    // B 256 or 512, n and r0 multiples of B, rows below the block: every row
-    // tile and k slice is whole, and the float4 loads are aligned
-    if ((B != 256 && B != 512) || r0 <= 0 || r0 % B != 0 || n % B != 0 || r0 + B >= n)
+    if ((B != 256 && B != 512) || r0 <= 0 || r0 % B != 0 || n % B != 0 || r0 + B >= n
+        || k_chunk <= 0 || k_chunk % tf32x3::BK)
         return (int)cudaErrorInvalidValue;
-    return B == 512 ? launch_below_trsm_rows<2>(L, inv, n, r0, stream)
-                    : launch_below_trsm_rows<1>(L, inv, n, r0, stream);
+    const int64_t splits = (r0 + k_chunk - 1) / k_chunk, m = n - r0 - B;
+    if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+    CUtensorMap map, map_s, map_inv;
+    int err = tf32x3::make_map(&map, L, r0, n, n);   // L[:, :r0]: k past r0 reads as zero
+    if (!err) err = tf32x3::make_map(&map_s, S, B, m, B);
+    if (!err) err = tf32x3::make_map(&map_inv, inv, B, B, B);
+    if (!err) err = tf32x3::allow_smem(panel_product_kernel<true>);
+    if (!err) err = tf32x3::allow_smem(below_solve_kernel);
+    if (err) return err;
+    const int64_t tiles = ((m + tf32x3::BM - 1) / tf32x3::BM) * ((B + tf32x3::BN - 1) / tf32x3::BN);
+    panel_product_kernel<true><<<(unsigned)(tiles * splits), tf32x3::THREADS, tf32x3::SMEM_BYTES, stream>>>(
+        map, L, S, splits > 1 ? part : nullptr, n, r0, B, splits > 1 ? k_chunk : r0, scale);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    if (splits > 1) {
+        int64_t blocks = (m * B + 255) / 256;
+        if (blocks > 8 * SMS) blocks = 8 * SMS;
+        panel_reduce_kernel<<<(unsigned)blocks, 256, 0, stream>>>(L, part, S, n, r0, B, B, splits,
+                                                                  scale);
+        e = cudaGetLastError();
+        if (e != cudaSuccess) return (int)e;
+    }
+    below_solve_kernel<<<(unsigned)tiles, tf32x3::THREADS, tf32x3::SMEM_BYTES, stream>>>(
+        map_s, map_inv, L, n, r0, B, scale);
+    return (int)cudaGetLastError();
 }
 
 extern "C" int col_commit_f32(float* L, const float* Ljj, int64_t n, int64_t r0, int64_t B,

@@ -1,6 +1,7 @@
 // The 3xTF32 tensor-core GEMM mainloop of the blocked Cholesky kernels
-// (blocked_cholesky.cu's K-spanel and K-colwrite, fused_trsm.cu's K-sdiag),
-// for Hopper (sm_90a).
+// (blocked_cholesky.cu's K-spanel and K-colwrite, fused_trsm.cu's K-sdiag
+// and K-below-trsm), for Hopper (sm_90a), and the panel kernels at its end
+// that K-spanel, K-colwrite and K-below-trsm share.
 //
 // One CTA computes a 128 x 128 tile of out = X . Y^T over a range of k, with
 // X (rows x k) and Y (cols x k) both k-contiguous (K-major, the only layout
@@ -317,3 +318,111 @@ inline int allow_smem(Kernel kernel) {
 }
 
 }  // namespace tf32x3
+
+// -- the panel kernels of K-spanel, K-colwrite and K-below-trsm ---------------
+
+namespace {
+
+// One CTA per (128 x 128 output tile, k chunk) of the product A . C^T over
+// the m = n - r0 - rbeg rows of block column j from row r0 + rbeg
+// (A = L[r0+rbeg:, :r0], C = L[r0:r0+B, :r0], one tensor map over
+// L[:, :r0]): K-spanel's (kBelow false, rbeg = 0) and K-below-trsm's
+// (kBelow, rbeg = B; a compile-time choice, so K-spanel's instance is the
+// code it had before K-below-trsm shared it). The
+// column tiles of a row tile are adjacent in the launch order, so A's rows
+// come from DRAM once. Chunk z covers k in [z k_chunk, min(r0, (z+1)
+// k_chunk)). With part null the epilogue writes S (m x B) = s K - acc from
+// the K rows of column j (s: the range scale's); else the raw partial tile
+// into slab z of part (splits x m x B).
+template <bool kBelow>
+__global__ void __launch_bounds__(tf32x3::THREADS, 1)
+panel_product_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ L,
+                     float* __restrict__ S, float* __restrict__ part, int64_t n, int64_t r0,
+                     int64_t B, int64_t k_chunk, const float* __restrict__ scale) {
+    extern __shared__ uint8_t smem_raw[];
+    const int64_t rbeg = kBelow ? B : 0;
+    const int64_t m = n - r0 - rbeg;
+    const int64_t tiles_b = (B + tf32x3::BN - 1) / tf32x3::BN;
+    const int64_t tiles_m = (m + tf32x3::BM - 1) / tf32x3::BM;
+    const int64_t col0 = (blockIdx.x % tiles_b) * tf32x3::BN;
+    const int64_t row0 = ((blockIdx.x / tiles_b) % tiles_m) * tf32x3::BM;
+    const int64_t z = blockIdx.x / (tiles_b * tiles_m);
+    const int64_t kbeg = z * k_chunk, kend = kbeg + k_chunk < r0 ? kbeg + k_chunk : r0;
+    const int nslices = (int)((kend - kbeg + tf32x3::BK - 1) / tf32x3::BK);
+    float acc[64];
+    if (!tf32x3::mainloop(&map, &map, (int)(r0 + rbeg + row0), (int)(r0 + col0), (int)kbeg, nslices,
+                          tf32x3::PRESCALE * tf32x3::scale_at(scale, 1),
+                          tf32x3::aligned_smem(smem_raw), acc))
+        return;
+    const float s = tf32x3::scale_at(scale, 0);
+    const int64_t c0 = col0 + tf32x3::col_of();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int64_t r = row0 + tf32x3::row_of(h);
+        if (r >= m) continue;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int64_t c = c0 + 8 * i + e;
+                if (c >= B) continue;
+                const float v = acc[4 * i + 2 * h + e] * tf32x3::POSTSCALE;
+                if (part != nullptr)
+                    part[(z * m + r) * B + c] = v;
+                else
+                    S[r * B + c] = L[(r0 + rbeg + r) * n + r0 + c] * s - v;
+            }
+        }
+    }
+}
+
+// The split product's second pass: S = s K - sum_z part[z], z in order (no
+// atomics: repeats are bit-identical), rows as panel_product_kernel's.
+__global__ void __launch_bounds__(256)
+panel_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part,
+                    float* __restrict__ S, int64_t n, int64_t r0, int64_t rbeg, int64_t B,
+                    int64_t splits, const float* __restrict__ scale) {
+    const int64_t total = (n - r0 - rbeg) * B;
+    const float sc = tf32x3::scale_at(scale, 0);
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride) {
+        float s = part[e];
+        for (int64_t z = 1; z < splits; ++z) s += part[z * total + e];
+        S[e] = L[(r0 + rbeg + e / B) * n + r0 + e % B] * sc - s;
+    }
+}
+
+// One 128 x 128 tile (row0, col0) of the TRSM as a product with the
+// explicit inverse, K-colwrite's and K-below-trsm's: the rows below block
+// column j's diagonal block, L[r0+B+r, r0+c] = (S . inv^T)[r, c] * unscale,
+// map_s over S's m - B rows below (B columns), map_inv over inv (B x B).
+// Every thread of the block calls it.
+__device__ __forceinline__ void solve_tile(const CUtensorMap* map_s, const CUtensorMap* map_inv,
+                                           float* __restrict__ L, int64_t n, int64_t r0,
+                                           int64_t B, int64_t row0, int64_t col0, float unscale,
+                                           uint8_t* smem) {
+    const int64_t below = n - r0 - B;
+    float acc[64];
+    if (!tf32x3::mainloop(map_s, map_inv, (int)row0, (int)col0, 0,
+                          (int)((B + tf32x3::BK - 1) / tf32x3::BK), tf32x3::PRESCALE, smem, acc))
+        return;
+    const float post = tf32x3::POSTSCALE * unscale;
+    const int64_t c0 = col0 + tf32x3::col_of();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int64_t r = row0 + tf32x3::row_of(h);
+        if (r >= below) continue;
+        float* dst = L + (r0 + B + r) * n + r0;
+#pragma unroll
+        for (int i = 0; i < 16; ++i) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int64_t c = c0 + 8 * i + e;
+                if (c < B) dst[c] = acc[4 * i + 2 * h + e] * post;
+            }
+        }
+    }
+}
+
+}  // namespace
+

@@ -37,7 +37,8 @@ from .block_mosm import (BWD_TILE, _pad_channels, _pair_layout, _device_layout, 
                          lowrank_chunk, mosm_pair_stats, mosm_lowrank_vjp_sorted)
 from .mosm_gram import (_gram_layout, _device_gram_layout, channel_counts, channel_map,
                         mosm_gram)
-from .mosm_matvec import mosm_matvec, PLAIN_ROWS, MAX_R
+from .mosm_matvec import (FOLD_TILE, PLAIN_ROWS, fold_group, fold_items_on, fold_matvec,
+                          fold_partials_plain_of, fold_slab_base, fold_tiles, mosm_matvec)
 
 _pi = np.pi
 _two_pi = 2.0 * np.pi
@@ -478,35 +479,52 @@ def family_matvec_plain(family, x, c, pack, V):
     return out
 
 
-def family_matvec(family, x, c, pack, V):
-    """K(x, x)·V for a family's Gram, x (N, D), channel IDs c (N,) int32,
-    V (N, R). Not differentiable. CPU or float64: the plain twin. float32
-    CUDA: one launch of csrc/family_matvec.cu per 2,048 columns of V, or
-    raises."""
-    if _build.runs_plain(x):
-        return family_matvec_plain(family, x, c, pack, V)
+def family_fold_partials_plain(family, x, c, pack, V):
+    """Plain twin of K-fam-matvec's first pass: the partial slabs
+    family_fold_partials fills (mosm_matvec.fold_partials_plain_of with the
+    family's plain Gram), which mosm_matvec.mosm_matvec_reduce_plain sums."""
+    return fold_partials_plain_of(
+        lambda ri, rj: family_gram_plain(family, x[ri], c[ri], x[rj], c[rj], pack), V)
+
+
+def family_fold_partials(family, x, c, pack, V):
+    """K-fam-matvec's first pass on the card: the (slots·128, R) partial
+    slabs of K(x, x)·V (K-matvec's layout, mosm_matvec.fold_slab_base), one
+    launch of csrc/family_matvec.cu family_matvec_fold_f32 (counted on
+    family_matvec), R within one fold_group. Raises on what the kernel does
+    not take."""
     D = x.shape[1]
     fam, A, S = family_dims(family, pack, D)
     O = pack.shape[0]
     table = _table(pack)
-    N, R = V.shape
+    N = x.shape[0]
     _build.require_cuda_inputs("family_matvec", floats=(x, table, V), ints=(c,))
-    if N != x.shape[0] or c.shape != (N,) or R < 1:
-        raise ValueError("family_matvec: V must be (N, R) with N = %d rows and R >= 1" % x.shape[0])
-    out = torch.empty((N, R), dtype=torch.float32, device=x.device)
-    for r0 in range(0, R, MAX_R):
-        r1 = min(R, r0 + MAX_R)
-        Vg = V if (r0, r1) == (0, R) else V[:, r0:r1].contiguous()
-        og = out if (r0, r1) == (0, R) else torch.empty((N, r1 - r0), dtype=torch.float32,
-                                                       device=x.device)
-        err = _build.library().family_matvec_f32(
-            x.data_ptr(), c.data_ptr(), table.data_ptr(), Vg.data_ptr(), og.data_ptr(),
-            N, r1 - r0, O, S, D, A, fam, _build.stream_ptr(x))
-        _build.check(err, "family_matvec_f32")
-        family_matvec.launches += 1
-        if og is not out:
-            out[:, r0:r1] = og
-    return out
+    if V.dim() != 2 or V.shape[0] != N or c.shape != (N,) or V.shape[1] < 1:
+        raise ValueError("family_matvec: V must be (N, R) with N = %d rows and R >= 1" % N)
+    R = V.shape[1]
+    nb, cols = fold_group(N, R)
+    if cols < R:
+        raise ValueError("family_matvec: R = %d exceeds one launch's %d columns" % (R, cols))
+    part = torch.empty((fold_slab_base(*fold_tiles(N)) * FOLD_TILE, R), dtype=torch.float32,
+                       device=x.device)
+    items = fold_items_on(N, x.device)
+    err = _build.library().family_matvec_fold_f32(
+        x.data_ptr(), c.data_ptr(), table.data_ptr(), V.data_ptr(), items.data_ptr(),
+        items.shape[0], part.data_ptr(), N, R, nb, O, S, D, A, fam, _build.stream_ptr(x))
+    _build.check(err, "family_matvec_fold_f32")
+    family_matvec.launches += 1
+    return part
+
+
+def family_matvec(family, x, c, pack, V):
+    """K(x, x)·V for a family's Gram, x (N, D), channel IDs c (N,) int32 in
+    any order, V (N, R). Not differentiable. CPU or float64: the plain twin.
+    float32 CUDA: per fold_group of columns of V one K-fam-matvec launch
+    (family_fold_partials: each symmetric 128² tile evaluated once, 3xTF32
+    products) and one K-matvec-reduce launch, or raises."""
+    if _build.runs_plain(x):
+        return family_matvec_plain(family, x, c, pack, V)
+    return fold_matvec(lambda Vg: family_fold_partials(family, x, c, pack, Vg), x.shape[0], V)
 
 
 family_matvec.launches = 0

@@ -20,10 +20,11 @@ JAX counterpart: mogptk_tpu/ops/blocked_cholesky.py (`blocked_cholesky`
 The fused below-TRSM variant (`fused_trsm`, JAX :751-779) runs every block
 column after the first as: S_jj = K_jj − C·Cᵀ, C = L[r0:r0+B, :r0]
 (`s_diag`, JAX `_s_diag_pallas`); step 2; the rows below finished in one
-pass, (K_below − L[r0+B:, :r0]·Cᵀ)·invᵀ written straight into column j
+call, (K_below − L[r0+B:, :r0]·Cᵀ)·invᵀ written straight into column j
 (`below_trsm`, JAX `_below_trsm_pallas` and the below half of
-`_col_commit`), so S below the diagonal block never goes to device memory;
-then Ljj into the diagonal block and, with zero_upper, the strip zeroed
+`_col_commit`; on the card the two products on the tensor cores, S below
+the diagonal block in a scratch strip between them, `below_trsm_plan`'s
+split-K); then Ljj into the diagonal block and, with zero_upper, the strip zeroed
 (`col_commit`, JAX `_col_commit` and `_upper_zero_impl`). Block column 0
 takes steps 1-3, as in the JAX package.
 
@@ -152,10 +153,14 @@ def spanel_plan(n, r0, B):
     the tiles cannot fill the SMs (block columns j ≥ 26 at N = 16,384,
     B = 512) or leave most of a last wave empty (j = 12-15 and 19-23).
     Otherwise splits is 1 and k_chunk ≥ r0. r0 = 0 gives (1, 0): no k."""
+    return _split_k_plan(n - r0, r0, B)
+
+
+def _split_k_plan(m, r0, B):
+    """spanel_plan's model for an m × B product over k = r0."""
     slices = -(-r0 // TF32X3_K_SLICE)
     if slices == 0:
         return 1, 0
-    m = n - r0
     tiles = -(-m // TF32X3_TILE) * -(-B // TF32X3_TILE)
 
     def cost(s):
@@ -267,8 +272,8 @@ col_write.launches = 0
 
 # K-sdiag's plan: a k chunk holds at least this many 32-deep slices
 SDIAG_MIN_SLICES = 4
-# the blocks the fused kernels take on the card: K-below-trsm keeps whole
-# B-wide rows of the accumulator on chip, 4 or 8 columns a thread
+# the blocks the fused kernels take on the card (the JAX package's gate is
+# its own tiling's)
 FUSED_BLOCKS = (256, 512)
 
 
@@ -325,6 +330,14 @@ def below_trsm_plain(L, inv, j, B):
     below.copy_((below - L[r0 + B:, :r0] @ C.T) @ inv.T)
 
 
+@functools.lru_cache(maxsize=4096)
+def below_trsm_plan(n, r0, B):
+    """K-below-trsm's split-K plan for block column offset r0 > 0:
+    (splits, k_chunk), as spanel_plan's (the same cost model and chunks) for
+    the m = n − r0 − B rows below the diagonal block."""
+    return _split_k_plan(n - r0 - B, r0, B)
+
+
 def col_commit_plain(L, Ljj, j, B, zero_upper=True):
     """L[r0:r0+B, r0:r0+B] = Ljj and, with zero_upper, the strip of block
     row j right of it zeroed."""
@@ -356,20 +369,33 @@ def s_diag(L, j, B, scale=None):
     return out
 
 
-def below_trsm(L, inv, j, B):
+def below_trsm(L, inv, j, B, scale=None):
     """Finish the rows of block column j below its diagonal block, in place,
     for 0 < j < n/B − 1. CPU or float64: plain twin. float32 CUDA:
-    csrc/fused_trsm.cu below_trsm_f32, or raises."""
+    csrc/fused_trsm.cu below_trsm_f32 (both products on the 3xTF32 tensor
+    cores: A·Cᵀ with below_trsm_plan's split-K and, where split, its
+    fixed-order second pass into a scratch strip S, then S·invᵀ into column
+    j), or raises. The TMA copies need n a multiple of 4 and L and inv on
+    16 bytes. scale as col_write's: with the factor's range_scale, inv is
+    the inverse of s·K's Ljj and the kernel writes
+    (s·K_below − (r·A)(r·C)ᵀ)·invᵀ/r, the true factor's rows."""
     if _build.runs_plain(L):
         return below_trsm_plain(L, inv, j, B)
     _check_fused("below_trsm", L, j, B)
-    if inv.shape != (B, B) or (j + 1) * B >= L.shape[0]:
+    n, r0 = L.shape[0], j * B
+    if inv.shape != (B, B) or r0 + B >= n:
         raise ValueError("below_trsm: inv must be (B, B) and column j must have rows below")
     _build.require_cuda_inputs("below_trsm", floats=(L, inv))
-    if L.data_ptr() % 16 or inv.data_ptr() % 16:
-        raise ValueError("below_trsm: L and inv must start on 16 bytes (float4 loads)")
-    err = _build.library().below_trsm_f32(L.data_ptr(), inv.data_ptr(), L.shape[0], j * B, B,
-                                          _build.stream_ptr(L))
+    if n % 4 or L.data_ptr() % 16 or inv.data_ptr() % 16:
+        raise ValueError("below_trsm: the TMA copies need n a multiple of 4 and L and inv on "
+                         "16 bytes")
+    splits, k_chunk = below_trsm_plan(n, r0, B)
+    m = n - r0 - B
+    S = torch.empty((m, B), dtype=L.dtype, device=L.device)
+    part = torch.empty((splits, m, B), dtype=L.dtype, device=L.device) if splits > 1 else None
+    err = _build.library().below_trsm_f32(L.data_ptr(), inv.data_ptr(), S.data_ptr(),
+                                          None if part is None else part.data_ptr(), n, r0, B,
+                                          k_chunk, _scale_ptr(scale), _build.stream_ptr(L))
     _build.check(err, "below_trsm_f32")
     below_trsm.launches += 1
 
@@ -484,17 +510,14 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
         # below it, every later one
         failed = failed | (info != 0)
         Ljj = torch.where(failed, torch.full_like(Ljj, float("nan")), Ljj).contiguous()
-        inv = inv_true = None
+        inv = None
         if j < nb - 1 or invs is not None:
             inv = torch.linalg.solve_triangular(Ljj, eye, upper=False).contiguous()
-            r = 1.0 if scale is None else scale[1]   # Ljj, inv are s·K's: the true inverse is inv·r
-            if invs is not None:
-                inv_true = torch.mul(inv, r, out=invs[j])
-            elif fused and j > 0:
-                inv_true = inv * r
+            if invs is not None:   # Ljj, inv are s·K's: the true inverse is inv·r
+                torch.mul(inv, 1.0 if scale is None else scale[1], out=invs[j])
         if fused and j > 0:
             if j < nb - 1:
-                below_trsm(L, inv_true, j, B)
+                below_trsm(L, inv, j, B, scale)
             col_commit(L, Ljj if scale is None else Ljj * scale[2], j, B, zero_upper)
         else:
             col_write(L, S, Ljj, inv, j, B, zero_upper, scale)

@@ -12,7 +12,9 @@ ops/pallas_mosm.py). All are one function of the channel-pair statistics
 (ops/block_mosm.mosm_pair_stats), as K-gram is; csrc/mosm_matvec.cu
 computes it for any channel order: K-gram-matvec in one FFMA launch, and
 K-matvec, the square case (the iterative engine, gpr/iterative.py, passes
-channel-sorted rows), by the fold: each 128 × 128 tile of the upper
+channel-sorted rows), by the fold (csrc/matvec_fold.cuh, which
+K-fam-matvec shares, with `fold_matvec` and this module's plan and second
+pass): each 128 × 128 tile of the upper
 triangle of the tile grid evaluated once and used for both K·V and Kᵀ·V,
 the products on the tensor cores in 3xTF32, the transposed contributions
 summed through partial slabs by a fixed-order second pass
@@ -134,7 +136,8 @@ def fold_items(N):
 _fold_items_on = {}
 
 
-def _device_items(N, device):
+def fold_items_on(N, device):
+    """fold_items(N) on `device`, made once per (N, device)."""
     key = (N, str(device))
     if key not in _fold_items_on:
         _fold_items_on[key] = torch.as_tensor(fold_items(N), device=device).contiguous()
@@ -172,7 +175,7 @@ def fold_partials(x, c, st3, st2, V):
     ntiles, nsupers = fold_tiles(N)
     part = torch.empty((fold_slab_base(ntiles, nsupers) * FOLD_TILE, R), dtype=torch.float32,
                        device=x.device)
-    items = _device_items(N, x.device)
+    items = fold_items_on(N, x.device)
     err = _build.library().mosm_matvec_fold_f32(
         x.data_ptr(), c.data_ptr(), stats.data_ptr(), V.data_ptr(), items.data_ptr(),
         items.shape[0], part.data_ptr(), N, R, nb, O, Q, D, generic_flag("forward", st3),
@@ -182,11 +185,13 @@ def fold_partials(x, c, st3, st2, V):
     return part
 
 
-def fold_partials_plain(x, c, st3, st2, V):
-    """Plain twin of K-matvec's first pass: the partial slabs fold_partials
-    fills, from the plain Gram of each tile pair (i, j ≥ i) of fold_items,
-    G·V[j] summed over the item's tiles into slot fold_row_slot(i, J) and
-    Gᵀ·V[i] into slot fold_col_slot(j, i); rows past N stay NaN."""
+def fold_partials_plain_of(gram, V):
+    """The fold's first pass in plain torch for any symmetric Gram: the
+    partial slabs the kernels fill, from gram(ri, rj), the plain Gram of the
+    rows ri against the rows rj (two slices), for each tile pair (i, j ≥ i)
+    of fold_items: G·V[j] summed over the item's tiles into slot
+    fold_row_slot(i, J) and Gᵀ·V[i] into slot fold_col_slot(j, i); rows past
+    N stay NaN."""
     N, R = V.shape
     T = FOLD_TILE
     ntiles, nsupers = fold_tiles(N)
@@ -196,7 +201,7 @@ def fold_partials_plain(x, c, st3, st2, V):
         acc = V.new_zeros((ri.stop - ri.start, R))
         for j in fold_item_tiles(i, J, ntiles):
             rj = slice(j * T, min(N, (j + 1) * T))
-            G = mosm_gram_pairstats_plain(x[ri], c[ri], x[rj], c[rj], st3, st2)
+            G = gram(ri, rj)
             acc += G @ V[rj]
             if j != i:
                 s = fold_col_slot(j, i, nsupers) * T
@@ -206,8 +211,15 @@ def fold_partials_plain(x, c, st3, st2, V):
     return part
 
 
+def fold_partials_plain(x, c, st3, st2, V):
+    """Plain twin of K-matvec's first pass (fold_partials_plain_of with the
+    MOSM Gram of the pair statistics)."""
+    return fold_partials_plain_of(
+        lambda ri, rj: mosm_gram_pairstats_plain(x[ri], c[ri], x[rj], c[rj], st3, st2), V)
+
+
 def mosm_matvec_reduce_plain(part, N):
-    """Plain twin of K-matvec's second pass: each row the sum of its row
+    """Plain twin of the fold's second pass (K-matvec's and K-fam-matvec's): each row the sum of its row
     tile's slots in slot order (slot 0 first), from part
     (slots·128, R)."""
     ntiles, nsupers = fold_tiles(N)
@@ -223,8 +235,8 @@ def mosm_matvec_reduce_plain(part, N):
 
 
 def mosm_matvec_reduce(part, N):
-    """K-matvec's second pass, K-matvec-reduce: (N, R) from the partial
-    slabs of fold_partials. CPU or float64: the plain twin. float32 CUDA:
+    """The fold's second pass, K-matvec-reduce: (N, R) from the partial
+    slabs of fold_partials or block_families.family_fold_partials. CPU or float64: the plain twin. float32 CUDA:
     csrc/mosm_matvec.cu mosm_matvec_reduce_f32 (the same order of sums), or
     raises."""
     if _build.runs_plain(part):
@@ -252,16 +264,21 @@ def mosm_matvec(x, c, st3, st2, V):
     every R measured, R = 1 included: PERF.md §6.)"""
     if _build.runs_plain(x):
         return mosm_matvec_plain(x, c, st3, st2, V)
+    return fold_matvec(lambda Vg: fold_partials(x, c, st3, st2, Vg), x.shape[0], V)
+
+
+def fold_matvec(first_pass, N, V):
+    """K(x, x)·V on the card through the fold: per fold_group of columns of
+    V, first_pass(V's columns, contiguous) gives the partial slabs (one
+    K-matvec or K-fam-matvec launch) and mosm_matvec_reduce sums them."""
     R = V.shape[1] if V.dim() == 2 else 0
-    N = x.shape[0]
     _, cols = fold_group(N, max(R, 1))
     if cols >= R:
-        return mosm_matvec_reduce(fold_partials(x, c, st3, st2, V), N)
-    out = torch.empty((N, R), dtype=torch.float32, device=x.device)
+        return mosm_matvec_reduce(first_pass(V), N)
+    out = torch.empty((N, R), dtype=torch.float32, device=V.device)
     for r0 in range(0, R, cols):
         r1 = min(R, r0 + cols)
-        out[:, r0:r1] = mosm_matvec_reduce(
-            fold_partials(x, c, st3, st2, V[:, r0:r1].contiguous()), N)
+        out[:, r0:r1] = mosm_matvec_reduce(first_pass(V[:, r0:r1].contiguous()), N)
     return out
 
 

@@ -187,7 +187,9 @@ def test_sdiag_plan_covers_each_lower_tile_once():
     kernel's order (10 at B = 512, 3 at 256), each over the same chunks of
     k, which cover [0, r0) once in order, each a whole number of 32-deep
     slices; the tiles × chunks fit in one wave of the 132 SMs and, where k
-    is long enough, fill it (more than 132 − tiles CTAs)."""
+    is long enough, fill it (more than 132 − tiles CTAs). K-below-trsm's
+    split-K plan on the rows below, at every block column of N = 16,384
+    with rows below."""
     for B in (256, 512):
         tiles = tbc.sdiag_tiles(B)
         t1 = B // tbc.TF32X3_TILE
@@ -208,6 +210,26 @@ def test_sdiag_plan_covers_each_lower_tile_once():
             assert len(tiles) * splits <= tbc.H100_SMS
             if r0 // tbc.TF32X3_K_SLICE >= tbc.SDIAG_MIN_SLICES * (tbc.H100_SMS // len(tiles)):
                 assert len(tiles) * splits > tbc.H100_SMS - len(tiles), (B, j)
+        # K-below-trsm's product, CTA by CTA as csrc/fused_trsm.cu
+        # below_product_kernel walks its grid: each (128-row tile below the
+        # diagonal block, 128-column tile, 32-deep k slice) exactly once
+        n, T, K = 16384, tbc.TF32X3_TILE, tbc.TF32X3_K_SLICE
+        split = []
+        for j in range(1, n // B - 1):
+            r0 = j * B
+            splits, k_chunk = tbc.below_trsm_plan(n, r0, B)
+            assert k_chunk > 0 and k_chunk % K == 0 and -(-r0 // k_chunk) == splits
+            tiles_m, tiles_b = -(-(n - r0 - B) // T), B // T
+            seen = np.zeros((tiles_m, tiles_b, r0 // K), dtype=int)
+            for blk in range(tiles_m * tiles_b * splits):
+                z = blk // (tiles_m * tiles_b)
+                kbeg, kend = z * k_chunk, min(r0, (z + 1) * k_chunk)
+                assert kbeg < kend
+                seen[(blk // tiles_b) % tiles_m, blk % tiles_b, kbeg // K:kend // K] += 1
+            assert (seen == 1).all(), (B, j)
+            if splits > 1:
+                split.append(j)
+        assert split and split[-1] == n // B - 2   # the last columns below split k
 
 
 def test_fused_gates():

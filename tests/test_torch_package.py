@@ -152,7 +152,8 @@ def test_matvec_fold_plan_covers_each_tile_pair_once(N):
     b < a); every slab slot is written exactly once and lies in its row
     tile's range; the items off the diagonal super-block come first. On the ragged N the fold's
     plain twins (first pass and fixed-order second pass) give the plain
-    matvec in float64, channels permuted."""
+    matvec in float64, channels permuted: K-matvec's and K-fam-matvec's for
+    each of the five block families (D = 1 and 2)."""
     ntiles, nsupers = tmv.fold_tiles(N)
     total = tmv.fold_slab_base(ntiles, nsupers)
     bases = [tmv.fold_slab_base(t, nsupers) for t in range(ntiles + 1)]
@@ -187,6 +188,16 @@ def test_matvec_fold_plan_covers_each_tile_pair_once(N):
         got = tmv.mosm_matvec_reduce_plain(tmv.fold_partials_plain(x, c, st3, st2, V), N)
         torch.testing.assert_close(got, tmv.mosm_matvec_plain(x, c, st3, st2, V), rtol=1e-12,
                                    atol=1e-12)
+        # K-fam-matvec's fold, the same plan and slabs, for each block family
+        from mogptk_tpu_torch.ops import block_families as tbf
+        for D, A in ((1, 2), (2, 1)):
+            x = torch.as_tensor(rng.rand(N, D) * 5)
+            for k in _family_kernels(rng, D, A, "cpu"):
+                pack = tbf.family_pack(k.family, [p.detach().double() for p in k._fused_params()])
+                got = tmv.mosm_matvec_reduce_plain(
+                    tbf.family_fold_partials_plain(k.family, x, c, pack, V), N)
+                torch.testing.assert_close(got, tbf.family_matvec_plain(k.family, x, c, pack, V),
+                                           rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.cuda
@@ -848,8 +859,9 @@ def test_cuda_family_kernels_match_plain_twins():
     generic (D = 3 with 3 components) instances, on 300 points in 3
     channels (counts 150, 1, 149, padded to 256-row tiles; the Gram on
     random channel IDs), float32, against their plain twins. K-fam-gram
-    2e-4·max|K| and K-fam-matvec with the float32 summation bound of N terms
-    added; the two backward kernels through the pack to the parameters, at
+    2e-4·max|K| and K-fam-matvec (the fold, at R = 33 on sorted channels and
+    R = 1, 17 on random ones, each repeat bit-identical) with the float32
+    summation bound of N terms added; the two backward kernels through the pack to the parameters, at
     most twice the float32 twin's distance from the float64 twin plus 1e-5
     relative; each backward repeated bit-identical."""
     if not torch.cuda.is_available():
@@ -870,14 +882,15 @@ def test_cuda_family_kernels_match_plain_twins():
             p = pack.detach()
             K = tbf.family_gram(family, x, cr, x[:200], c[:200], p)
             Kp = tbf.family_gram_plain(family, x, cr, x[:200], c[:200], p)
-            V = torch.as_tensor(rng.randn(n, 33), dtype=torch.float32, device=dev)
-            KV = tbf.family_matvec(family, x, c, p, V)
-            KVp = tbf.family_matvec_plain(family, x, c, p, V)
-            torch.cuda.synchronize()
             kmax = float(Kp.abs().max())
             assert float((K - Kp).abs().max()) <= 2e-4 * kmax, (family, D, A)
-            tol = (2e-4 + n * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
-            assert bool(((KV - KVp).abs() <= tol).all()), (family, D, A)
+            for cc, R in ((c, 33), (cr, 1), (cr, 17)):   # the fold, sorted and on random channels
+                V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+                KV = tbf.family_matvec(family, x, cc, p, V)
+                assert torch.equal(KV, tbf.family_matvec(family, x, cc, p, V)), (family, D, A, R)
+                KVp = tbf.family_matvec_plain(family, x, cc, p, V)
+                tol = (2e-4 + n * 2.0 ** -24) * kmax * V.abs().sum(dim=0)
+                assert bool(((KV - KVp).abs() <= tol).all()), (family, D, A, R)
 
             G = torch.as_tensor(rng.randn(n, n), dtype=torch.float32, device=dev)
             Am = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
@@ -906,8 +919,9 @@ def test_cuda_family_kernels_match_plain_twins():
 @pytest.mark.cuda
 def test_cuda_fused_kernels_match_plain_twins():
     """K-sdiag, K-below-trsm, K-commit and K-syrk against their plain twins
-    on the card, float32, small shapes; K-sdiag and K-below-trsm at the
-    columns where each of K-below-trsm's row tiles runs. Tolerances: K-sdiag and
+    on the card, float32, small shapes; K-sdiag and K-below-trsm at columns
+    where K-below-trsm splits k and where it does not, K-below-trsm also
+    with a range scale (bit-identical to the unscaled call). Tolerances: K-sdiag and
     K-below-trsm's S 2·(k+1)·2⁻²⁴·(|C||C|ᵀ + |K|), the summation-order
     bound of two float32 sums of length k, carried through invᵀ with
     2·B·2⁻²⁴·|S||inv|ᵀ more; K-commit exact (a copy); K-syrk
@@ -921,8 +935,8 @@ def test_cuda_fused_kernels_match_plain_twins():
     rng = np.random.RandomState(2)
     n = 5632
     L = torch.as_tensor(rng.randn(n, n) / 8, dtype=torch.float32, device=dev)
-    # at n = 5,632 these columns run every K-below-trsm instance: row tile
-    # 32, 16, 8 and 4 (by the rows below) for B = 256 and for B = 512
+    # at n = 5,632 these columns run K-below-trsm with k in one chunk (j = 1)
+    # and in 3 to 16 chunks (below_trsm_plan) for B = 256 and for B = 512
     for B, js in ((256, (1, 11, 15, 19)), (512, (1, 5, 7, 9))):
         for j in js:
             r0 = j * B
@@ -941,9 +955,15 @@ def test_cuda_fused_kernels_match_plain_twins():
             tol = (2 * (r0 + 1) * u * (A @ C.abs().T + L[r0 + B:, r0:r0 + B].abs())) @ inv.abs().T \
                 + 2 * (B + 1) * u * (S.abs() @ inv.abs().T)
             assert bool(((L1 - L2)[r0 + B:, r0:r0 + B].abs() <= tol + 1e-7).all()), (B, j)
+            # with a range scale [s, r, 1/r] of exact powers of two and the
+            # inverse of s·K's panel (inv·2^50), the same rows bit for bit
+            Ls = L.clone()
+            tbc.below_trsm(Ls, inv * 2.0 ** 50, j, B,
+                           torch.tensor([2.0 ** -100, 2.0 ** -50, 2.0 ** 50], device=dev))
+            assert torch.equal(Ls, L1), (B, j)
             L1[r0 + B:, r0:r0 + B] = L2[r0 + B:, r0:r0 + B]
             assert torch.equal(L1, L2)                     # nothing else written
-            del L1, L2
+            del L1, L2, Ls
 
     for zero_upper in (True, False):
         L1, L2 = L.clone(), L.clone()
