@@ -114,8 +114,9 @@ K-below-trsm, which run three TF32 passes on the tensor cores, 3 × their
 operations over 495 TFLOP/s (the FP32 bound printed beside it); for
 K-matvec and K-fam-matvec the larger of the folded element evaluations at
 the FP32 peak and the 3xTF32 products (fold_bounds; the unfolded FP32
-bound beside it), for K-lowrank-vjp the larger of its τ chain at the FP32
-peak and its cotangent product's 3xTF32 passes; K-solve's bytes count L's
+bound beside it), for K-lowrank-vjp and K-fam-lowrank-vjp the larger of
+the element chain at the FP32 peak and the cotangent product's 3xTF32
+passes (the FP32 bound beside it); K-solve's bytes count L's
 strictly lower blocks and the diagonal-block inverses twice, once a sweep
 (the backward sweep starts when the forward one ends, and L is far beyond
 the 50 MB L2).
@@ -204,6 +205,18 @@ def bound_tf32x3(nbytes, nops):
     TF32 peak."""
     b, o = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * 3 * nops / PEAK_TF32_PER_S
     return (b, "bytes") if b >= o else (o, "operations")
+
+
+def lowrank_bounds(nbytes, product, chain):
+    """(bound, FP32 bound) of K-lowrank-vjp and K-fam-lowrank-vjp, each
+    (bound_ms, bound_by): the bound is the larger of the bytes, the element
+    chain's operations at the FP32 peak and the cotangent product's as three
+    TF32 passes on the tensor cores (two pipes that can overlap); the FP32
+    bound counts both at the FP32 peak."""
+    return (max((1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"),
+                (1e3 * chain / PEAK_FP32_PER_S, "operations"),
+                (1e3 * 3 * product / PEAK_TF32_PER_S, "operations")),
+            bound(nbytes, product + chain))
 
 
 def gram_ops(elements, D):
@@ -1415,10 +1428,7 @@ def lowrank_vjp_check(bm, x, counts, params, twopi, st3, st2, A, Bm, label, reps
     sums over the N² elements in two orders, so at most twice the float32
     twin's error against float64, plus a floor of 1e-5 of the cotangents'
     scale. Returns (max |kernel − twin|, kernel ms, twin ms, bound, FP32
-    bound): the bound is the larger of the bytes, the τ chain's operations
-    at the FP32 peak and the cotangent product's as three TF32 passes on
-    the tensor cores (two pipes that can overlap, as K-matvec's); the FP32
-    bound counts both at the FP32 peak."""
+    bound) (lowrank_bounds)."""
     import torch
     raw = bm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, Bm)
     again = bm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, Bm)
@@ -1443,11 +1453,7 @@ def lowrank_vjp_check(bm, x, counts, params, twopi, st3, st2, A, Bm, label, reps
     n, D, R1, tile = x.shape[0], x.shape[1], A.shape[1], bm.BWD_TILE ** 2
     product = tile * R1 * (4 * sym + 2 * (idx.shape[0] - sym))
     chain = tile * idx.shape[0] * Q * (18 * D + 16)
-    nbytes = 4 * n * (2 * R1 + D)
-    bnd32 = bound(nbytes, product + chain)
-    bnd = max((1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"),
-              (1e3 * chain / PEAK_FP32_PER_S, "operations"),
-              (1e3 * 3 * product / PEAK_TF32_PER_S, "operations"))
+    bnd, bnd32 = lowrank_bounds(4 * n * (2 * R1 + D), product, chain)
     print("K-lowrank-vjp %s, %d tiles of %d^2 (R=%d): parameter cotangents vs float64 %.3e "
           "(twin %.3e, tol %.3e, scale %.3e), vs twin %.3e, repeat bit-identical %s, kernel "
           "%.3f ms, plain %.3f ms, bound %.3f ms (%s; 3xTF32 product, FP32 chain), FP32 bound "
@@ -2588,14 +2594,15 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
         ms = median_ms(lambda: bf.family_lowrank_vjp_sorted(family, x, counts, p, A, B), reps=5)
         pms = median_ms(lambda: bf.family_lowrank_vjp_plain(family, x, counts, p, A, B),
                         reps=preps, warmup=pwarm)
-        # the function needs each of the N(N+1)/2 upper elements once: 4R
-        # FMAs for g (both directions; 2R on the diagonal) and its element
-        # derivatives
+        # the function needs each of the N(N+1)/2 upper elements once: 2R
+        # FMAs for g (both directions; R on the diagonal), 4R operations, and
+        # its element derivatives
         upper = n * (n + 1) // 2
-        bnd = bound(4 * n * (2 * R + D), upper * (4 * R + bwd_ops))
+        bnd, bnd32 = lowrank_bounds(4 * n * (2 * R + D), upper * 4 * R, upper * bwd_ops)
         print("K-fam-lowrank-vjp %s N=%d R=%d: parameter cotangents vs float64 %.3e (twin %.3e, "
-              "tol %.3e), bit-identical repeat, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
-              % ((label, n, R, d_k, d_t, tol, ms, pms) + bnd))
+              "tol %.3e), bit-identical repeat, kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s; "
+              "3xTF32 product, FP32 chain), FP32 bound %.3f ms"
+              % ((label, n, R, d_k, d_t, tol, ms, pms) + bnd + bnd32[:1]))
         if R == 17:
             report["family_lowrank_vjp"] = dict(max_abs_err=max(float((a - b).abs().max())
                                                                 for a, b in zip(k, t)),

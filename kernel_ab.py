@@ -29,7 +29,12 @@ root's below_trsm_plan; with blocked_cholesky.cu also built, the unfused
 K-spanel + K-colwrite pair of the same column beside it). From
 family_matvec.cu (with mosm_matvec.cu's second pass) it times K-fam-matvec
 for CSM and SM-LMC on the bench points at R = 33 and 1 (a root with the
-fold runs its two passes, another its FFMA entry). From blocked_cholesky.cu
+fold runs its two passes, another its FFMA entry); from family_gram_bwd.cu
+K-fam-gram-bwd for the same two on a dense 16,384^2 cotangent, on the
+sorted points and permuted; from family_lowrank_vjp.cu K-fam-lowrank-vjp
+for the same two at R = 17 and 33 (a root whose entry takes the k padding,
+`int KH`, gets this root's lowrank_plan, another its own call). From
+blocked_cholesky.cu
 (with its root's headers: gemm_tile.cuh or gemm_tf32x3.cuh) it times
 K-spanel at every block column of the bench factor (N = 16,384, B = 512;
 one buffer holding the factor serves every column) and K-colwrite at
@@ -57,7 +62,8 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu",
-           "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu", "family_matvec.cu")
+           "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu", "family_matvec.cu",
+           "family_gram_bwd.cu", "family_lowrank_vjp.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
 # instances with the input half are compiled from a file of their own;
 # K-fam-matvec's fold ends in mosm_matvec.cu's second pass)
@@ -298,25 +304,17 @@ def fam_call(lib, fold, x, c, table, V, out, items, part, nb, O, S, A, fam, stre
 
 
 def family_matvec_cases(libs, roots, gpr, cs, X, stream):
-    """K-fam-matvec for CSM and SM-LMC (chip_smoke.py's phase 18 kernels,
-    family_kernel at bench width) on the bench points (N = 16,384) at R = 33
-    and 1: a root with the fold (family_matvec_fold_f32) runs its first
-    pass and the second pass mosm_matvec_reduce_f32 (mosm_matvec.cu, built
-    into the same library), another its FFMA entry family_matvec_f32."""
+    """K-fam-matvec for CSM and SM-LMC (family_bench_kernels) at R = 33 and
+    1: a root with the fold (family_matvec_fold_f32) runs its first pass and
+    the second pass mosm_matvec_reduce_f32 (mosm_matvec.cu, built into the
+    same library), another its FFMA entry family_matvec_f32."""
     import torch
-    from mogptk_tpu_torch.ops import block_families as bf, mosm_matvec as mv
+    from mogptk_tpu_torch.ops import mosm_matvec as mv
     dev = X.device
     gen = torch.Generator(device=dev).manual_seed(5)
     cases = []
-    for name in ("csm", "lmc_sm"):
-        kernel = cs.family_kernel(gpr, name, channels=cs.CHANNELS).to(dev)
-        c, x = kernel._split(X)
-        n, D = x.shape
-        with torch.no_grad():
-            pack = bf.family_pack(kernel.family, kernel._fused_params())
-        fam, A, S = bf.family_dims(kernel.family, pack, D)
-        O = pack.shape[0]
-        table = pack.reshape(O * O, S).contiguous()
+    for name, _, x, c, table, counts, fam, A, S in family_bench_kernels(gpr, cs, X):
+        n, O = x.shape[0], len(counts)
         for R in (33, 1):
             V = torch.randn((n, R), generator=gen, device=dev)
             nb, _ = mv.fold_group(n, R)
@@ -330,6 +328,101 @@ def family_matvec_cases(libs, roots, gpr, cs, X, stream):
                                         items, part, nb, O, S, A, fam, stream), out)
             cases.append(("K-fam-matvec %s N=%d R=%d" % (name, n, R), "family_matvec.cu", 10,
                           calls))
+    return cases
+
+
+def thunk(f, args, keep):
+    """A call of f(*args) that holds `keep`, the tensors args point into."""
+    return lambda: (keep, f(*args))[1]
+
+
+def family_bench_kernels(gpr, cs, X):
+    """(name, family, x, c, table, counts, fam, A, S) for CSM and SM-LMC,
+    chip_smoke.py's phase 18 kernels (family_kernel at bench width), on the
+    bench points (N = 16,384, channel-sorted)."""
+    import torch
+    from mogptk_tpu_torch.ops import block_families as bf
+    out = []
+    for name in ("csm", "lmc_sm"):
+        kernel = cs.family_kernel(gpr, name, channels=cs.CHANNELS).to(X.device)
+        c, x = kernel._split(X)
+        with torch.no_grad():
+            pack = bf.family_pack(kernel.family, kernel._fused_params())
+        fam, A, S = bf.family_dims(kernel.family, pack, x.shape[1])
+        O = pack.shape[0]
+        counts = tuple(int(k) for k in torch.bincount(c.long(), minlength=O).tolist())
+        out.append((name, kernel.family, x, c, pack.reshape(O * O, S).contiguous(), counts, fam,
+                    A, S))
+    return out
+
+
+def family_gram_bwd_cases(libs, roots, gpr, cs, X, stream):
+    """K-fam-gram-bwd for CSM and SM-LMC on a dense 16,384^2 cotangent, the
+    closed-form step's call: on the bench points (channels of 4,096 rows,
+    so the maps are the identity and g is read in place) and on the same
+    points permuted (the maps gather)."""
+    import numpy as np
+    import torch
+    from mogptk_tpu_torch.ops import mosm_gram as mg
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g = torch.randn((X.shape[0], X.shape[0]), generator=gen, device=dev)
+    perm = torch.as_tensor(np.random.RandomState(5).permutation(X.shape[0]), device=dev)
+    cases = []
+    for name, _, x, c, table, counts, fam, A, S in family_bench_kernels(gpr, cs, X):
+        n, D = x.shape
+        idx, pairs = mg._device_gram_layout(counts, counts, mg.BWD_TILE, dev)
+        for how, xx, cc in (("sorted", x, c), ("permuted", x[perm].contiguous(),
+                                                 c[perm].contiguous())):
+            rmap = mg.channel_map(cc, counts)
+            calls = {}
+            for side in roots:
+                partial = torch.empty((4 * idx.shape[0], S), device=dev)
+                out = torch.zeros((len(counts) ** 2, S), device=dev)
+                args = (P(idx.data_ptr()), P(g.data_ptr()), P(xx.data_ptr()), P(rmap.data_ptr()),
+                        P(xx.data_ptr()), P(rmap.data_ptr()), P(table.data_ptr()),
+                        P(partial.data_ptr()), P(pairs.data_ptr()), P(out.data_ptr()),
+                        I32(idx.shape[0]), I32(pairs.shape[0]), I64(n), I32(S), I32(D), I32(A),
+                        I32(fam), P(stream))
+                calls[side] = (thunk(libs[side]["family_gram_bwd.cu"].family_gram_bwd_f32, args,
+                                     (g, xx, rmap, partial, idx, pairs, table)), out)
+            cases.append(("K-fam-gram-bwd %s %s %dx%d" % (name, how, n, n), "family_gram_bwd.cu",
+                          10, calls))
+    return cases
+
+
+def family_lowrank_vjp_cases(libs, roots, gpr, cs, X, stream):
+    """K-fam-lowrank-vjp for CSM and SM-LMC on the bench points (N = 16,384)
+    at R = 17 (the probe-trace step) and 33 (the iterative step). A root
+    whose entry takes the k padding (`int KH`) gets this root's
+    lowrank_plan; another its chunk alone."""
+    import torch
+    from mogptk_tpu_torch.ops import block_mosm as bm
+    P, I32 = ctypes.c_void_p, ctypes.c_int
+    dev = X.device
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = []
+    for name, _, x, c, table, counts, fam, A, S in family_bench_kernels(gpr, cs, X):
+        n, D = x.shape
+        idx, pairs = bm._device_layout(counts, bm.BWD_TILE, dev)
+        for R in (17, 33):
+            Am = 1e-2 * torch.randn((n, R), generator=gen, device=dev)
+            Bm = torch.randn((n, R), generator=gen, device=dev)
+            RC, KH = bm.lowrank_plan(R)
+            calls = {}
+            for side, root in roots.items():
+                partial = torch.empty((4 * idx.shape[0], S), device=dev)
+                out = torch.zeros((len(counts) ** 2, S), device=dev)
+                kh = [I32(KH)] if has(root, "family_lowrank_vjp.cu", "int KH") else []
+                args = (P(idx.data_ptr()), P(x.data_ptr()), P(Am.data_ptr()), P(Bm.data_ptr()),
+                        P(table.data_ptr()), P(partial.data_ptr()), P(pairs.data_ptr()),
+                        P(out.data_ptr()), I32(idx.shape[0]), I32(pairs.shape[0]), I32(R),
+                        I32(RC), *kh, I32(S), I32(D), I32(A), I32(fam), P(stream))
+                calls[side] = (thunk(libs[side]["family_lowrank_vjp.cu"].family_lowrank_vjp_f32,
+                                     args, (x, Am, Bm, partial, idx, pairs, table)), out)
+            cases.append(("K-fam-lowrank-vjp %s N=%d R=%d (%d tiles)" % (name, n, R, idx.shape[0]),
+                          "family_lowrank_vjp.cu", 10, calls))
     return cases
 
 
@@ -579,6 +672,10 @@ def main():
                 torch.zeros((O * O, nout), device=dev)) for side in libs}))
     if "family_matvec.cu" in built:
         cases += family_matvec_cases(libs, roots, gpr, cs, X, stream)
+    if "family_gram_bwd.cu" in built:
+        cases += family_gram_bwd_cases(libs, roots, gpr, cs, X, stream)
+    if "family_lowrank_vjp.cu" in built:
+        cases += family_lowrank_vjp_cases(libs, roots, gpr, cs, X, stream)
     for name, xx, cc, VV, reps in (("K-matvec N=%d R=33" % n, x, c, V, 10),
                                    ("K-matvec N=%d R=33" % nb, xb, cb, Vb, 5)):
         if all("mosm_matvec.cu" in l for l in libs.values()):

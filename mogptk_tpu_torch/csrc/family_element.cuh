@@ -17,16 +17,26 @@
 //     (the envelope's mean-position term is not a function of tau)
 //   SM-LMC (4): [a_q] x A, [var_qd] x AD, [mu_qd] x AD (A = Q)           S = A + 2AD
 //     K = sum_q a_q sum_d exp(-2 pi^2 tau_d^2 var_qd) cos(2 pi tau_d mu_qd)  (a sum over d)
-// expf, cosf and sincosf are the full-precision library functions (no fast
+// value() runs expf and cosf, the full-precision library functions (no fast
 // math): the cosine arguments reach hundreds of radians on the bench data.
 //
 // Each family is a struct with
 //   value(s, xi, xj, D, A) -> K
-//   grad(g, s, xi, xj, D, A, emit): emit(k, g dK/ds_k) for every k
+//   grad<NE>(m, g, s, xi, xj, D, A, emit): for NE elements at once, of the
+//     points xi and xj[e] with cotangents g[e], emit(k, g[e] dK/ds_k) for
+//     every k and e
 // templated on <kD, kA>: a nonzero kD (kA) fixes the input dims (the
 // component count) at compile time, so the loops unroll and the emitted slot
 // indices are constants (the unrolled instances keep their S accumulators in
-// registers); 0 takes the runtime D (A).
+// registers); 0 takes the runtime D (A). grad's component loop is outermost
+// and its NE elements innermost, so the NE exp and sin/cos chains are
+// independent; it takes its exp and sin/cos from the math policy m
+// (csrc/family_pair_vjp.cuh: the library functions, or the hardware's with
+// an exact reduction by whole turns):
+//   m.exp(x) = e^x
+//   m.sincos_turns(y, S, C): S, C = sin, cos (2 pi y)
+//   m.sincos_turns_phase(y, phi, S, C): sin, cos (2 pi y + phi), phi in
+//     radians (uMOSM's and MOHSM's phase)
 #pragma once
 #include <cuda_runtime.h>
 
@@ -60,31 +70,40 @@ template <int kD, int kA> struct Family<kUmosm, kD, kA> {
         }
         return s[3 * D] * expf(-0.5f * e) * cosf(kFamTwoPi * a + s[3 * D + 1]);
     }
-    template <class Emit>
-    static __device__ __forceinline__ void grad(float g, const float* s, const float* xi,
-                                                const float* xj, int D_, int A_, Emit& emit) {
+    template <int NE, class M, class Emit>
+    static __device__ __forceinline__ void grad(const M& m, const float (&g)[NE], const float* s,
+                                                const float* xi, const float* const (&xj)[NE],
+                                                int D_, int A_, Emit& emit) {
         const int D = kD ? kD : D_;
-        float e = 0.0f, a = 0.0f;
+        float a[NE], gE[NE], S[NE], C[NE];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float td = (xi[d] - xj[d]) + s[3 * d + 2];
-            e += td * td * s[3 * d];
-            a += td * s[3 * d + 1];
+        for (int k = 0; k < NE; ++k) {
+            float e = 0.0f;
+            a[k] = 0.0f;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float td = (xi[d] - xj[k][d]) + s[3 * d + 2];
+                e += td * td * s[3 * d];
+                a[k] += td * s[3 * d + 1];
+            }
+            gE[k] = g[k] * m.exp(-0.5f * e);
         }
-        float S, C;
-        sincosf(kFamTwoPi * a + s[3 * D + 1], &S, &C);
-        const float gE = g * expf(-0.5f * e);
-        const float P = s[3 * D] * gE;
-        const float dang = -P * S;
-        const float de = -0.5f * P * C;
-        emit(3 * D, gE * C);
-        emit(3 * D + 1, dang);
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float td = (xi[d] - xj[d]) + s[3 * d + 2];
-            emit(3 * d, de * td * td);
-            emit(3 * d + 1, kFamTwoPi * dang * td);
-            emit(3 * d + 2, de * (2.0f * s[3 * d]) * td + kFamTwoPi * dang * s[3 * d + 1]);
+        for (int k = 0; k < NE; ++k) m.sincos_turns_phase(a[k], s[3 * D + 1], S[k], C[k]);
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+            const float P = s[3 * D] * gE[k];
+            const float dang = -P * S[k];
+            const float de = -0.5f * P * C[k];
+            emit(3 * D, gE[k] * C[k]);
+            emit(3 * D + 1, dang);
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float td = (xi[d] - xj[k][d]) + s[3 * d + 2];
+                emit(3 * d, de * td * td);
+                emit(3 * d + 1, kFamTwoPi * dang * td);
+                emit(3 * d + 2, de * (2.0f * s[3 * d]) * td + kFamTwoPi * dang * s[3 * d + 1]);
+            }
         }
     }
 };
@@ -105,37 +124,46 @@ template <int kD, int kA> struct Family<kMohsm, kD, kA> {
         return s[3 * D] * expf(-0.5f * (e + dist2 * s[3 * D + 2]))
                * cosf(kFamTwoPi * a + s[3 * D + 1]);
     }
-    template <class Emit>
-    static __device__ __forceinline__ void grad(float g, const float* s, const float* xi,
-                                                const float* xj, int D_, int A_, Emit& emit) {
+    template <int NE, class M, class Emit>
+    static __device__ __forceinline__ void grad(const M& m, const float (&g)[NE], const float* s,
+                                                const float* xi, const float* const (&xj)[NE],
+                                                int D_, int A_, Emit& emit) {
         const int D = kD ? kD : D_;
-        float e = 0.0f, a = 0.0f, dist2 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float td = (xi[d] - xj[d]) + s[3 * d + 2];
-            e += td * td * s[3 * d];
-            a += td * s[3 * d + 1];
-            const float avg = 0.5f * (xi[d] + xj[d]) - s[3 * D + 3 + d];
-            dist2 += avg * avg;
-        }
         const float l = s[3 * D + 2];
-        float S, C;
-        sincosf(kFamTwoPi * a + s[3 * D + 1], &S, &C);
-        const float gE = g * expf(-0.5f * (e + dist2 * l));
-        const float P = s[3 * D] * gE;
-        const float dang = -P * S;
-        const float de = -0.5f * P * C;
-        emit(3 * D, gE * C);
-        emit(3 * D + 1, dang);
-        emit(3 * D + 2, de * dist2);
+        float a[NE], dist2[NE], gE[NE], S[NE], C[NE];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float td = (xi[d] - xj[d]) + s[3 * d + 2];
-            const float avg = 0.5f * (xi[d] + xj[d]) - s[3 * D + 3 + d];
-            emit(3 * d, de * td * td);
-            emit(3 * d + 1, kFamTwoPi * dang * td);
-            emit(3 * d + 2, de * (2.0f * s[3 * d]) * td + kFamTwoPi * dang * s[3 * d + 1]);
-            emit(3 * D + 3 + d, -2.0f * de * l * avg);
+        for (int k = 0; k < NE; ++k) {
+            float e = 0.0f;
+            a[k] = dist2[k] = 0.0f;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float td = (xi[d] - xj[k][d]) + s[3 * d + 2];
+                e += td * td * s[3 * d];
+                a[k] += td * s[3 * d + 1];
+                const float avg = 0.5f * (xi[d] + xj[k][d]) - s[3 * D + 3 + d];
+                dist2[k] += avg * avg;
+            }
+            gE[k] = g[k] * m.exp(-0.5f * (e + dist2[k] * l));
+        }
+#pragma unroll
+        for (int k = 0; k < NE; ++k) m.sincos_turns_phase(a[k], s[3 * D + 1], S[k], C[k]);
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+            const float P = s[3 * D] * gE[k];
+            const float dang = -P * S[k];
+            const float de = -0.5f * P * C[k];
+            emit(3 * D, gE[k] * C[k]);
+            emit(3 * D + 1, dang);
+            emit(3 * D + 2, de * dist2[k]);
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float td = (xi[d] - xj[k][d]) + s[3 * d + 2];
+                const float avg = 0.5f * (xi[d] + xj[k][d]) - s[3 * D + 3 + d];
+                emit(3 * d, de * td * td);
+                emit(3 * d + 1, kFamTwoPi * dang * td);
+                emit(3 * d + 2, de * (2.0f * s[3 * d]) * td + kFamTwoPi * dang * s[3 * d + 1]);
+                emit(3 * D + 3 + d, -2.0f * de * l * avg);
+            }
         }
     }
 };
@@ -158,36 +186,48 @@ template <int kD, int kA> struct Family<kCsm, kD, kA> {
         for (int r = 0; r < A; ++r) k += s[2 * D + r] * E * cosf(kFamTwoPi * (a + s[2 * D + A + r]));
         return k;
     }
-    template <class Emit>
-    static __device__ __forceinline__ void grad(float g, const float* s, const float* xi,
-                                                const float* xj, int D_, int A_, Emit& emit) {
+    template <int NE, class M, class Emit>
+    static __device__ __forceinline__ void grad(const M& m, const float (&g)[NE], const float* s,
+                                                const float* xi, const float* const (&xj)[NE],
+                                                int D_, int A_, Emit& emit) {
         const int D = kD ? kD : D_;
         const int A = kA ? kA : A_;
-        float e = 0.0f, a = 0.0f;
+        float a[NE], gE[NE], da[NE], csum[NE];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float tau = xi[d] - xj[d];
-            e += tau * tau * s[d];
-            a += tau * s[D + d];
+        for (int k = 0; k < NE; ++k) {
+            float e = 0.0f;
+            a[k] = da[k] = csum[k] = 0.0f;
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float tau = xi[d] - xj[k][d];
+                e += tau * tau * s[d];
+                a[k] += tau * s[D + d];
+            }
+            gE[k] = g[k] * m.exp(-0.5f * e);
         }
-        const float gE = g * expf(-0.5f * e);
-        float da = 0.0f, csum = 0.0f;
 #pragma unroll
         for (int r = 0; r < A; ++r) {
-            float S, C;
-            sincosf(kFamTwoPi * (a + s[2 * D + A + r]), &S, &C);
-            const float dang = -s[2 * D + r] * gE * S;
-            emit(2 * D + r, gE * C);
-            emit(2 * D + A + r, kFamTwoPi * dang);
-            da += kFamTwoPi * dang;
-            csum += s[2 * D + r] * C;
-        }
-        const float de = -0.5f * gE * csum;
+            float S[NE], C[NE];
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float tau = xi[d] - xj[d];
-            emit(d, de * tau * tau);
-            emit(D + d, da * tau);
+            for (int k = 0; k < NE; ++k) m.sincos_turns(a[k] + s[2 * D + A + r], S[k], C[k]);
+#pragma unroll
+            for (int k = 0; k < NE; ++k) {
+                const float dang = -s[2 * D + r] * gE[k] * S[k];
+                emit(2 * D + r, gE[k] * C[k]);
+                emit(2 * D + A + r, kFamTwoPi * dang);
+                da[k] += kFamTwoPi * dang;
+                csum[k] += s[2 * D + r] * C[k];
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < NE; ++k) {
+            const float de = -0.5f * gE[k] * csum[k];
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float tau = xi[d] - xj[k][d];
+                emit(d, de * tau * tau);
+                emit(D + d, da[k] * tau);
+            }
         }
     }
 };
@@ -204,23 +244,27 @@ template <int kD, int kA> struct Family<kConv, kD, kA> {
         }
         return s[D] * expf(-0.5f * e);
     }
-    template <class Emit>
-    static __device__ __forceinline__ void grad(float g, const float* s, const float* xi,
-                                                const float* xj, int D_, int A_, Emit& emit) {
+    template <int NE, class M, class Emit>
+    static __device__ __forceinline__ void grad(const M& m, const float (&g)[NE], const float* s,
+                                                const float* xi, const float* const (&xj)[NE],
+                                                int D_, int A_, Emit& emit) {
         const int D = kD ? kD : D_;
-        float e = 0.0f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float tau = xi[d] - xj[d];
-            e += tau * tau * s[d];
-        }
-        const float gE = g * expf(-0.5f * e);
-        const float de = -0.5f * s[D] * gE;
-        emit(D, gE);
+        for (int k = 0; k < NE; ++k) {
+            float e = 0.0f;
 #pragma unroll
-        for (int d = 0; d < D; ++d) {
-            const float tau = xi[d] - xj[d];
-            emit(d, de * tau * tau);
+            for (int d = 0; d < D; ++d) {
+                const float tau = xi[d] - xj[k][d];
+                e += tau * tau * s[d];
+            }
+            const float gE = g[k] * m.exp(-0.5f * e);
+            const float de = -0.5f * s[D] * gE;
+            emit(D, gE);
+#pragma unroll
+            for (int d = 0; d < D; ++d) {
+                const float tau = xi[d] - xj[k][d];
+                emit(d, de * tau * tau);
+            }
         }
     }
 };
@@ -244,26 +288,38 @@ template <int kD, int kA> struct Family<kLmcSm, kD, kA> {
         }
         return k;
     }
-    template <class Emit>
-    static __device__ __forceinline__ void grad(float g, const float* s, const float* xi,
-                                                const float* xj, int D_, int A_, Emit& emit) {
+    template <int NE, class M, class Emit>
+    static __device__ __forceinline__ void grad(const M& m, const float (&g)[NE], const float* s,
+                                                const float* xi, const float* const (&xj)[NE],
+                                                int D_, int A_, Emit& emit) {
         const int D = kD ? kD : D_;
         const int A = kA ? kA : A_;
 #pragma unroll
         for (int q = 0; q < A; ++q) {
-            const float ga = g * s[q];
-            float acc = 0.0f;
+            float acc[NE];
+#pragma unroll
+            for (int k = 0; k < NE; ++k) acc[k] = 0.0f;
 #pragma unroll
             for (int d = 0; d < D; ++d) {
-                const float tau = xi[d] - xj[d];
-                const float E = expf(-kFamTwoPiSq * tau * tau * s[A + q * D + d]);
-                float S, C;
-                sincosf(kFamTwoPi * tau * s[A + A * D + q * D + d], &S, &C);
-                acc += E * C;
-                emit(A + q * D + d, -kFamTwoPiSq * ga * E * C * tau * tau);
-                emit(A + A * D + q * D + d, -kFamTwoPi * ga * E * S * tau);
+                const float var = s[A + q * D + d], mu = s[A + A * D + q * D + d];
+                float E[NE], S[NE], C[NE];
+#pragma unroll
+                for (int k = 0; k < NE; ++k) {
+                    const float tau = xi[d] - xj[k][d];
+                    E[k] = m.exp(-kFamTwoPiSq * tau * tau * var);
+                    m.sincos_turns(tau * mu, S[k], C[k]);
+                }
+#pragma unroll
+                for (int k = 0; k < NE; ++k) {
+                    const float tau = xi[d] - xj[k][d];
+                    const float ga = g[k] * s[q];
+                    acc[k] += E[k] * C[k];
+                    emit(A + q * D + d, -kFamTwoPiSq * ga * E[k] * C[k] * tau * tau);
+                    emit(A + A * D + q * D + d, -kFamTwoPi * ga * E[k] * S[k] * tau);
+                }
             }
-            emit(q, g * acc);
+#pragma unroll
+            for (int k = 0; k < NE; ++k) emit(q, g[k] * acc[k]);
         }
     }
 };

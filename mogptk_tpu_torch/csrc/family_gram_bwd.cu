@@ -20,23 +20,30 @@
 // the maps are the identity and g is read in place.
 //
 // Bound: the read of g, N*M*4 bytes (1.07 GB at N = 16,384), against one
-// exp and one sincos per element (per component for CSM; Q D of each for
-// SM-LMC) and ~4 FMAs per scalar of the pack. Design: a block takes a
-// 128 x 128 quarter of a tile, 256 threads of 8 x 8 elements (rows ty + 16u,
-// columns tx + 16v), so 16 neighbouring threads read 16 neighbouring
-// columns; each thread loads its 64 values of g first, then runs the
-// element derivatives (csrc/family_pair_vjp.cuh). Blocks run in no order,
-// so nothing carries over between them as it did across the TPU's grid:
-// each block writes its S partial sums (a fixed-order reduction), and a
-// second kernel sums each pair's partials in a fixed order in float64. No
-// atomics: a repeated call is bit-identical.
+// exp and one sin/cos per element (per component for CSM; Q D of each for
+// SM-LMC) and ~4 FMAs per scalar of the pack. Design, K-gram-bwd's: a block
+// takes a 128 x 128 quarter of a tile, 256 threads of 8 x 8 elements (rows
+// ty + 16u, columns tx + 16v), so 16 neighbouring threads read 16
+// neighbouring columns; each thread loads its 64 values of g first (64
+// loads in flight), then runs the element derivatives four elements at a
+// time with the component loop outermost, so four independent exp and
+// sin/cos chains overlap on the special-function units: the exponential on
+// ex2 and sin/cos after an exact reduction by whole turns (uMOSM's and
+// MOHSM's phase angle, in radians, on sincosf) (family_pair_vjp.cuh
+// FamilyChain and HardwareMath, shared with K-fam-lowrank-vjp; the generic
+// instance keeps the library functions). Blocks run in no order, so nothing carries over
+// between them as it did across the TPU's grid: each block writes its S
+// partial sums (a fixed-order reduction), and a second kernel sums each
+// pair's partials in a fixed order in float64, 256 threads a pair
+// (mosm_pair_vjp.cuh pair_reduce_wide_kernel, K-gram-bwd's). No atomics: a
+// repeated call is bit-identical.
 #include "family_pair_vjp.cuh"
 #include "mosm_gram_bwd.cuh"
 
 namespace {
 
 template <int F, int kD, int kA>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, (FamilyChain<F, kD, kA>::kMinBlocks))
 family_gram_bwd_kernel(const int* __restrict__ idx, const float* __restrict__ g, int64_t M,
                        const float* __restrict__ x1, const int* __restrict__ rmap,
                        const float* __restrict__ x2, const int* __restrict__ cmap,
@@ -115,6 +122,6 @@ extern "C" int family_gram_bwd_f32(const int* idx, const float* g, const float* 
 #undef MOGPTK_GENERIC
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    pair_reduce_kernel<<<(unsigned)P, 32, 0, stream>>>(partial, pairs, out, S);
+    pair_reduce_wide_kernel<<<(unsigned)P, 256, 0, stream>>>(partial, pairs, out, S);
     return (int)cudaGetLastError();
 }

@@ -114,35 +114,6 @@ __global__ void input_reduce_kernel(const float* __restrict__ part, const int* _
     }
 }
 
-// out[pair] = the sum of the pair's partial rows in float64, in a fixed
-// order: thread t sums rows t, t + 256, ... in order, then the block's sums
-// meet by warp shuffles and the eight warp sums in order. pairs: (P, 3)
-// int32 [pair id, first partial row, row count]. A block a pair: each
-// pair's thousands of rows at N = 16,384 in a few loads a thread, where the
-// 32-thread pair_reduce_kernel (K-lowrank-vjp's and the other kernels',
-// whose sums stay as they are) runs each column's rows through one thread.
-__global__ void __launch_bounds__(256)
-pair_reduce_wide_kernel(const float* __restrict__ partial, const int* __restrict__ pairs,
-                        float* __restrict__ out, int nout) {
-    __shared__ double wsum[8];
-    const int p = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
-    const int pair = pairs[3 * p], first = pairs[3 * p + 1], count = pairs[3 * p + 2];
-    for (int k = 0; k < nout; ++k) {
-        double v = 0.0;
-        for (int i = t; i < count; i += 256) v += (double)partial[(int64_t)(first + i) * nout + k];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-        if (lane == 0) wsum[warp] = v;
-        __syncthreads();
-        if (t == 0) {
-            double s = 0.0;
-            for (int w = 0; w < 8; ++w) s += wsum[w];
-            out[(int64_t)pair * nout + k] = (float)s;
-        }
-        __syncthreads();
-    }
-}
-
 }  // namespace
 
 // idx (S, 3) int32 tiles [ti, tj, pair]; g (N, M) row-major; x1 (N, D),

@@ -4,9 +4,10 @@
 // memory): the tile geometry, the per-element backward of the tau chain
 // (at full precision one element at a time, and on the hardware's exp and
 // sin/cos four elements at a time), the fixed-order block reductions, the
-// fixed-order per-pair reduction in float64 and, for csrc/mosm_gram_bwd.cu's
-// input half, the per-row and per-column sums of d tau and their fixed-order
-// float64 reduction. No atomics, so both kernels are deterministic.
+// fixed-order per-pair reductions in float64 (also the family kernels') and,
+// for csrc/mosm_gram_bwd.cu's input half, the per-row and per-column sums of
+// d tau and their fixed-order float64 reduction. No atomics, so both kernels
+// are deterministic.
 //
 // Per pair the statistics are [V, M, dtheta] x (q, d), then [alpha, dphi] x q
 // (ops/mosm_gram.stats_table), NOUT = 3QD + 2Q numbers, and
@@ -360,6 +361,36 @@ __global__ void pair_reduce_kernel(const float* __restrict__ partial,
         double v = 0.0;
         for (int i = 0; i < count; ++i) v += (double)partial[(int64_t)(first + i) * nout + k];
         out[(int64_t)pair * nout + k] = (float)v;
+    }
+}
+
+// out[pair] = the sum of the pair's partial rows in float64, in a fixed
+// order: thread t sums rows t, t + 256, ... in order, then the block's sums
+// meet by warp shuffles and the eight warp sums in order. pairs: (P, 3)
+// int32 [pair id, first partial row, row count]. A block a pair: each
+// pair's thousands of rows at N = 16,384 in a few loads a thread, where the
+// 32-thread pair_reduce_kernel runs each column's rows through one thread.
+// K-gram-bwd's and the family kernels' (K-fam-gram-bwd, K-fam-lowrank-vjp);
+// K-lowrank-vjp and K-gram-lowrank-vjp keep pair_reduce_kernel's sums.
+__global__ void __launch_bounds__(256)
+pair_reduce_wide_kernel(const float* __restrict__ partial, const int* __restrict__ pairs,
+                        float* __restrict__ out, int nout) {
+    __shared__ double wsum[8];
+    const int p = blockIdx.x, t = threadIdx.x, lane = t % 32, warp = t / 32;
+    const int pair = pairs[3 * p], first = pairs[3 * p + 1], count = pairs[3 * p + 2];
+    for (int k = 0; k < nout; ++k) {
+        double v = 0.0;
+        for (int i = t; i < count; i += 256) v += (double)partial[(int64_t)(first + i) * nout + k];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+        if (lane == 0) wsum[warp] = v;
+        __syncthreads();
+        if (t == 0) {
+            double s = 0.0;
+            for (int w = 0; w < 8; ++w) s += wsum[w];
+            out[(int64_t)pair * nout + k] = (float)s;
+        }
+        __syncthreads();
     }
 }
 

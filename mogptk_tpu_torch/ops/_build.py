@@ -86,8 +86,8 @@ SIGNATURES = {
     "family_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64] + [_c_int] * 4 + [_c_ptr],
     # x, c, stats, V, items, n_items, part, N, R, nb, O, S, D, A, fam, stream
     "family_matvec_fold_f32": [_c_ptr] * 5 + [_c_i64, _c_ptr, _c_i64] + [_c_int] * 7 + [_c_ptr],
-    # idx, x, A, B, stats, partial, pairs, out, T, P, R, RC, S, D, ncomp, fam, stream
-    "family_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 8 + [_c_ptr],
+    # idx, x, A, B, stats, partial, pairs, out, T, P, R, RC, KH, S, D, ncomp, fam, stream
+    "family_lowrank_vjp_f32": [_c_ptr] * 8 + [_c_int] * 9 + [_c_ptr],
 }
 
 

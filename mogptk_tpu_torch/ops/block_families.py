@@ -34,7 +34,7 @@ import torch
 
 from . import _build
 from .block_mosm import (BWD_TILE, _pad_channels, _pair_layout, _device_layout, channel_ids,
-                         lowrank_chunk, mosm_pair_stats, mosm_lowrank_vjp_sorted)
+                         lowrank_plan, mosm_pair_stats, mosm_lowrank_vjp_sorted)
 from .mosm_gram import (_gram_layout, _device_gram_layout, channel_counts, channel_map,
                         mosm_gram)
 from .mosm_matvec import (FOLD_TILE, PLAIN_ROWS, fold_group, fold_items_on, fold_matvec,
@@ -585,8 +585,9 @@ def family_lowrank_vjp_sorted(family, x, counts, pack, A, B):
     any R. Rows of lower pairs (a > b) stay zero, and so do the
     antisymmetric scalars of the diagonal pairs. CPU or float64: the plain
     twin. float32 CUDA: one call of csrc/family_lowrank_vjp.cu (the tile
-    kernel over the upper tiles of the upper pairs, R in chunks of
-    lowrank_chunk(R) columns, and its per-pair reduction), or raises."""
+    kernel over the upper tiles of the upper pairs, g on the tensor cores
+    with R in the chunks of lowrank_plan(R), and its per-pair reduction),
+    or raises."""
     counts = tuple(int(n) for n in counts)
     if _build.runs_plain(x):
         return family_lowrank_vjp_plain(family, x, counts, pack, A, B)
@@ -608,7 +609,7 @@ def family_lowrank_vjp_sorted(family, x, counts, pack, A, B):
         err = _build.library().family_lowrank_vjp_f32(
             idx.data_ptr(), xp.data_ptr(), ap.data_ptr(), bp.data_ptr(), table.data_ptr(),
             partial.data_ptr(), pairs.data_ptr(), out.data_ptr(), idx_np.shape[0],
-            pairs_np.shape[0], R, lowrank_chunk(R), S, D, Aux, fam, _build.stream_ptr(x))
+            pairs_np.shape[0], R, *lowrank_plan(R), S, D, Aux, fam, _build.stream_ptr(x))
         _build.check(err, "family_lowrank_vjp_f32")
         family_lowrank_vjp_sorted.launches += 1
     return _zero_diagonal_antisymmetric(family, out.reshape(O, O, S), D)

@@ -261,6 +261,13 @@ def lowrank_kpad(chunk):
     return -(-int(chunk) // 8) * 8
 
 
+def lowrank_plan(R):
+    """(RC, KH): the chunk and its k padding that K-lowrank-vjp and
+    K-fam-lowrank-vjp (csrc/lowrank_vjp.cuh) take for rank R."""
+    chunk = lowrank_chunk(R)
+    return chunk, lowrank_kpad(chunk)
+
+
 def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
     """Cotangents (dst3, dst2) of the pair statistics for dK = A·Bᵀ, without
     forming dK, for channel-sorted x (N, D) with per-channel `counts` and A,
@@ -289,8 +296,8 @@ def mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, B):
         err = _build.library().mosm_lowrank_vjp_f32(
             idx.data_ptr(), xp.data_ptr(), ap.data_ptr(), bp.data_ptr(), stats.data_ptr(),
             partial.data_ptr(), pairs.data_ptr(), out.data_ptr(), idx_np.shape[0],
-            pairs_np.shape[0], Q, D, R, lowrank_chunk(R), lowrank_kpad(lowrank_chunk(R)),
-            generic_flag("backward", st3), _build.stream_ptr(x))
+            pairs_np.shape[0], Q, D, R, *lowrank_plan(R), generic_flag("backward", st3),
+            _build.stream_ptr(x))
         _build.check(err, "mosm_lowrank_vjp_f32")
         mosm_lowrank_vjp_sorted.launches += 1
     return (out[:, :3 * Q * D].reshape(O, O, Q, D, 3), out[:, 3 * Q * D:].reshape(O, O, Q, 2))

@@ -73,17 +73,47 @@ def test_lowrank_vjp_takes_any_rank_in_chunks():
         tbm.lowrank_chunk(0)
 
 
-def test_lowrank_kpad_covers_every_column():
-    """K-lowrank-vjp's k plan: R in chunks of lowrank_chunk(R) columns, each
-    half of the tensor-core product's k padded to lowrank_kpad(chunk), a
-    multiple of 8 that holds every chunk, the last (shorter) one included;
-    the chunks cover each column of A and B once."""
-    for R in (1, 7, 8, 17, 33, 64, 65, 129, 1025):
+def test_lowrank_kpad_covers_every_column(monkeypatch):
+    """K-lowrank-vjp's and K-fam-lowrank-vjp's k plan (lowrank_plan): R in
+    chunks of lowrank_chunk(R) columns, each half of the tensor-core
+    product's k padded to lowrank_kpad(chunk), a multiple of 8 that holds
+    every chunk, the last (shorter) one included; the chunks cover each
+    column of A and B once. Both wrappers pass that plan to their C entries
+    with the entries' argument counts (a stand-in library records the calls;
+    the meta device stands in for the card)."""
+    from mogptk_tpu_torch.ops import block_families as tbf
+    for R in (1, 7, 8, 17, 33, 64, 65, 129, 130, 1025):
         rc = tbm.lowrank_chunk(R)
         kh = tbm.lowrank_kpad(rc)
+        assert tbm.lowrank_plan(R) == (rc, kh)
         assert kh % 8 == 0 and rc <= kh < rc + 8 and kh <= 64
         cols = [r0 + k for r0 in range(0, R, rc) for k in range(min(rc, R - r0))]
         assert cols == list(range(R)), R
+
+    calls = {}
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.setdefault(name, []).append(args) or 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_build, "require_cuda_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    meta = torch.device("meta")
+    counts, O, Q, D = (300, 260), 2, 2, 1
+    x = torch.empty((sum(counts), D), device=meta)
+    st3, st2 = torch.empty((O, O, Q, D, 3), device=meta), torch.empty((O, O, Q, 2), device=meta)
+    csm = ("csm", (2,))
+    pack = torch.empty((O, O, 2 * D + 4), device=meta)
+    for R in (1, 17, 33, 65, 130):
+        A = torch.empty((sum(counts), R), device=meta)
+        tbm.mosm_lowrank_vjp_sorted(x, counts, st3, st2, A, A)
+        tbf.family_lowrank_vjp_sorted(csm, x, counts, pack, A, A)
+        mosm, fam = calls["mosm_lowrank_vjp_f32"][-1], calls["family_lowrank_vjp_f32"][-1]
+        assert len(mosm) == len(_build.SIGNATURES["mosm_lowrank_vjp_f32"])
+        assert len(fam) == len(_build.SIGNATURES["family_lowrank_vjp_f32"])
+        assert mosm[12:15] == (R,) + tbm.lowrank_plan(R)   # R, RC, KH
+        assert fam[10:13] == (R,) + tbm.lowrank_plan(R)
 
 
 def test_float64_routes_to_the_plain_twins_on_any_device():
@@ -461,9 +491,9 @@ def test_cuda_training_kernels_match_plain_twins():
 def test_cuda_kernels_spread_nan_made_on_the_card():
     """NaN made by the card's own FP32 operations (torch.sqrt(-1): the
     canonical NaN 0x7fffffff, which an integer TF32 rounding could carry
-    into -0) spreads through K-solve, K-lowrank-vjp, K-matvec, K-gram and
-    K-gram-bwd as through their plain twins: the same entries are NaN, and
-    none of the others."""
+    into -0) spreads through K-solve, K-lowrank-vjp, K-matvec, K-gram,
+    K-gram-bwd and K-fam-lowrank-vjp as through their plain twins: the same
+    entries are NaN, and none of the others."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from mogptk_tpu_torch.ops import blocked_trisolve as tbt
@@ -540,6 +570,17 @@ def test_cuda_kernels_spread_nan_made_on_the_card():
                      tmg.mosm_gram_bwd_plain(x, c, x2, c, st3, st2, gn))
     same_nan(tmg.mosm_gram_bwd(x, c, x, c, *stn, g, counts, counts),
              tmg.mosm_gram_bwd_plain(x, c, x, c, *stn, g))
+    # K-fam-lowrank-vjp (its g through the same TF32 split): NaN in one row
+    # of A, then of B
+    from mogptk_tpu_torch import gpr
+    from mogptk_tpu_torch.ops import block_families as tbf
+    csm = gpr.CrossSpectralKernel(O, D, Rq=2).to(dev)
+    pack = tbf.family_pack(csm.family, csm._fused_params()).detach()
+    for which in (0, 1):
+        AB = [Am.clone(), Bm.clone()]
+        AB[which][100] = nan
+        same_nan([tbf.family_lowrank_vjp_sorted(csm.family, x, counts, pack, *AB)],
+                 [tbf.family_lowrank_vjp_plain(csm.family, x, counts, pack, *AB)])
     torch.cuda.synchronize()
 
 
@@ -861,9 +902,12 @@ def test_cuda_family_kernels_match_plain_twins():
     random channel IDs), float32, against their plain twins. K-fam-gram
     2e-4·max|K| and K-fam-matvec (the fold, at R = 33 on sorted channels and
     R = 1, 17 on random ones, each repeat bit-identical) with the float32
-    summation bound of N terms added; the two backward kernels through the pack to the parameters, at
-    most twice the float32 twin's distance from the float64 twin plus 1e-5
-    relative; each backward repeated bit-identical."""
+    summation bound of N terms added; the two backward kernels through the
+    pack to the parameters, at most twice the float32 twin's distance from
+    the float64 twin plus 1e-5 relative: K-fam-gram-bwd on sorted and on
+    random channels, K-fam-lowrank-vjp at R = 1, 17, 33, 65 and 130 (more
+    than one chunk of its tensor-core product); each backward repeated
+    bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from mogptk_tpu_torch.ops import block_families as tbf
@@ -893,18 +937,24 @@ def test_cuda_family_kernels_match_plain_twins():
                 assert bool(((KV - KVp).abs() <= tol).all()), (family, D, A, R)
 
             G = torch.as_tensor(rng.randn(n, n), dtype=torch.float32, device=dev)
-            Am = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
-            Bm = torch.as_tensor(rng.randn(n, 17), dtype=torch.float32, device=dev)
             p64 = p.double()
-            runs = {
-                "gram_bwd": (lambda: tbf.family_gram_bwd(family, x, c, x, c, p, G, counts, counts),
-                             lambda: tbf.family_gram_bwd_plain(family, x, c, x, c, p, G),
-                             lambda: tbf.family_gram_bwd_plain(family, x.double(), c, x.double(),
-                                                               c, p64, G.double())),
-                "lowrank": (lambda: tbf.family_lowrank_vjp_sorted(family, x, counts, p, Am, Bm),
-                            lambda: tbf.family_lowrank_vjp_plain(family, x, counts, p, Am, Bm),
-                            lambda: tbf.family_lowrank_vjp_plain(family, x.double(), counts, p64,
-                                                                 Am.double(), Bm.double()))}
+            runs = {}
+            for how, cc, cts in (("sorted", c, counts), ("permuted", cr, None)):
+                runs["gram_bwd " + how] = (
+                    lambda cc=cc, cts=cts: tbf.family_gram_bwd(family, x, cc, x, cc, p, G, cts, cts),
+                    lambda cc=cc: tbf.family_gram_bwd_plain(family, x, cc, x, cc, p, G),
+                    lambda cc=cc: tbf.family_gram_bwd_plain(family, x.double(), cc, x.double(),
+                                                            cc, p64, G.double()))
+            for R in (1, 17, 33, 65, 130):   # 130: three chunks of the product's k
+                Am = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+                Bm = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
+                runs["lowrank R=%d" % R] = (
+                    lambda Am=Am, Bm=Bm: tbf.family_lowrank_vjp_sorted(family, x, counts, p, Am,
+                                                                       Bm),
+                    lambda Am=Am, Bm=Bm: tbf.family_lowrank_vjp_plain(family, x, counts, p, Am,
+                                                                      Bm),
+                    lambda Am=Am, Bm=Bm: tbf.family_lowrank_vjp_plain(
+                        family, x.double(), counts, p64, Am.double(), Bm.double()))
             for what, (kernel, twin, ref) in runs.items():
                 got, again = kernel(), kernel()
                 torch.cuda.synchronize()
