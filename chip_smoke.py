@@ -58,9 +58,10 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   K-fam-gram-bwd, K-fam-matvec and K-fam-lowrank-vjp against their plain
   twins at benchmarks/family_bench.py's configuration (2 channels x 2,048
   points, N = 4,096; R = 1, 17, 33 and 65; channel-sorted and permuted
-  points; each repeat bit-identical; K-fam-matvec, the fold, also at D = 2,
-  its runtime-D instance), and for CSM and SM-LMC at bench.py's
-  full width (N = 16,384); each family through gpr.Exact at N = 4,096
+  points; each repeat bit-identical; K-fam-gram's square launch bitwise
+  symmetric, its cross launch at N x N/4; K-fam-matvec, the fold, also at
+  D = 2, its runtime-D instance), and for CSM and SM-LMC at bench.py's
+  full width (N = 16,384; the cross launch at 16,384 x 4,096); each family through gpr.Exact at N = 4,096
   (probe-trace and closed-form first steps against a float64 execution on
   the card and the float32 twins, three counted Adam steps each, predict_y
   of 1,024 points, family_bench.py's JSON keys); then at N = 16,384 the
@@ -72,8 +73,10 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
 - the fused below-TRSM column loop and the block-lower syrk
   (gpr.config.blocked_cholesky_fused_trsm and pallas_syrk): K-sdiag and
   K-below-trsm at block column 16 of the bench factor, K-commit with and
-  without zeroing the strip, K-syrk on W = L⁻¹ of the bench factor, each
-  against its plain twin, the fused factor against the unfused one, every
+  without zeroing the strip, with the factor's range scale and a forced
+  2⁵⁰, alone and inside K-below-trsm's TRSM launch (exact), K-syrk on
+  W = L⁻¹ of the bench factor, each against its plain twin, the fused
+  factor against the unfused one (no torch mul of its own), every
   block column of the unfused factor through K-spanel (each split-K plan,
   K-spanel-reduce against its twin) and both K-colwrite forms under their
   summation bounds, each launch repeated bit-identically and timed in
@@ -85,8 +88,9 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   width through gpr.train, each first step
   against the float64 reference of the switches-off step and its distance
   from that step, and three counted Adam steps (phase 20: 31 K-sdiag, 30
-  K-below-trsm, 31 K-commit, one K-spanel and one K-colwrite a step, and
-  one K-syrk a closed-form step);
+  K-below-trsm, each with its column's K-commit, one standalone K-commit,
+  one K-spanel and one K-colwrite a step, and one K-syrk a closed-form
+  step);
 - the JAX module ops/pallas_mosm.py's surface (phase 21): the port's
   ops.pallas_mosm entry points at the JAX signatures on the bench model's
   points permuted (any channel order). K-gram-matvec at K(X, X)·V with
@@ -711,7 +715,11 @@ def main():
          "path": "sparse train", "launches": sparse_launches["mosm_gram_bwd_inputs"]},
         {"name": "family_gram", "route": "cuda", "source": "mogptk_tpu_torch/csrc/family_gram.cu",
          "replaces": "mogptk_tpu/ops/block_families.py:392; mogptk_tpu/ops/fused.py:386",
-         "path": "family train", "launches": fam_launches["family_gram"]},
+         "path": "family train", "launches": fam_launches["family_gram"],
+         "design": "K-gram's tile skeleton (csrc/gram_tile.cuh): the square call's lower 64x64 "
+                   "tiles mirrored (bitwise symmetric), the cross call every tile; a channel "
+                   "pair's scalars in registers; expf, CSM's and SM-LMC's cosine turn-reduced "
+                   "on the hardware cos; float4 rows"},
         {"name": "family_gram_bwd", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/family_gram_bwd.cu",
          "replaces": "mogptk_tpu/ops/block_families.py:431",
@@ -735,7 +743,11 @@ def main():
         {"name": "col_commit", "route": "cuda", "source": sources["fused"],
          "replaces": "mogptk_tpu/ops/blocked_cholesky.py:504 (the diagonal block); "
                      "mogptk_tpu/ops/blocked_cholesky.py:540",
-         "path": "closed-form train (fused_trsm)", "launches": fused_launches["col_commit"]},
+         "path": "closed-form train (fused_trsm)", "launches": fused_launches["col_commit"],
+         "in_below_trsm": fused_launches["col_commit_in_below_trsm"],
+         "design": "inside K-below-trsm's TRSM launch for j < nb - 1 (B/8 more CTAs, float4 "
+                   "rows, the range scale read on the device); one standalone launch for the "
+                   "last column"},
         {"name": "syrk_lower", "route": "cuda", "source": "mogptk_tpu_torch/csrc/syrk_lower.cu",
          "replaces": "mogptk_tpu/ops/blocked_trisolve.py:212",
          "path": "closed-form train (pallas_syrk)", "launches": fused_launches["syrk_lower"]},
@@ -759,6 +771,10 @@ def main():
             k["bound_fp32_ms"] = r["bound_fp32"][0]
         if r.get("yardstick_ms") is not None:   # two PyTorch calls, where no one call computes it
             k["yardstick_ms"] = r["yardstick_ms"]
+        for extra in ("permuted_ms", "cross_ms", "cross_bound_ms", "below_trsm_with_commit_ms",
+                      "below_trsm_without_ms"):
+            if extra in r:
+                k[extra] = r[extra]
     phase("done")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2510,7 +2526,10 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
     held as parameter cotangents against a float64 twin (twice the float32
     twin's distance plus 1e-5 of the scale); K-fam-gram within 2e-4·max|K|
     of its twin (float32 cosines of arguments of tens of radians, FMA
-    contraction); K-fam-matvec against a float64 twin within twice the
+    contraction), its square launch (the lower tiles mirrored) bitwise
+    symmetric, and its cross launch at N x N/4 (every fourth point: 16,384
+    x 4,096 at full width, predict's block shape) timed beside its bound;
+    K-fam-matvec against a float64 twin within twice the
     float32 twin plus 1e-6 of max|K|·|V|. Where the twin of K-fam-gram-bwd
     at full size takes seconds (slice_rows), it is compared on that many
     rows of g and timed once at full size. Returns the report entries of the
@@ -2530,8 +2549,11 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
     preps, pwarm = (1, 0) if n > 8192 else (2, 1)
     fwd_ops, bwd_ops = family_ops(family, D, "value"), family_ops(family, D, "grad")
     with torch.no_grad():
+        # the square launch (x1 is x2, c1 is c2): the lower tiles, mirrored
         for how, xx, cc in (("sorted", x, c), ("permuted", xp, cp)):
             got = bf.family_gram(family, xx, cc, xx, cc, p)
+            sym = torch.equal(got, got.T)
+            same = torch.equal(got, bf.family_gram(family, xx, cc, xx, cc, p))
             twin = bf.family_gram_plain(family, xx, cc, xx, cc, p)
             kmax = float(twin.abs().max())
             err = float((got - twin).abs().max())
@@ -2539,15 +2561,39 @@ def check_family_kernels(gpr, bf, family, kernel, x, c, perm, label, slice_rows=
             ms = median_ms(lambda: bf.family_gram(family, xx, cc, xx, cc, p), reps=5)
             pms = median_ms(lambda: bf.family_gram_plain(family, xx, cc, xx, cc, p), reps=preps,
                             warmup=pwarm)
-            bnd = bound(4 * n * n, n * n * fwd_ops)
-            print("K-fam-gram %s %s %dx%d: max_abs_err %.3e (tol %.3e), kernel %.3f ms, plain "
-                  "%.3f ms, bound %.3f ms (%s)" % ((label, how, n, n, err, 2e-4 * kmax, ms, pms)
-                                                   + bnd))
+            # the N² output written once; the lower triangle's elements
+            bnd = bound(4 * n * n, n * (n + 1) // 2 * fwd_ops)
+            print("K-fam-gram %s %s %dx%d (square launch): max_abs_err %.3e (tol %.3e), bitwise "
+                  "symmetric %s, bit-identical repeat %s, kernel %.3f ms, plain %.3f ms, bound "
+                  "%.3f ms (%s)" % ((label, how, n, n, err, 2e-4 * kmax, sym, same, ms, pms)
+                                    + bnd))
             if not err <= 2e-4 * kmax:
                 fail("K-fam-gram %s %s disagrees with its plain twin" % (label, how))
+            if not sym or not same:
+                fail("K-fam-gram %s %s: the square Gram is not bitwise symmetric or a repeat "
+                     "differs" % (label, how))
             if how == "sorted":
                 report["family_gram"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                                              library_ms=None, bound=bnd)
+            else:
+                report["family_gram"]["permuted_ms"] = ms
+        # the cross launch (predict's blocks, the pivot rows): every tile
+        xq, cq = x[::4].contiguous(), c[::4].contiguous()
+        m = xq.shape[0]
+        got = bf.family_gram(family, x, c, xq, cq, p)
+        same = torch.equal(got, bf.family_gram(family, x, c, xq, cq, p))
+        twin = bf.family_gram_plain(family, x, c, xq, cq, p)
+        kmax = float(twin.abs().max())
+        err = float((got - twin).abs().max())
+        del got, twin
+        ms = median_ms(lambda: bf.family_gram(family, x, c, xq, cq, p), reps=5)
+        bnd = bound(4 * n * m, n * m * fwd_ops)
+        print("K-fam-gram %s cross %dx%d: max_abs_err %.3e (tol %.3e), bit-identical repeat %s, "
+              "kernel %.3f ms, bound %.3f ms (%s)"
+              % ((label, n, m, err, 2e-4 * kmax, same, ms) + bnd))
+        if not err <= 2e-4 * kmax or not same:
+            fail("K-fam-gram %s cross disagrees with its plain twin or a repeat differs" % label)
+        report["family_gram"].update(cross_ms=ms, cross_bound_ms=bnd[0])
     for how, xx, cc in (("sorted", x, c), ("permuted", xp, cp)):
         cts = counts if how == "sorted" else None
         G = torch.as_tensor(rng.randn(n, n), dtype=torch.float32, device=x.device)
@@ -3050,15 +3096,32 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
         report["below_trsm"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=None,
                                     yardstick_ms=lms, bound=bnd, bound_fp32=bnd32)
 
+        # K-commit with the factor's range scale (the bench Gram's, 1, and a
+        # forced [2⁻¹⁰⁰, 2⁻⁵⁰, 2⁵⁰]): alone (the last column's launch), and
+        # inside K-below-trsm's TRSM launch against that launch without it
+        # followed by the twin; each exact
+        scales = (("the factor's", bc.range_scale(buf.diagonal())),
+                  ("2^50", torch.tensor([2.0 ** -100, 2.0 ** -50, 2.0 ** 50], device=dev)))
         for zero_upper in (True, False):
-            L1, L2 = buf.clone(), buf.clone()
-            bc.col_commit(L1, Ljj, j, B, zero_upper)
-            bc.col_commit_plain(L2, Ljj, j, B, zero_upper)
-            err = float((L1 - L2).abs().max())
-            exact = torch.equal(L1, L2)
-            del L2
-            ms = median_ms(lambda: bc.col_commit(L1, Ljj, j, B, zero_upper))
-            pms = median_ms(lambda: bc.col_commit_plain(L1, Ljj, j, B, zero_upper))
+            exact, err = True, 0.0
+            for _, sc in scales:
+                L1, L2 = buf.clone(), buf.clone()
+                bc.col_commit(L1, Ljj, j, B, zero_upper, sc)
+                bc.col_commit_plain(L2, Ljj, j, B, zero_upper, sc)
+                exact = exact and torch.equal(L1, L2)
+                err = max(err, float((L1 - L2).abs().max()))
+                L1, L2 = buf.clone(), buf.clone()
+                bc.below_trsm(L1, inv, j, B, sc, Ljj, zero_upper)
+                bc.below_trsm(L2, inv, j, B, sc)
+                bc.col_commit_plain(L2, Ljj, j, B, zero_upper, sc)
+                exact = exact and torch.equal(L1, L2)
+                err = max(err, float((L1 - L2).abs().max()))
+                del L2
+            sc = scales[0][1]
+            ms = median_ms(lambda: bc.col_commit(L1, Ljj, j, B, zero_upper, sc))
+            pms = median_ms(lambda: bc.col_commit_plain(L1, Ljj, j, B, zero_upper, sc))
+            inside, bare = in_turns(lambda: bc.below_trsm(L1, inv, j, B, sc, Ljj, zero_upper),
+                                    lambda: bc.below_trsm(L1, inv, j, B, sc))
 
             def library():
                 L1[r0:r0 + B, r0:r0 + B].copy_(Ljj)
@@ -3068,15 +3131,20 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
             lms = median_ms(library)
             del L1
             bnd = bound(4 * (2 * B * B + (B * (n - r0 - B) if zero_upper else 0)), 0)
-            print("K-commit j=%d zero_upper=%s: max_abs_err %.3e (exact: %s), kernel %.3f ms, "
-                  "plain %.3f ms, copy_ + zero_ %.3f ms, bound %.3f ms (%s)"
-                  % ((j, zero_upper, err, exact, ms, pms, lms) + bnd))
+            print("K-commit j=%d zero_upper=%s: max_abs_err %.3e (exact, alone and inside "
+                  "K-below-trsm's launch, at scales %s: %s), the standalone launch %.3f ms, "
+                  "K-below-trsm with the commit %.3f ms against without %.3f ms (in turns), "
+                  "plain %.3f ms, "
+                  "copy_ + zero_ %.3f ms, bound %.3f ms (%s)"
+                  % ((j, zero_upper, err, ", ".join(k for k, _ in scales), exact, ms, inside,
+                      bare, pms, lms) + bnd))
             if not exact:
                 fail("K-commit is not an exact copy of its plain twin")
             # zeroing the strip too takes a second call: a yardstick, not one library call
             entry = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                          library_ms=None if zero_upper else lms,
-                         yardstick_ms=lms if zero_upper else None, bound=bnd)
+                         yardstick_ms=lms if zero_upper else None, bound=bnd,
+                         below_trsm_with_commit_ms=inside, below_trsm_without_ms=bare)
             report["col_commit" if zero_upper else "col_commit (zero_upper=False)"] = entry
         del buf, A, Kb, C
 
@@ -3131,6 +3199,13 @@ def check_fused_kernels(gpr, bm, bc, bt, X, Y, dev):
         if not d <= KAPPA_U * float(outs[False].abs().max()):
             fail("the fused factor is further from the unfused one than κu of its scale")
         del outs
+        # the commit's scale is applied inside K-commit: no torch mul a column
+        muls = {fused: aten_calls(lambda: bc.blocked_cholesky(K.clone(), B, fused_trsm=fused),
+                                  "mul") for fused in (False, True)}
+        print("aten mul calls in one factorization: fused %d, unfused %d"
+              % (muls[True], muls[False]))
+        if muls[True] != muls[False]:
+            fail("the fused factor makes torch mul calls the unfused one does not")
         F, invs = bc.blocked_cholesky(K.clone(), B, return_panel_invs=True)
         report["s_panel_reduce"] = unfused_by_column(bc, K, F, invs, B)
         del F, invs
@@ -3532,11 +3607,14 @@ def drive_fused_path(gpr, bm, bc, bt, fs, mg, X, Y, dev, smi):
     cfg = gpr.config
     common = {"s_panel": bc.s_panel, "col_write": bc.col_write, "s_diag": bc.s_diag,
               "below_trsm": bc.below_trsm, "col_commit": bc.col_commit,
+              "col_commit_in_below_trsm": Counter(bc.below_trsm, "commits"),
               "syrk_lower": bt.syrk_lower, "fused_cho_solve": fs.fused_cho_solve}
     nb = X.shape[0] // 512
+    # K-commit: inside K-below-trsm's launch for the columns with rows below,
+    # one standalone launch for the last column
     fused_want = {"s_panel": (1, 1), "col_write": (1, 1), "s_diag": (nb - 1, nb - 1),
-                  "below_trsm": (nb - 2, nb - 2), "col_commit": (nb - 1, nb - 1),
-                  "fused_cho_solve": (1, None)}
+                  "below_trsm": (nb - 2, nb - 2), "col_commit": (1, 1),
+                  "col_commit_in_below_trsm": (nb - 2, nb - 2), "fused_cho_solve": (1, None)}
     runs = (("closed-form", None, {"mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd},
              {"mosm_gram": (1, 1), "mosm_gram_bwd": (1, 1), "syrk_lower": (1, 1)}),
             ("probe-trace", PROBES, {"mosm_gram_lower": bm.mosm_gram_sorted_lower,
@@ -3814,6 +3892,22 @@ def event_ms(fn):
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
+
+
+def aten_calls(fn, name):
+    """The number of aten operator calls named `name` (any overload, out=
+    included) that fn() makes, counted by a TorchDispatchMode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            count[0] += func.overloadpacket.__name__ == name
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return count[0]
 
 
 def median_ms(fn, reps=10, warmup=2):

@@ -33,7 +33,15 @@ fold runs its two passes, another its FFMA entry); from family_gram_bwd.cu
 K-fam-gram-bwd for the same two on a dense 16,384^2 cotangent, on the
 sorted points and permuted; from family_lowrank_vjp.cu K-fam-lowrank-vjp
 for the same two at R = 17 and 33 (a root whose entry takes the k padding,
-`int KH`, gets this root's lowrank_plan, another its own call). From
+`int KH`, gets this root's lowrank_plan, another its own call); from
+family_gram.cu K-fam-gram for the same two at 16,384^2, square on the
+sorted and on permuted points (a root with the mirrored square entry
+family_gram_square_f32 takes it, another its every-tile entry), and cross
+at 16,384 x 4,096. With fused_trsm.cu it also times K-commit within the
+fused factor (commit_cases: each block column's K-below-trsm with its
+commit, the last column's K-commit alone, against a root that runs a torch
+mul and a separate K-commit after K-below-trsm), and prints each round's
+sum over the block columns of every per-column case. From
 blocked_cholesky.cu
 (with its root's headers: gemm_tile.cuh or gemm_tf32x3.cuh) it times
 K-spanel at every block column of the bench factor (N = 16,384, B = 512;
@@ -63,7 +71,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu",
            "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu", "family_matvec.cu",
-           "family_gram_bwd.cu", "family_lowrank_vjp.cu")
+           "family_gram_bwd.cu", "family_lowrank_vjp.cu", "family_gram.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
 # instances with the input half are compiled from a file of their own;
 # K-fam-matvec's fold ends in mosm_matvec.cu's second pass)
@@ -238,6 +246,7 @@ def below_trsm_cases(libs, roots, Lb, K, bc, bt, stream):
     invs = bt.panel_inverses(Lb, block_size=B)
     mainloop = {side: has(root, "fused_trsm.cu", "below_trsm_f32(float* L, const float* inv, float* S")
                 for side, root in roots.items()}
+    commit = {side: commit_arg(root) for side, root in roots.items()}
     pair = all("blocked_cholesky.cu" in l for l in libs.values())
     bufs = {side: Lb.clone() for side in libs}
     outs = {side: Lb.clone() for side in libs} if pair else {}
@@ -255,14 +264,16 @@ def below_trsm_cases(libs, roots, Lb, K, bc, bt, stream):
             part = torch.empty((splits, m, B), device=dev) if splits > 1 else None
 
             def call(lib=lib, buf=bufs[side], rows=rows, S=S, part=part, tc=mainloop[side], r0=r0,
-                     inv=inv, k_chunk=k_chunk):
+                     inv=inv, k_chunk=k_chunk, cm=commit[side]):
                 rows.copy_(K[r0 + B:, r0:r0 + B])
                 if not tc:
                     return lib.below_trsm_f32(P(buf.data_ptr()), P(inv.data_ptr()), I64(n),
                                               I64(r0), I64(B), P(stream))
+                ljj, zu = ([P(None)], [I32(0)]) if cm else ([], [])
                 return lib.below_trsm_f32(P(buf.data_ptr()), P(inv.data_ptr()), P(S.data_ptr()),
-                                          P(None if part is None else part.data_ptr()), I64(n),
-                                          I64(r0), I64(B), I64(k_chunk), P(None), P(stream))
+                                          P(None if part is None else part.data_ptr()), *ljj,
+                                          I64(n), I64(r0), I64(B), I64(k_chunk), *zu, P(None),
+                                          P(stream))
             calls[side] = (call, rows)
         cases.append(("K-below-trsm j=%d (plan %dx%d)" % (j, splits, k_chunk), "fused_trsm.cu", 5,
                       calls))
@@ -284,6 +295,110 @@ def below_trsm_cases(libs, roots, Lb, K, bc, bt, stream):
             calls[side] = (call, rows)
         cases.append(("K-spanel + K-colwrite j=%d (the unfused pair)" % j, "fused_trsm.cu", 5,
                       calls))
+    return cases
+
+
+def commit_arg(root):
+    """True when root's K-below-trsm takes the diagonal block to commit in
+    its TRSM launch (COMMIT_ROWS rows a CTA); its K-commit then takes the
+    range scale."""
+    return has(root, "fused_trsm.cu", "COMMIT_ROWS")
+
+
+def commit_cases(libs, roots, Lb, K, bc, bt, stream):
+    """K-commit within the fused factor, block column by block column of the
+    bench factor Lb of K (N = 16,384, B = 512, zero_upper off as the
+    training factor has it), on the factor's diagonal blocks and panel
+    inverses with the factor's range scale: a root whose K-below-trsm
+    commits in its TRSM launch runs, for j < n/B − 1, that launch with Ljj
+    and, for the last column, K-commit with the scale; another root runs
+    K-below-trsm, the torch mul Ljj·(1/r) and K-commit, as its fused loop
+    did. Each call first restores column j's rows below from K (in both
+    sides' times)."""
+    import torch
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    n, B = Lb.shape[0], 512
+    nb, dev = n // B, Lb.device
+    invs = bt.panel_inverses(Lb, block_size=B)
+    scale = bc.range_scale(K.diagonal())
+    bufs = {side: Lb.clone() for side in libs}
+    cases = []
+    for j in range(1, nb):
+        r0 = j * B
+        m = n - r0 - B
+        splits, k_chunk = bc.below_trsm_plan(n, r0, B) if m else (1, B)
+        Ljj = Lb[r0:r0 + B, r0:r0 + B].contiguous()
+        calls = {}
+        for side, root in roots.items():
+            lib = libs[side]["fused_trsm.cu"]
+            new = commit_arg(root)
+            S = torch.empty((max(m, 1), B), device=dev)
+            part = torch.empty((splits, m, B), device=dev) if splits > 1 else None
+
+            def call(lib=lib, buf=bufs[side], S=S, part=part, r0=r0, m=m, j=j, Ljj=Ljj,
+                     k_chunk=k_chunk, new=new):
+                buf[r0 + B:, r0:r0 + B].copy_(K[r0 + B:, r0:r0 + B])
+                if m:
+                    tail = [P(Ljj.data_ptr())] if new else []
+                    err = lib.below_trsm_f32(
+                        P(buf.data_ptr()), P(invs[j].data_ptr()), P(S.data_ptr()),
+                        P(None if part is None else part.data_ptr()), *tail, I64(n), I64(r0),
+                        I64(B), I64(k_chunk), *([I32(0)] if new else []), P(scale.data_ptr()),
+                        P(stream))
+                    if err or new:
+                        return err
+                if new:
+                    return lib.col_commit_f32(P(buf.data_ptr()), P(Ljj.data_ptr()), I64(n),
+                                              I64(r0), I64(B), I32(0), P(scale.data_ptr()),
+                                              P(stream))
+                Lu = Ljj * scale[2]
+                return lib.col_commit_f32(P(buf.data_ptr()), P(Lu.data_ptr()), I64(n), I64(r0),
+                                          I64(B), I32(0), P(stream))
+            calls[side] = (call, bufs[side][r0:, r0:r0 + B])
+        cases.append(("fused column (K-below-trsm + K-commit) j=%d" % j, "fused_trsm.cu", 5,
+                      calls))
+    return cases
+
+
+def family_gram_cases(libs, roots, gpr, cs, X, stream):
+    """K-fam-gram for CSM and SM-LMC on the bench points (N = 16,384): the
+    square Gram on the channel-sorted points and on the same points
+    permuted (a root with the square entry family_gram_square_f32 takes it,
+    another its every-tile entry on x against itself), and the cross Gram
+    against every fourth point (16,384 x 4,096, predict's block)."""
+    import numpy as np
+    import torch
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    dev = X.device
+    perm = torch.as_tensor(np.random.RandomState(5).permutation(X.shape[0]), device=dev)
+    cases = []
+    for name, _, x, c, table, counts, fam, A, S in family_bench_kernels(gpr, cs, X):
+        n, D = x.shape
+        O = len(counts)
+        xq, cq = x[::4].contiguous(), c[::4].contiguous()
+        for how, x1, c1, x2, c2 in (("square sorted", x, c, x, c),
+                                    ("square permuted", x[perm].contiguous(),
+                                     c[perm].contiguous(), None, None),
+                                    ("cross", x, c, xq, cq)):
+            x2, c2 = (x1, c1) if x2 is None else (x2, c2)
+            m = x2.shape[0]
+            calls = {}
+            for side, root in roots.items():
+                lib = libs[side]["family_gram.cu"]
+                out = torch.empty((n, m), device=dev)
+                keep = (x1, c1, x2, c2, table)
+                if x2 is x1 and has(root, "family_gram.cu", "family_gram_square_f32"):
+                    args = (P(x1.data_ptr()), P(c1.data_ptr()), P(table.data_ptr()),
+                            P(out.data_ptr()), I64(n), I32(O), I32(S), I32(D), I32(A), I32(fam),
+                            P(stream))
+                    calls[side] = (thunk(lib.family_gram_square_f32, args, keep), out)
+                else:
+                    args = (P(x1.data_ptr()), P(c1.data_ptr()), P(x2.data_ptr()),
+                            P(c2.data_ptr()), P(table.data_ptr()), P(out.data_ptr()), I64(n),
+                            I64(m), I32(O), I32(S), I32(D), I32(A), I32(fam), P(stream))
+                    calls[side] = (thunk(lib.family_gram_f32, args, keep), out)
+            cases.append(("K-fam-gram %s %s %dx%d" % (name, how, n, m), "family_gram.cu", 10,
+                          calls))
     return cases
 
 
@@ -649,6 +764,7 @@ def main():
             from mogptk_tpu_torch.ops import blocked_trisolve as bt
             cases += sdiag_cases(libs, roots, Lb, bc, stream)
             cases += below_trsm_cases(libs, roots, Lb, Kb, bc, bt, stream)
+            cases += commit_cases(libs, roots, Lb, Kb, bc, bt, stream)
         del Kb
         if "fused_cho_solve.cu" in built:
             from mogptk_tpu_torch.ops import blocked_trisolve as bt
@@ -676,6 +792,8 @@ def main():
         cases += family_gram_bwd_cases(libs, roots, gpr, cs, X, stream)
     if "family_lowrank_vjp.cu" in built:
         cases += family_lowrank_vjp_cases(libs, roots, gpr, cs, X, stream)
+    if "family_gram.cu" in built:
+        cases += family_gram_cases(libs, roots, gpr, cs, X, stream)
     for name, xx, cc, VV, reps in (("K-matvec N=%d R=33" % n, x, c, V, 10),
                                    ("K-matvec N=%d R=33" % nb, xb, cb, Vb, 5)):
         if all("mosm_matvec.cu" in l for l in libs.values()):
@@ -707,6 +825,16 @@ def main():
               % (name, " ".join("%.3f" % t for t in times[(name, "old")]),
                  " ".join("%.3f" % t for t in times[(name, "new")]),
                  float((old - new).abs().max()), float(old.abs().max())))
+    # each round's sum over the block columns of a per-column case
+    groups = {}
+    for name, _, _, _ in cases:
+        if " j=" in name:
+            groups.setdefault(name.split(" j=")[0], []).append(name)
+    for group, names in groups.items():
+        print("%s, sum over %d columns: old %s ms, new %s ms"
+              % (group, len(names), *(" ".join("%.3f" % sum(times[(nm, side)][r] for nm in names)
+                                                for r in range(rounds))
+                                       for side in ("old", "new"))))
     return 0
 
 

@@ -5,7 +5,9 @@
 // the buffer that holds K (see blocked_cholesky.cu). For block column j > 0
 // (r0 = j*B) the columns left of r0 hold finished L, column j still holds K.
 // Per column, on PyTorch's current stream in order: K-sdiag, the B x B panel
-// factor and its inverse inv = Ljj^-1 (library calls), K-below-trsm, K-commit.
+// factor and its inverse inv = Ljj^-1 (library calls), K-below-trsm with
+// K-commit in its TRSM launch (the last column, with no rows below: K-commit
+// alone).
 //
 // s_diag_f32 replaces mogptk_tpu/ops/blocked_cholesky.py _s_diag_pallas
 // (pallas_call at :414, body _s_diag_kernel at :391):
@@ -56,12 +58,23 @@
 //   then K-colwrite) does the same work and the diagonal block's; the fused
 //   column's diagonal block is K-sdiag's lower tiles instead.
 //
-// col_commit_f32 replaces _col_commit (pallas_call at :504, the diagonal
-// half; the rows below are K-below-trsm's store) and, with zero_upper = 1,
+// K-commit replaces _col_commit (pallas_call at :504, the diagonal half; the
+// rows below are K-below-trsm's store) and, with zero_upper = 1,
 // _upper_zero_impl (pallas_call at :540):
-//   L[r0:r0+B, r0:r0+B] = Ljj;  with zero_upper, L[r0:r0+B, r0+B:] = 0.
-//   Bound: bytes (a copy and a fill). One thread per element, coalesced.
-//
+//   L[r0:r0+B, r0:r0+B] = Ljj / r;  with zero_upper, L[r0:r0+B, r0+B:] = 0,
+//   Ljj the factor of s K's diagonal block and 1/r the range scale's third
+//   entry (1 without one), an exact power of two, so the product is exact.
+//   Bound: bytes (a copy and a fill). Where block column j has rows below,
+//   the commit runs inside K-below-trsm's TRSM launch: B/8 more CTAs of
+//   below_solve_kernel, after its tiles (they fill the last wave's idle
+//   SMs), 8 rows of the diagonal block each, rows as float4 (commit_rows),
+//   with no launch and no separate product of its own. No CTA of that
+//   launch, and no launch before it on the stream, reads what the commit
+//   writes (block row j at columns >= r0): the product and its second pass
+//   read C = L[r0:r0+B, :r0] (columns < r0) and column j's rows below, the
+//   TRSM reads only the strip S and inv and writes column j's rows below;
+//   Ljj and inv are finished before the launch. The last column, with no
+//   rows below, takes col_commit_f32's launch of the same rows.
 // All offsets are 64-bit: n^2 exceeds 2^31 from n = 46,341 on.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -147,15 +160,66 @@ s_diag_reduce_kernel(const float* __restrict__ L, const float* __restrict__ part
     }
 }
 
+// -- K-commit -------------------------------------------------------------------
+
+constexpr int64_t COMMIT_ROWS = 8;   // rows of the diagonal block a CTA commits
+
+// Rows [rb, re) of block row j, by the block's threads: L[r0 + r, r0 + c] =
+// Ljj[r, c] * unscale for c < B, 0 for B <= c < width; float4 where L's and
+// Ljj's rows are 16-byte aligned.
+__device__ __forceinline__ void commit_rows(float* __restrict__ L, const float* __restrict__ Ljj,
+                                            int64_t n, int64_t r0, int64_t B, int64_t width,
+                                            float unscale, int64_t rb, int64_t re) {
+    const int64_t tid = threadIdx.x, step = blockDim.x;
+    const bool vec = ((reinterpret_cast<uintptr_t>(L) | reinterpret_cast<uintptr_t>(Ljj)) & 15)
+                     == 0 && (n | r0 | B | width) % 4 == 0;
+    if (vec) {
+        const int64_t w4 = width / 4;
+        for (int64_t e = tid; e < (re - rb) * w4; e += step) {
+            const int64_t r = rb + e / w4, c = 4 * (e % w4);
+            float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (c < B) {
+                v = *reinterpret_cast<const float4*>(Ljj + r * B + c);
+                v.x *= unscale;
+                v.y *= unscale;
+                v.z *= unscale;
+                v.w *= unscale;
+            }
+            *reinterpret_cast<float4*>(L + (r0 + r) * n + r0 + c) = v;
+        }
+    } else {
+        for (int64_t e = tid; e < (re - rb) * width; e += step) {
+            const int64_t r = rb + e / width, c = e % width;
+            L[(r0 + r) * n + r0 + c] = c < B ? Ljj[r * B + c] * unscale : 0.0f;
+        }
+    }
+}
+
+__global__ void __launch_bounds__(256)
+col_commit_kernel(float* __restrict__ L, const float* __restrict__ Ljj, int64_t n, int64_t r0,
+                  int64_t B, int64_t width, const float* __restrict__ scale) {
+    const int64_t rb = blockIdx.x * COMMIT_ROWS;
+    commit_rows(L, Ljj, n, r0, B, width, tf32x3::scale_at(scale, 2), rb,
+                rb + COMMIT_ROWS < B ? rb + COMMIT_ROWS : B);
+}
+
 // -- K-below-trsm ---------------------------------------------------------------
 
 // The TRSM: one CTA per 128 x 128 tile of the rows below (gemm_tf32x3.cuh
-// solve_tile), the maps over the strip S and inv.
+// solve_tile), the maps over the strip S and inv; with Ljj, the CTAs past
+// the tiles commit the diagonal block, COMMIT_ROWS rows each (K-commit).
 __global__ void __launch_bounds__(tf32x3::THREADS, 1)
 below_solve_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_constant__ CUtensorMap map_inv,
                    float* __restrict__ L, int64_t n, int64_t r0, int64_t B,
-                   const float* __restrict__ scale) {
+                   const float* __restrict__ scale, const float* __restrict__ Ljj, int64_t width,
+                   int64_t tiles) {
     extern __shared__ uint8_t smem_raw[];
+    if ((int64_t)blockIdx.x >= tiles) {
+        const int64_t rb = (blockIdx.x - tiles) * COMMIT_ROWS;
+        commit_rows(L, Ljj, n, r0, B, width, tf32x3::scale_at(scale, 2), rb,
+                    rb + COMMIT_ROWS < B ? rb + COMMIT_ROWS : B);
+        return;
+    }
     const int64_t tiles_b = (B + tf32x3::BN - 1) / tf32x3::BN;
     solve_tile(&map_s, &map_inv, L, n, r0, B, (blockIdx.x / tiles_b) * tf32x3::BM,
                (blockIdx.x % tiles_b) * tf32x3::BN, tf32x3::scale_at(scale, 2),
@@ -163,16 +227,6 @@ below_solve_kernel(const __grid_constant__ CUtensorMap map_s, const __grid_const
 }
 
 constexpr int64_t SMS = 132;   // the H100 SXM's: the second pass's grid fills the card 8 times
-
-// -- K-commit -------------------------------------------------------------------
-
-__global__ void col_commit_kernel(float* __restrict__ L, const float* __restrict__ Ljj, int64_t n,
-                                  int64_t r0, int64_t B, int64_t width) {
-    const int64_t r = blockIdx.y;
-    const int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (c >= width) return;
-    L[(r0 + r) * n + r0 + c] = c < B ? Ljj[r * B + c] : 0.0f;
-}
 
 }  // namespace
 
@@ -198,17 +252,19 @@ extern "C" int s_diag_f32(const float* L, float* part, float* out, int64_t n, in
     return (int)cudaGetLastError();
 }
 
-// The rows of block column j below its diagonal block, in place: first
-// pass, with k in chunks of k_chunk (a multiple of 32; part holds the
-// ceil(r0 / k_chunk) > 1 slabs of (n - r0 - B) x B floats, else null), then
-// the second pass where split, then the TRSM; S is the (n - r0 - B) x B
-// strip of the scaled S. inv is the panel inverse of s K's Ljj and scale the
-// factor's range scale [s, r, 1/r] (null for 1). B 256 or 512, n and r0
-// multiples of B with rows below, n a multiple of 4 and L, S, inv on 16
-// bytes (TMA).
-extern "C" int below_trsm_f32(float* L, const float* inv, float* S, float* part, int64_t n,
-                              int64_t r0, int64_t B, int64_t k_chunk, const float* scale,
-                              cudaStream_t stream) {
+// The rows of block column j below its diagonal block, in place, and with
+// Ljj (non-null) the commit of its diagonal block (K-commit: Ljj times the
+// range scale's 1/r and, with zero_upper, the strip right of it zeroed) in
+// the TRSM's launch: first pass, with k in chunks of k_chunk (a multiple of
+// 32; part holds the ceil(r0 / k_chunk) > 1 slabs of (n - r0 - B) x B
+// floats, else null), then the second pass where split, then the TRSM; S is
+// the (n - r0 - B) x B strip of the scaled S. inv is the panel inverse of
+// s K's Ljj and scale the factor's range scale [s, r, 1/r] (null for 1).
+// B 256 or 512, n and r0 multiples of B with rows below, n a multiple of 4
+// and L, S, inv on 16 bytes (TMA).
+extern "C" int below_trsm_f32(float* L, const float* inv, float* S, float* part,
+                              const float* Ljj, int64_t n, int64_t r0, int64_t B, int64_t k_chunk,
+                              int zero_upper, const float* scale, cudaStream_t stream) {
     if ((B != 256 && B != 512) || r0 <= 0 || r0 % B != 0 || n % B != 0 || r0 + B >= n
         || k_chunk <= 0 || k_chunk % tf32x3::BK)
         return (int)cudaErrorInvalidValue;
@@ -234,16 +290,20 @@ extern "C" int below_trsm_f32(float* L, const float* inv, float* S, float* part,
         e = cudaGetLastError();
         if (e != cudaSuccess) return (int)e;
     }
-    below_solve_kernel<<<(unsigned)tiles, tf32x3::THREADS, tf32x3::SMEM_BYTES, stream>>>(
-        map_s, map_inv, L, n, r0, B, scale);
+    const int64_t commits = Ljj != nullptr ? (B + COMMIT_ROWS - 1) / COMMIT_ROWS : 0;
+    below_solve_kernel<<<(unsigned)(tiles + commits), tf32x3::THREADS, tf32x3::SMEM_BYTES,
+                         stream>>>(map_s, map_inv, L, n, r0, B, scale, Ljj,
+                                   zero_upper ? n - r0 : B, tiles);
     return (int)cudaGetLastError();
 }
 
+// Block row j's diagonal block and, with zero_upper, the strip right of it,
+// as K-below-trsm's commit does: the standalone launch of the last column.
 extern "C" int col_commit_f32(float* L, const float* Ljj, int64_t n, int64_t r0, int64_t B,
-                              int zero_upper, cudaStream_t stream) {
-    if (B <= 0 || r0 < 0 || r0 + B > n || B > 65535) return (int)cudaErrorInvalidValue;
+                              int zero_upper, const float* scale, cudaStream_t stream) {
+    if (B <= 0 || r0 < 0 || r0 + B > n) return (int)cudaErrorInvalidValue;
     const int64_t width = zero_upper ? n - r0 : B;
-    dim3 grid((unsigned)((width + 255) / 256), (unsigned)B);
-    col_commit_kernel<<<grid, 256, 0, stream>>>(L, Ljj, n, r0, B, width);
+    col_commit_kernel<<<(unsigned)((B + COMMIT_ROWS - 1) / COMMIT_ROWS), 256, 0, stream>>>(
+        L, Ljj, n, r0, B, width, scale);
     return (int)cudaGetLastError();
 }

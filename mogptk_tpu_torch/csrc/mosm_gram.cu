@@ -20,7 +20,8 @@
 // cos(2 pi y) after an exact reduction of y by whole turns on the hardware's
 // cos (cos_two_pi), so no libm range reduction of a ~250 rad argument and
 // its branches run per element; K-gram-matvec and K-matvec keep
-// csrc/mosm_element.cuh's full-precision one. Per tile, not per element:
+// csrc/mosm_element.cuh's full-precision one. Per tile, not per element
+// (the tile skeleton, csrc/gram_tile.cuh, which K-fam-gram shares):
 //   - a block of 256 threads takes a 64 x 64 tile, each thread 4 rows
 //     (ty + 16k) x 4 neighbouring columns (4 tx + m), written as one float4
 //     per row (a warp is 8 tx x 4 ty, so it writes four full 128-byte rows);
@@ -59,26 +60,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gram_tile.cuh"
+
 namespace {
 
-constexpr float kTwoPiF = 6.283185307179586f;
-constexpr int kT = 64;             // a block's tile edge
-constexpr int kGThreads = 256;     // 16 x 16 threads, 4 x 4 elements each
-constexpr int kLdS = kT + 1;       // the staged tile's row stride (banks r + c)
+using gram_tile::cos_two_pi;
+constexpr int kT = gram_tile::kT;
+constexpr int kGThreads = gram_tile::kThreads;
 constexpr int kGMaxD = 8;          // input dims of the unrolled instances
-
-
-// cos(2 pi y): r = y - rint(y) exactly (|r| <= 1/2; rint by adding and
-// subtracting 1.5 * 2^23, exact for |y| < 2^22, on the FP32 pipes), then the
-// hardware's cos of 2 pi r in [-pi, pi] (absolute error < 2^-21.4 there,
-// plus 2^-24 relative from the product). A float32 y of ~40 (the bench
-// data's angles reach ~250 rad) carries an absolute error of ~1.5e-5 rad in
-// the plain twin's cos(2 pi y), far above these. NaN or inf gives NaN.
-__device__ __forceinline__ float cos_two_pi(float y) {
-    const float kRound = 12582912.0f;
-    const float r = __fsub_rn(y, __fsub_rn(__fadd_rn(y, kRound), kRound));
-    return __cosf(kTwoPiF * r);
-}
 
 // Component q's statistics of one pair, [V, M, dtheta] x d, then alpha and
 // dphi, from the pair's row p of the table (ops/mosm_gram.stats_table:
@@ -186,15 +175,6 @@ __device__ __forceinline__ float gram_element_rt(const float* p, const float* xi
     return k;
 }
 
-// Tile (I, J) of block b of the lower call's tiles, row-major:
-// b = I (I + 1) / 2 + J, J <= I.
-__device__ __forceinline__ void lower_tile(int64_t b, int64_t& I, int64_t& J) {
-    I = (int64_t)((sqrt(8.0 * (double)b + 1.0) - 1.0) * 0.5);
-    while (I * (I + 1) / 2 > b) --I;
-    while ((I + 1) * (I + 2) / 2 <= b) ++I;
-    J = b - I * (I + 1) / 2;
-}
-
 // D > 0: D compiled in, with Q > 0 also Q (gram_element), with Q == 0 the
 // runtime Qr (add_component); D == 0: runtime Qr and Dr. smem_table: the
 // pair table (O*O*S floats) is copied to shared memory for tiles that
@@ -205,36 +185,14 @@ mosm_gram_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
                  const float* __restrict__ x2, const int* __restrict__ c2,
                  const float* __restrict__ stats, bool smem_table, float* __restrict__ out,
                  int64_t N, int64_t M, int O, int Qr, int Dr, bool lower, int64_t band) {
-    __shared__ float stage[kT * kLdS];   // a lower tile, [row][column], for its mirror
+    __shared__ float stage[kT * gram_tile::kLdS];   // a lower tile, for its mirror
     extern __shared__ float table_s[];
-    int64_t I, J;
-    if (lower) {
-        lower_tile(blockIdx.x, I, J);
-    } else {
-        I = blockIdx.y;
-        J = blockIdx.x;
-    }
-    const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-    const int tx = lane % 8 + 8 * (warp % 2), ty = lane / 8 + 4 * (warp / 2);
-    const int64_t row0 = I * kT, col0 = J * kT;
+    gram_tile::Tile g;
+    gram_tile::begin(g, c1, c2, N, M, lower);
     const int S = 3 * Qr * Dr + 2 * Qr;
-    // the thread's rows and columns, clamped into range (only written in range)
-    int64_t ii[4], jj[4];
-    int ci[4], cj[4];
-    const int ca = c1[row0], cb = c2[col0];
-    bool one_pair = true;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        ii[k] = min(row0 + ty + 16 * k, N - 1);
-        jj[k] = min(col0 + 4 * tx + k, M - 1);
-        ci[k] = c1[ii[k]];
-        cj[k] = c2[jj[k]];
-        one_pair = one_pair && ci[k] == ca && cj[k] == cb;
-    }
-    const bool uniform = __syncthreads_and(one_pair);
     const float* table = stats;
-    if (!uniform && smem_table) {
-        for (int e = t; e < O * O * S; e += kGThreads) table_s[e] = stats[e];
+    if (!g.uniform && smem_table) {
+        for (int e = g.t; e < O * O * S; e += kGThreads) table_s[e] = stats[e];
         __syncthreads();
         table = table_s;
     }
@@ -246,12 +204,12 @@ mosm_gram_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
         for (int k = 0; k < 4; ++k)
 #pragma unroll
             for (int d = 0; d < D; ++d) {
-                xi[k][d] = x1[ii[k] * D + d];
-                xj[k][d] = x2[jj[k] * D + d];
+                xi[k][d] = x1[g.ii[k] * D + d];
+                xj[k][d] = x2[g.jj[k] * D + d];
             }
-        const int64_t pa = (int64_t)ca * O + cb;
+        const int64_t pa = (int64_t)g.ca * O + g.cb;
         if constexpr (Q > 0) {
-            if (uniform) {
+            if (g.uniform) {
                 CompStats<D> s[Q];
                 load_pair(s, stats + pa * S);
 #pragma unroll
@@ -264,7 +222,7 @@ mosm_gram_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
 #pragma unroll
                     for (int m = 0; m < 4; ++m) {
                         CompStats<D> s[Q];
-                        load_pair(s, table + ((int64_t)ci[k] * O + cj[m]) * S);
+                        load_pair(s, table + ((int64_t)g.ci[k] * O + g.cj[m]) * S);
                         val[k][m] = gram_element(s, xi[k], xj[m]);
                     }
             }
@@ -276,65 +234,19 @@ mosm_gram_kernel(const float* __restrict__ x1, const int* __restrict__ c1,
 #pragma unroll
                 for (int m = 0; m < 4; ++m) val[k][m] = 0.0f;
             for (int q = 0; q < Qr; ++q)
-                add_component<D>(val, xi, xj, q, Qr, uniform, stats, table, pa, ci, cj, O, S);
+                add_component<D>(val, xi, xj, q, Qr, g.uniform, stats, table, pa, g.ci, g.cj, O,
+                                 S);
         }
     } else {
-        const int cp = uniform ? ca * O + cb : 0;
+        const int cp = g.uniform ? g.ca * O + g.cb : 0;
         for (int k = 0; k < 4; ++k)
             for (int m = 0; m < 4; ++m) {
-                const int64_t p = uniform ? cp : (int64_t)ci[k] * O + cj[m];
-                val[k][m] = gram_element_rt(table + p * S, x1 + ii[k] * Dr, x2 + jj[m] * Dr, Qr,
-                                            Dr);
+                const int64_t p = g.uniform ? cp : (int64_t)g.ci[k] * O + g.cj[m];
+                val[k][m] = gram_element_rt(table + p * S, x1 + g.ii[k] * Dr, x2 + g.jj[m] * Dr,
+                                            Qr, Dr);
             }
     }
-
-    // float4 rows where the whole tile is in range and rows are 16-byte aligned
-    const bool vec = row0 + kT <= N && col0 + kT <= M && M % 4 == 0;
-    // the lower call: a diagonal tile, its lower triangle to both halves; an
-    // off-diagonal one inside a band-wide diagonal panel, its mirror too
-    const bool diag = lower && I == J;
-    const bool mirror = lower && I * kT / band == J * kT / band;
-    if (!diag) {   // the tile in its place
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const int64_t i = row0 + ty + 16 * k, j = col0 + 4 * tx;
-            if (vec) {
-                *reinterpret_cast<float4*>(out + i * M + j) =
-                    make_float4(val[k][0], val[k][1], val[k][2], val[k][3]);
-            } else if (i < N) {
-#pragma unroll
-                for (int m = 0; m < 4; ++m)
-                    if (j + m < M) out[i * M + j + m] = val[k][m];
-            }
-        }
-    }
-    if (!mirror) return;
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) stage[(ty + 16 * k) * kLdS + 4 * tx + m] = val[k][m];
-    __syncthreads();
-    // I != J: the mirror tile (J, I), its element (r, c) = stage[c][r];
-    // I == J: the tile's element (r, c) from the lower triangle
-    const int64_t r0 = I != J ? col0 : row0, q0 = I != J ? row0 : col0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const int r = ty + 16 * k;
-        float w[4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-            const int c = 4 * tx + m;
-            w[m] = (I != J || c > r) ? stage[c * kLdS + r] : stage[r * kLdS + c];
-        }
-        const int64_t i = r0 + r, j = q0 + 4 * tx;
-        if (vec) {
-            *reinterpret_cast<float4*>(out + i * M + j) = make_float4(w[0], w[1], w[2], w[3]);
-        } else if (i < N) {
-#pragma unroll
-            for (int m = 0; m < 4; ++m)
-                if (j + m < M) out[i * M + j + m] = w[m];
-        }
-    }
+    gram_tile::store(g, val, out, N, M, lower, band, stage);
 }
 
 int launch_gram(const float* x1, const int* c1, const float* x2, const int* c2,

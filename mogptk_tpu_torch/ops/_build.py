@@ -54,10 +54,10 @@ SIGNATURES = {
     "col_write_f32": [_c_ptr] * 4 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr, _c_ptr],
     # L, part, out, n, r0, B, splits, scale, stream
     "s_diag_f32": [_c_ptr] * 3 + [_c_i64, _c_i64, _c_i64, _c_i64, _c_ptr, _c_ptr],
-    # L, inv, S, part, n, r0, B, k_chunk, scale, stream
-    "below_trsm_f32": [_c_ptr] * 4 + [_c_i64] * 4 + [_c_ptr, _c_ptr],
-    # L, Ljj, n, r0, B, zero_upper, stream
-    "col_commit_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr],
+    # L, inv, S, part, Ljj, n, r0, B, k_chunk, zero_upper, scale, stream
+    "below_trsm_f32": [_c_ptr] * 5 + [_c_i64] * 4 + [_c_int, _c_ptr, _c_ptr],
+    # L, Ljj, n, r0, B, zero_upper, scale, stream
+    "col_commit_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_i64, _c_int, _c_ptr, _c_ptr],
     # W, out, n, block, stream
     "syrk_lower_f32": [_c_ptr] * 2 + [_c_i64, _c_i64, _c_ptr],
     # x, c, stats, out, N, O, Q, D, band, generic, stream
@@ -82,6 +82,8 @@ SIGNATURES = {
     "mosm_gram_lowrank_vjp_f32": [_c_ptr] * 11 + [_c_int] * 7 + [_c_ptr],
     # x1, c1, x2, c2, stats, out, N, M, O, S, D, A, fam, stream
     "family_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64] + [_c_int] * 5 + [_c_ptr],
+    # x, c, stats, out, N, O, S, D, A, fam, stream
+    "family_gram_square_f32": [_c_ptr] * 4 + [_c_i64] + [_c_int] * 5 + [_c_ptr],
     # idx, g, x1, rmap, x2, cmap, stats, partial, pairs, out, T, P, M, S, D, A, fam, stream
     "family_gram_bwd_f32": [_c_ptr] * 10 + [_c_int, _c_int, _c_i64] + [_c_int] * 4 + [_c_ptr],
     # x, c, stats, V, items, n_items, part, N, R, nb, O, S, D, A, fam, stream

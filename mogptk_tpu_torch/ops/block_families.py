@@ -16,8 +16,10 @@ evaluated the upper channel-pair blocks and transposed them; here every
 element takes the scalars of its own pair (c1[i], c2[j]), which gives the
 same Gram because each family's element is unchanged when the two points
 and the pair swap (the antisymmetric scalars Δθ, Δφ and CSM's shift flip
-sign with τ). The pack's cotangent then differs from the JAX package's
-while the parameters' gradient is the same: compare parameter gradients.
+sign with τ). K-fam-gram's square launch rests on the same swap: it
+evaluates the lower 64² tiles and writes their transposes as the upper
+ones. The pack's cotangent then differs from the JAX package's while the
+parameters' gradient is the same: compare parameter gradients.
 
 The CUDA sources are csrc/family_*.cu over csrc/family_element.cuh, which
 transcribes the element values and their hand-derived derivatives with
@@ -36,7 +38,7 @@ from . import _build
 from .block_mosm import (BWD_TILE, _pad_channels, _pair_layout, _device_layout, channel_ids,
                          lowrank_plan, mosm_pair_stats, mosm_lowrank_vjp_sorted)
 from .mosm_gram import (_gram_layout, _device_gram_layout, channel_counts, channel_map,
-                        mosm_gram)
+                        mosm_gram, same_tensor)
 from .mosm_matvec import (FOLD_TILE, PLAIN_ROWS, fold_group, fold_items_on, fold_matvec,
                           fold_partials_plain_of, fold_slab_base, fold_tiles, mosm_matvec)
 
@@ -354,7 +356,11 @@ def family_gram(family, x1, c1, x2, c2, pack):
     """(N, M) Gram of a family for points x1 (N, D) with channel IDs c1
     (N,) int32 and x2 (M, D) with c2, from the (O, O, S) pack. Not
     differentiable (FamilyGram is). CPU or float64: the plain twin. float32
-    CUDA, contiguous: one launch of csrc/family_gram.cu, or raises."""
+    CUDA, contiguous: one launch of csrc/family_gram.cu, or raises. Where x1
+    and x2 are the same tensor and c1 and c2 are the same tensor (the
+    training Gram), the square launch: the lower tiles only, each written to
+    its place and its mirror, so the Gram is bitwise symmetric; else every
+    tile."""
     if _build.runs_plain(x1):
         return family_gram_plain(family, x1, c1, x2, c2, pack)
     D = x1.shape[1]
@@ -366,10 +372,16 @@ def family_gram(family, x1, c1, x2, c2, pack):
     if x2.shape[1] != D or c1.shape != (N,) or c2.shape != (M,):
         raise ValueError("family_gram: x1 (N, D), c1 (N,), x2 (M, D), c2 (M,) expected")
     out = torch.empty((N, M), dtype=torch.float32, device=x1.device)
-    err = _build.library().family_gram_f32(
-        x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), table.data_ptr(),
-        out.data_ptr(), N, M, O, S, D, A, fam, _build.stream_ptr(x1))
-    _build.check(err, "family_gram_f32")
+    if same_tensor(x1, x2) and same_tensor(c1, c2):
+        err = _build.library().family_gram_square_f32(
+            x1.data_ptr(), c1.data_ptr(), table.data_ptr(), out.data_ptr(), N, O, S, D, A, fam,
+            _build.stream_ptr(x1))
+        _build.check(err, "family_gram_square_f32")
+    else:
+        err = _build.library().family_gram_f32(
+            x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), table.data_ptr(),
+            out.data_ptr(), N, M, O, S, D, A, fam, _build.stream_ptr(x1))
+        _build.check(err, "family_gram_f32")
     family_gram.launches += 1
     return out
 

@@ -24,9 +24,11 @@ call, (K_below − L[r0+B:, :r0]·Cᵀ)·invᵀ written straight into column j
 (`below_trsm`, JAX `_below_trsm_pallas` and the below half of
 `_col_commit`; on the card the two products on the tensor cores, S below
 the diagonal block in a scratch strip between them, `below_trsm_plan`'s
-split-K); then Ljj into the diagonal block and, with zero_upper, the strip zeroed
-(`col_commit`, JAX `_col_commit` and `_upper_zero_impl`). Block column 0
-takes steps 1-3, as in the JAX package.
+split-K); then Ljj into the diagonal block (times the range scale's 1/r)
+and, with zero_upper, the strip zeroed (K-commit, JAX `_col_commit` and
+`_upper_zero_impl`: on the card inside K-below-trsm's TRSM launch, and
+for the last column, which has no rows below, `col_commit`'s own launch).
+Block column 0 takes steps 1-3, as in the JAX package.
 
 The factor is built in the buffer that holds K: K is overwritten. When n is
 not a multiple of the block, K is copied into a padded buffer with an
@@ -320,14 +322,17 @@ def s_diag_plain(L, j, B):
     return L[r0:r0 + B, r0:r0 + B] - C @ C.T
 
 
-def below_trsm_plain(L, inv, j, B):
+def below_trsm_plain(L, inv, j, B, Ljj=None, zero_upper=True, scale=None):
     """L[r0+B:, r0:r0+B] = (K_below − L[r0+B:, :r0]·Cᵀ)·invᵀ in place, with
     K_below the rows below the diagonal block of column j (still K) and
-    inv = Ljj⁻¹."""
+    inv = Ljj⁻¹; then, with Ljj, the commit col_commit_plain(L, Ljj, j, B,
+    zero_upper, scale)."""
     r0 = j * B
     C = L[r0:r0 + B, :r0]
     below = L[r0 + B:, r0:r0 + B]
     below.copy_((below - L[r0 + B:, :r0] @ C.T) @ inv.T)
+    if Ljj is not None:
+        col_commit_plain(L, Ljj, j, B, zero_upper, scale)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -338,11 +343,12 @@ def below_trsm_plan(n, r0, B):
     return _split_k_plan(n - r0 - B, r0, B)
 
 
-def col_commit_plain(L, Ljj, j, B, zero_upper=True):
-    """L[r0:r0+B, r0:r0+B] = Ljj and, with zero_upper, the strip of block
-    row j right of it zeroed."""
+def col_commit_plain(L, Ljj, j, B, zero_upper=True, scale=None):
+    """L[r0:r0+B, r0:r0+B] = Ljj (times scale[2], the range scale's 1/r,
+    where given: exact, a power of two) and, with zero_upper, the strip of
+    block row j right of it zeroed."""
     r0 = j * B
-    L[r0:r0 + B, r0:r0 + B] = Ljj
+    L[r0:r0 + B, r0:r0 + B] = Ljj if scale is None else Ljj * scale[2]
     if zero_upper:
         L[r0:r0 + B, r0 + B:] = 0
 
@@ -369,23 +375,28 @@ def s_diag(L, j, B, scale=None):
     return out
 
 
-def below_trsm(L, inv, j, B, scale=None):
+def below_trsm(L, inv, j, B, scale=None, Ljj=None, zero_upper=True):
     """Finish the rows of block column j below its diagonal block, in place,
-    for 0 < j < n/B − 1. CPU or float64: plain twin. float32 CUDA:
-    csrc/fused_trsm.cu below_trsm_f32 (both products on the 3xTF32 tensor
-    cores: A·Cᵀ with below_trsm_plan's split-K and, where split, its
-    fixed-order second pass into a scratch strip S, then S·invᵀ into column
-    j), or raises. The TMA copies need n a multiple of 4 and L and inv on
-    16 bytes. scale as col_write's: with the factor's range_scale, inv is
-    the inverse of s·K's Ljj and the kernel writes
+    for 0 < j < n/B − 1, and with Ljj commit the diagonal block as
+    col_commit(L, Ljj, j, B, zero_upper, scale) does. CPU or float64: plain
+    twin. float32 CUDA: csrc/fused_trsm.cu below_trsm_f32 (both products on
+    the 3xTF32 tensor cores: A·Cᵀ with below_trsm_plan's split-K and, where
+    split, its fixed-order second pass into a scratch strip S, then S·invᵀ
+    into column j; the commit in more CTAs of that last launch, counted on
+    below_trsm.commits), or raises. The TMA copies need n a multiple of 4
+    and L and inv on 16 bytes. scale as col_write's: with the factor's
+    range_scale, inv is the inverse of s·K's Ljj and the kernel writes
     (s·K_below − (r·A)(r·C)ᵀ)·invᵀ/r, the true factor's rows."""
     if _build.runs_plain(L):
-        return below_trsm_plain(L, inv, j, B)
+        return below_trsm_plain(L, inv, j, B, Ljj, zero_upper, scale)
     _check_fused("below_trsm", L, j, B)
     n, r0 = L.shape[0], j * B
     if inv.shape != (B, B) or r0 + B >= n:
         raise ValueError("below_trsm: inv must be (B, B) and column j must have rows below")
-    _build.require_cuda_inputs("below_trsm", floats=(L, inv))
+    if Ljj is not None and Ljj.shape != (B, B):
+        raise ValueError("below_trsm: Ljj must be (B, B)")
+    _build.require_cuda_inputs("below_trsm",
+                               floats=(L, inv) + (() if Ljj is None else (Ljj,)))
     if n % 4 or L.data_ptr() % 16 or inv.data_ptr() % 16:
         raise ValueError("below_trsm: the TMA copies need n a multiple of 4 and L and inv on "
                          "16 bytes")
@@ -394,30 +405,37 @@ def below_trsm(L, inv, j, B, scale=None):
     S = torch.empty((m, B), dtype=L.dtype, device=L.device)
     part = torch.empty((splits, m, B), dtype=L.dtype, device=L.device) if splits > 1 else None
     err = _build.library().below_trsm_f32(L.data_ptr(), inv.data_ptr(), S.data_ptr(),
-                                          None if part is None else part.data_ptr(), n, r0, B,
-                                          k_chunk, _scale_ptr(scale), _build.stream_ptr(L))
+                                          None if part is None else part.data_ptr(),
+                                          None if Ljj is None else Ljj.data_ptr(), n, r0, B,
+                                          k_chunk, int(bool(zero_upper)), _scale_ptr(scale),
+                                          _build.stream_ptr(L))
     _build.check(err, "below_trsm_f32")
     below_trsm.launches += 1
+    below_trsm.commits += Ljj is not None
 
 
-def col_commit(L, Ljj, j, B, zero_upper=True):
-    """Write Ljj into the diagonal block of column j and, with zero_upper,
-    zero the strip right of it. CPU or float64: plain twin. float32 CUDA:
-    csrc/fused_trsm.cu col_commit_f32, or raises."""
+def col_commit(L, Ljj, j, B, zero_upper=True, scale=None):
+    """Write Ljj (times scale[2] where the factor's range_scale is given)
+    into the diagonal block of column j and, with zero_upper, zero the strip
+    right of it. CPU or float64: plain twin. float32 CUDA: csrc/fused_trsm.cu
+    col_commit_f32, or raises. The fused factor calls it for its last
+    column only; the others commit inside K-below-trsm's launch."""
     if _build.runs_plain(L):
-        return col_commit_plain(L, Ljj, j, B, zero_upper)
+        return col_commit_plain(L, Ljj, j, B, zero_upper, scale)
     _check_fused("col_commit", L, j, B)
     if Ljj.shape != (B, B):
         raise ValueError("col_commit: Ljj must be (B, B)")
     _build.require_cuda_inputs("col_commit", floats=(L, Ljj))
     err = _build.library().col_commit_f32(L.data_ptr(), Ljj.data_ptr(), L.shape[0], j * B, B,
-                                          int(bool(zero_upper)), _build.stream_ptr(L))
+                                          int(bool(zero_upper)), _scale_ptr(scale),
+                                          _build.stream_ptr(L))
     _build.check(err, "col_commit_f32")
     col_commit.launches += 1
 
 
 s_diag.launches = 0
 below_trsm.launches = 0
+below_trsm.commits = 0      # K-commits inside K-below-trsm's launches
 col_commit.launches = 0
 
 
@@ -517,8 +535,9 @@ def blocked_cholesky(K, block_size=512, diag_shift=None, zero_upper=True,
                 torch.mul(inv, 1.0 if scale is None else scale[1], out=invs[j])
         if fused and j > 0:
             if j < nb - 1:
-                below_trsm(L, inv, j, B, scale)
-            col_commit(L, Ljj if scale is None else Ljj * scale[2], j, B, zero_upper)
+                below_trsm(L, inv, j, B, scale, Ljj, zero_upper)
+            else:
+                col_commit(L, Ljj, j, B, zero_upper, scale)
         else:
             col_write(L, S, Ljj, inv, j, B, zero_upper, scale)
     L = L[:n, :n] if npad != n else L

@@ -343,6 +343,27 @@ def test_twins_match_jax(case):
     _grads_close([g.numpy() for g in got], [g for g in case["dAB"]][:n_kernel], "lowrank twin")
 
 
+@pytest.mark.parametrize("name", ["umosm", "csm", "conv", "mohsm", "lmc_sm"])
+def test_pair_swap_mirrors_the_gram(name):
+    """The identity K-fam-gram's square launch rests on when it writes each
+    lower tile's transpose as the upper one: K(x1, x2; c1, c2) =
+    K(x2, x1; c2, c1)ᵀ, the pack's antisymmetric scalars (Δθ, Δφ, CSM's
+    shift) flipping sign with τ. Pure torch, float64, the plain twin on
+    random points and channel IDs at D = 1 and 2; rtol 1e-12 of max|K|."""
+    rng = np.random.RandomState(31)
+    O = len(COUNTS)
+    for D in (1, 2):
+        k = _kernel(tgpr, name, D)
+        with torch.no_grad():
+            pack = tbf.family_pack(k.family, k._fused_params())
+        x1, x2 = _t(rng.rand(57, D) * 10), _t(rng.rand(43, D) * 10)
+        c1, c2 = (torch.as_tensor(rng.randint(0, O, m), dtype=torch.int32) for m in (57, 43))
+        K = tbf.family_gram_plain(k.family, x1, c1, x2, c2, pack)
+        Kt = tbf.family_gram_plain(k.family, x2, c2, x1, c1, pack)
+        assert K.dtype == torch.float64 and K.shape == (57, 43)
+        torch.testing.assert_close(K, Kt.T, rtol=0, atol=1e-12 * float(K.abs().max()))
+
+
 # -- Exact: closed form, probe trace, predict ----------------------------------
 
 @pytest.mark.parametrize("case", CASES, ids=_ids(CASES), indirect=True)

@@ -129,6 +129,39 @@ def test_syrk_lower_twin_matches_jax_syrk():
                                        atol=2e-3 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("zero_upper", [True, False], ids=["zero_upper", "keep_upper"])
+def test_commit_twins_take_the_range_scale(zero_upper):
+    """K-commit's twin takes the factor's range scale [s, r, 1/r] as the
+    kernel does: the diagonal block is Ljj·(1/r), exactly (a power of two),
+    the strip right of it zeroed with zero_upper and untouched without;
+    K-below-trsm's twin given Ljj finishes the rows below and then commits,
+    bit for bit as the two twins called one after the other. float32, n =
+    192, B = 64, the middle block column."""
+    n, B, j = 192, 64, 1
+    r0 = j * B
+    rng = np.random.RandomState(64)
+    L = torch.as_tensor(rng.randn(n, n), dtype=torch.float32)
+    Ljj = torch.tril(torch.as_tensor(rng.rand(B, B), dtype=torch.float32)) + torch.eye(B)
+    inv = torch.linalg.solve_triangular(Ljj, torch.eye(B), upper=False)
+    scale = torch.tensor([2.0 ** -100, 2.0 ** -50, 2.0 ** 50])
+    L1 = L.clone()
+    tbc.col_commit_plain(L1, Ljj, j, B, zero_upper, scale)
+    assert torch.equal(L1[r0:r0 + B, r0:r0 + B], Ljj * 2.0 ** 50)
+    assert torch.equal(L1[r0:r0 + B, r0:r0 + B] * 2.0 ** -50, Ljj)
+    strip = L1[r0:r0 + B, r0 + B:]
+    assert torch.equal(strip, torch.zeros_like(strip) if zero_upper else L[r0:r0 + B, r0 + B:])
+    L1[r0:r0 + B, r0:] = L[r0:r0 + B, r0:]
+    assert torch.equal(L1, L)                       # nothing else written
+    L2, L3 = L.clone(), L.clone()
+    tbc.below_trsm_plain(L2, inv, j, B, Ljj, zero_upper, scale)
+    tbc.below_trsm_plain(L3, inv, j, B)
+    tbc.col_commit_plain(L3, Ljj, j, B, zero_upper, scale)
+    assert torch.equal(L2, L3)
+    before = _launches() + [tbc.below_trsm.commits]
+    tbc.below_trsm(L3, inv, j, B, scale, Ljj, zero_upper)   # CPU: the twin, no launch
+    assert _launches() + [tbc.below_trsm.commits] == before
+
+
 def test_not_positive_definite_gives_nan_with_fused_trsm():
     """The failure latch: a non-positive-definite second diagonal block
     gives NaN there and in every later block (NaN inverse → NaN rows below

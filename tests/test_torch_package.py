@@ -116,6 +116,55 @@ def test_lowrank_kpad_covers_every_column(monkeypatch):
         assert fam[10:13] == (R,) + tbm.lowrank_plan(R)
 
 
+def test_square_gram_and_commit_reach_their_entries(monkeypatch):
+    """The launches the card takes, recorded by a stand-in library on the
+    meta device: K-fam-gram's square entry (the lower tiles mirrored) where
+    x1 and x2 are one tensor and so are c1 and c2, also through FamilyGram,
+    which detaches them; the cross entry for a copy of x or other channel
+    IDs. K-below-trsm given Ljj carries it, zero_upper and the range scale to
+    the one launch that commits (counted on below_trsm.commits), without it
+    a null Ljj; K-commit carries the scale. Each call with its entry's
+    argument count."""
+    from mogptk_tpu_torch.ops import block_families as tbf
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_build, "require_cuda_inputs", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream_ptr", lambda t: 0)
+    meta = torch.device("meta")
+    csm, O, D = ("csm", (2,)), 3, 1
+    x = torch.empty((300, D), device=meta)
+    c = torch.empty((300,), dtype=torch.int32, device=meta)
+    pack = torch.empty((O, O, 2 * D + 4), device=meta)
+    tbf.family_gram(csm, x, c, x, c, pack)
+    tbf.FamilyGram.apply(csm, x, c, x, c, pack.requires_grad_(), None, None)
+    tbf.family_gram(csm, x, c, x[:200], c[:200], pack.detach())
+    assert [name for name, _ in calls] == ["family_gram_square_f32"] * 2 + ["family_gram_f32"]
+    for name, args in calls:
+        assert len(args) == len(_build.SIGNATURES[name]), name
+    n, B = 1024, 256
+    L = torch.empty((n, n), device=meta)
+    M = torch.empty((B, B), device=meta)
+    scale = torch.empty((3,), device=meta)
+    del calls[:]
+    commits = tbc.below_trsm.commits
+    tbc.below_trsm(L, M, 1, B, scale, M, False)
+    tbc.below_trsm(L, M, 2, B)
+    tbc.col_commit(L, M, 3, B, True, scale)
+    assert [name for name, _ in calls] == ["below_trsm_f32"] * 2 + ["col_commit_f32"]
+    for name, args in calls:
+        assert len(args) == len(_build.SIGNATURES[name]), name
+    (_, fused), (_, alone), (_, last) = calls
+    assert fused[4] is not None and fused[9:11] == (0, scale.data_ptr())   # Ljj, zero_upper, scale
+    assert alone[4] is None and alone[10] is None
+    assert last[5:7] == (1, scale.data_ptr())
+    assert tbc.below_trsm.commits == commits + 1
+
+
 def test_float64_routes_to_the_plain_twins_on_any_device():
     """The one dtype route (ops/_build.runs_plain): float64 runs the plain
     twin on the tensor's own device and counts no launch; float32 off the
@@ -900,7 +949,10 @@ def test_cuda_family_kernels_match_plain_twins():
     generic (D = 3 with 3 components) instances, on 300 points in 3
     channels (counts 150, 1, 149, padded to 256-row tiles; the Gram on
     random channel IDs), float32, against their plain twins. K-fam-gram
-    2e-4·max|K| and K-fam-matvec (the fold, at R = 33 on sorted channels and
+    2e-4·max|K|, its square launch (x1 is x2 and c1 is c2: the lower tiles
+    mirrored) also at n = 300 and 557 (partial tiles, rows not 16-byte
+    aligned) on sorted and on random channels, each bitwise symmetric and
+    bit-identical on a repeat; K-fam-matvec (the fold, at R = 33 on sorted channels and
     R = 1, 17 on random ones, each repeat bit-identical) with the float32
     summation bound of N terms added; the two backward kernels through the
     pack to the parameters, at most twice the float32 twin's distance from
@@ -917,6 +969,14 @@ def test_cuda_family_kernels_match_plain_twins():
     n = sum(counts)
     c = tbm.channel_ids(counts, dev)
     cr = torch.as_tensor(rng.randint(0, 3, n), dtype=torch.int32, device=dev)
+    rsq = np.random.RandomState(18)   # the square launches' points and channels
+    squares = {D: [(torch.as_tensor(np.sort(rsq.rand(m, D) * 10, axis=0), dtype=torch.float32,
+                                    device=dev), cs)
+                   for m, sorted_counts in ((300, counts), (557, (300, 7, 250)))
+                   for cs in (tbm.channel_ids(sorted_counts, dev),
+                              torch.as_tensor(rsq.randint(0, 3, m), dtype=torch.int32,
+                                              device=dev))]
+               for D in (1, 2, 3)}
     for D, A in ((1, 1), (1, 2), (2, 2), (3, 3)):
         x = torch.as_tensor(np.sort(rng.rand(n, D) * 10, axis=0), dtype=torch.float32, device=dev)
         for k in _family_kernels(rng, D, A, dev):
@@ -928,6 +988,13 @@ def test_cuda_family_kernels_match_plain_twins():
             Kp = tbf.family_gram_plain(family, x, cr, x[:200], c[:200], p)
             kmax = float(Kp.abs().max())
             assert float((K - Kp).abs().max()) <= 2e-4 * kmax, (family, D, A)
+            for xs, cs in squares[D]:
+                Ks = tbf.family_gram(family, xs, cs, xs, cs, p)
+                Kt = tbf.family_gram_plain(family, xs, cs, xs, cs, p)
+                assert torch.equal(Ks, Ks.T), (family, D, A, xs.shape[0])
+                assert torch.equal(Ks, tbf.family_gram(family, xs, cs, xs, cs, p))
+                assert float((Ks - Kt).abs().max()) <= 2e-4 * float(Kt.abs().max()), \
+                    (family, D, A, xs.shape[0])
             for cc, R in ((c, 33), (cr, 1), (cr, 17)):   # the fold, sorted and on random channels
                 V = torch.as_tensor(rng.randn(n, R), dtype=torch.float32, device=dev)
                 KV = tbf.family_matvec(family, x, cc, p, V)
@@ -971,7 +1038,8 @@ def test_cuda_fused_kernels_match_plain_twins():
     """K-sdiag, K-below-trsm, K-commit and K-syrk against their plain twins
     on the card, float32, small shapes; K-sdiag and K-below-trsm at columns
     where K-below-trsm splits k and where it does not, K-below-trsm also
-    with a range scale (bit-identical to the unscaled call). Tolerances: K-sdiag and
+    with a range scale (bit-identical to the unscaled call); K-commit alone
+    and inside K-below-trsm's launch, with and without a range scale. Tolerances: K-sdiag and
     K-below-trsm's S 2·(k+1)·2⁻²⁴·(|C||C|ᵀ + |K|), the summation-order
     bound of two float32 sums of length k, carried through invᵀ with
     2·B·2⁻²⁴·|S||inv|ᵀ more; K-commit exact (a copy); K-syrk
@@ -1015,11 +1083,21 @@ def test_cuda_fused_kernels_match_plain_twins():
             assert torch.equal(L1, L2)                     # nothing else written
             del L1, L2, Ls
 
+    # K-commit, exact: alone, and inside K-below-trsm's TRSM launch, with
+    # and without a range scale
+    sc = torch.tensor([2.0 ** -100, 2.0 ** -50, 2.0 ** 50], device=dev)
     for zero_upper in (True, False):
-        L1, L2 = L.clone(), L.clone()
-        tbc.col_commit(L1, Ljj, j, B, zero_upper)
-        tbc.col_commit_plain(L2, Ljj, j, B, zero_upper)
-        assert torch.equal(L1, L2)
+        for scale in (None, sc):
+            L1, L2 = L.clone(), L.clone()
+            tbc.col_commit(L1, Ljj, j, B, zero_upper, scale)
+            tbc.col_commit_plain(L2, Ljj, j, B, zero_upper, scale)
+            assert torch.equal(L1, L2), (zero_upper, scale)
+            jb = j - 1   # a column with rows below
+            L1, L2 = L.clone(), L.clone()
+            tbc.below_trsm(L1, inv, jb, B, scale, Ljj, zero_upper)
+            tbc.below_trsm(L2, inv, jb, B, scale)
+            tbc.col_commit_plain(L2, Ljj, jb, B, zero_upper, scale)
+            assert torch.equal(L1, L2), (zero_upper, scale)
 
     W = torch.tril(torch.as_tensor(rng.randn(512, 512), dtype=torch.float32, device=dev))
     nrm = torch.linalg.vector_norm(W, dim=0)
