@@ -755,6 +755,11 @@ def main():
          "source": "mogptk_tpu_torch/csrc/mosm_matvec.cu",
          "replaces": "mogptk_tpu/ops/pallas_mosm.py:351",
          "path": "ops.pallas_mosm", "launches": e3_launches["mosm_gram_matvec"]},
+        {"name": "mosm_gram_matvec_reduce", "route": "cuda",
+         "source": "mogptk_tpu_torch/csrc/mosm_matvec.cu",
+         "replaces": "mogptk_tpu/ops/pallas_mosm.py:351 (the carry of _matvec_kernel's sequential "
+                     "column axis)",
+         "path": "ops.pallas_mosm", "launches": e3_launches["mosm_gram_matvec_reduce"]},
         {"name": "mosm_gram_lowrank_vjp", "route": "cuda",
          "source": "mogptk_tpu_torch/csrc/mosm_gram_lowrank_vjp.cu",
          "replaces": "mogptk_tpu/ops/pallas_mosm.py:431",
@@ -771,7 +776,8 @@ def main():
             k["bound_fp32_ms"] = r["bound_fp32"][0]
         if r.get("yardstick_ms") is not None:   # two PyTorch calls, where no one call computes it
             k["yardstick_ms"] = r["yardstick_ms"]
-        for extra in ("permuted_ms", "cross_ms", "cross_bound_ms", "below_trsm_with_commit_ms",
+        for extra in ("permuted_ms", "cross_ms", "cross_bound_ms", "cross_yardstick_ms",
+                      "below_trsm_with_commit_ms",
                       "below_trsm_without_ms"):
             if extra in r:
                 k[extra] = r[extra]
@@ -1504,7 +1510,7 @@ def check_matvec(gpr, X, Y, dev):
             for label, xx, cc, VV in (("channel-sorted", x, c, V),
                                       ("permuted", xp, cp, V[perm].contiguous())):
                 matvec_check(mv, mg, xx, cc, st3, st2, VV, label, reps=5)
-                if R <= 33:   # the two designs side by side: the fold, and the FFMA kernel
+                if R <= 33:   # the two designs side by side: the fold, and K-gram-matvec's
                     fold, ffma = in_turns(
                         lambda: mv.mosm_matvec(xx, cc, st3, st2, VV),
                         lambda: mv.mosm_gram_matvec_pairstats(xx, cc, xx, cc, st3, st2, VV))
@@ -1512,7 +1518,7 @@ def check_matvec(gpr, X, Y, dev):
                     red = median_ms(lambda: mv.mosm_matvec_reduce(part, n), reps=5)
                     del part
                     print("K-matvec designs (%s, R=%d): the fold %.3f ms (of it K-matvec-reduce "
-                          "%.3f), FFMA (K-gram-matvec's kernel, unfolded) %.3f ms"
+                          "%.3f), K-gram-matvec's (every tile, split columns) %.3f ms"
                           % (label, R, fold, red, ffma))
                 if R == 33:
                     lms = median_ms(lambda: torch.matmul(mg.mosm_gram(xx, cc, xx, cc, st3, st2), VV),
@@ -3648,12 +3654,42 @@ def e3_gram_scale(st2):
     return float(st2[..., 0].abs().sum(dim=-1).max())
 
 
-def e3_lowrank_ops(N, M, R, D):
-    """FP32 operations of K-gram-lowrank-vjp's function: per element 2R for
-    g = A·Bᵀ and Q·(18D + 16) for the τ chain's backward (one exp and one
-    sincos counted as one operation each). The kernel's padding of each
-    channel to 256 rows is not counted."""
-    return N * M * (2 * R + Q * (18 * D + 16))
+def e3_matvec_bounds(N, M, R, D):
+    """K-gram-matvec's (bound, FP32 bound), each (bound_ms, bound_by): the
+    bound is the larger of the bytes (x, c and V read, the output written,
+    once), the N·M elements' operations at the FP32 peak (gram_ops) and the
+    2NMR product flops as three TF32 passes on the tensor cores (two pipes
+    that can overlap); the FP32 bound counts both at the FP32 peak."""
+    nbytes = 4 * ((N + M) * (D + 1) + (N + M) * R)
+    elem, prod = gram_ops(N * M, D), 2 * N * M * R
+    return (max((1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"),
+                (1e3 * elem / PEAK_FP32_PER_S, "operations"),
+                (1e3 * 3 * prod / PEAK_TF32_PER_S, "operations")),
+            bound(nbytes, elem + prod))
+
+
+def gram_matvec_reduce_check(mv, pts, st3, st2, V, card, reps=10):
+    """K-gram-matvec's second pass against its plain twin on the slabs of
+    its first pass (the same sums in the same order, so exactly equal),
+    timed; bound: the slabs read and the output written once. Returns its
+    report entry."""
+    import torch
+    part, plan = mv.mosm_gram_matvec_partials(*pts, st3, st2, V)
+    got = mv.mosm_gram_matvec_reduce(part)
+    twin = mv.mosm_gram_matvec_reduce_plain(part)
+    torch.cuda.synchronize()
+    err = float((got - twin).abs().max())
+    ms = median_ms(lambda: mv.mosm_gram_matvec_reduce(part), reps=reps)
+    pms = median_ms(lambda: mv.mosm_gram_matvec_reduce_plain(part), reps=reps)
+    lms = median_ms(lambda: part.sum(dim=0), reps=reps)
+    bnd = bound(4 * (part.numel() + got.numel()), part.numel())
+    print("K-gram-matvec's second pass %dx%d R=%d (%d slabs, plan %s): vs twin %.3e (exact: %s), "
+          "kernel %.3f ms, plain %.3f ms, torch.sum %.3f ms, bound %.3f ms (%s) (%s)"
+          % ((pts[0].shape[0], pts[2].shape[0], V.shape[1], part.shape[0], plan, err,
+              torch.equal(got, twin), ms, pms, lms) + bnd + (card,)))
+    if part.shape[0] < 2 or not torch.equal(got, twin):
+        fail("K-gram-matvec's second pass: no split, or it differs from its plain twin")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, library_ms=lms, bound=bnd)
 
 
 def drive_pallas_mosm(gpr, X, reqs, dev, smi):
@@ -3663,11 +3699,13 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
     the training points permuted so that the channel order is arbitrary.
 
     The drive, counted: K-gram-matvec at K(X, X)·V for R = 1, 33 and 1,024,
-    at K(Xq, X)·V with the 4,096 request points (R = 33) and at K(X, X)·V,
-    R = 33, with phase_inside=False; K-gram-lowrank-vjp at N = M = 16,384
-    with R = 17 and 65 (two chunks of 64) and at the Kuf shape (the 1,024
-    points of request (a) against the 16,384, R = 17), that shape also
-    with phase_inside=False; mosm_gram at K(Xq, X), forward and its
+    at K(Xq, X)·V with the 4,096 request points (R = 33), at K(X, X)·V,
+    R = 33, with phase_inside=False and at a ragged 300 × 77 (R = 33), with
+    its second pass wherever its plan splits the columns;
+    K-gram-lowrank-vjp at N = M = 16,384 with R = 17 and 65 (two chunks of
+    64), at the Kuf shape (the 1,024 points of request (a) against the
+    16,384, R = 17), that shape also with phase_inside=False, and at the
+    ragged 300 × 77 (R = 17); mosm_gram at K(Xq, X), forward and its
     parameter gradient (K-gram, K-gram-bwd).
 
     Then each output against its plain twin on the same inputs:
@@ -3680,7 +3718,9 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
     twin's error, plus 1e-5 of the cotangents' scale (float32 sums over the
     N·M elements and the tiles in two orders, as phase 4 holds
     K-lowrank-vjp); mosm_gram's forward within 2e-4 of max|K| (phase 2).
-    Every kernel call repeated bit-identically; float64 through the twins on
+    K-gram-matvec's second pass exactly equal to its twin on the slabs of
+    the square R = 33 case. Every kernel call repeated bit-identically;
+    float64 through the twins on
     the card (no launch) against the CPU at rtol 1e-9. Returns (report
     entries, the drive's launches)."""
     import torch
@@ -3704,21 +3744,29 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
         return torch.randn((rows, cols), generator=gen, device=dev)
 
     sq, cross, kuf = (xp, cp, xp, cp), (xq, cq, xp, cp), (xu, cu, xp, cp)
+    ragged = (xp[:300], cp[:300], xq[:77], cq[:77])   # neither edge a multiple of a tile
     V = {R: rand(n, R) for R in (1, 33, 1024)}
     A17, B17, A65, B65 = rand(n, 17), rand(n, 17), rand(n, 65), rand(n, 65)
     Au17 = rand(xu.shape[0], 17)
+    Vr, Ar, Br = rand(77, 33), rand(300, 17), rand(77, 17)
     G = rand(xq.shape[0], n)
     mv_cases = [("K(X,X) %dx%d R=1" % (n, n), sq, True, V[1]),
                 ("K(X,X) %dx%d R=33" % (n, n), sq, True, V[33]),
                 ("K(X,X) %dx%d R=1024" % (n, n), sq, True, V[1024]),
                 ("K(Xq,X) %dx%d R=33" % (xq.shape[0], n), cross, True, V[33]),
-                ("K(X,X) %dx%d R=33 phase outside" % (n, n), sq, False, V[33])]
+                ("K(X,X) %dx%d R=33 phase outside" % (n, n), sq, False, V[33]),
+                ("K(X[:300],Xq[:77]) 300x77 R=33 ragged", ragged, True, Vr)]
     vjp_cases = [("K(X,X) %dx%d R=17" % (n, n), sq, True, A17, B17),
                  ("K(X,X) %dx%d R=65" % (n, n), sq, True, A65, B65),
                  ("Kuf %dx%d R=17" % (xu.shape[0], n), kuf, True, Au17, B17),
-                 ("Kuf %dx%d R=17 phase outside" % (xu.shape[0], n), kuf, False, Au17, B17)]
+                 ("Kuf %dx%d R=17 phase outside" % (xu.shape[0], n), kuf, False, Au17, B17),
+                 ("K(X[:300],Xq[:77]) 300x77 R=17 ragged", ragged, True, Ar, Br)]
+    # K-gram-matvec's plans: the cases whose columns split launch its second pass
+    plans = [mv.gram_matvec_plan(pts[0].shape[0], pts[2].shape[0], VV.shape[1],
+                                 mv.sm_count(xp.device)) for _, pts, _, VV in mv_cases]
 
     counters = {"mosm_gram_matvec": mv.mosm_gram_matvec_pairstats,
+                "mosm_gram_matvec_reduce": mv.mosm_gram_matvec_reduce,
                 "mosm_gram_lowrank_vjp": bm.mosm_gram_lowrank_vjp_pairstats,
                 "mosm_gram": mg.mosm_gram, "mosm_gram_bwd": mg.mosm_gram_bwd}
     for f in counters.values():
@@ -3736,8 +3784,9 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
     wall = 1e3 * (time.perf_counter() - t)
     launches = {k: f.launches for k, f in counters.items()}
     print("phase 21 drive: %s launches in %.1f ms" % (launches, wall))
-    want = {"mosm_gram_matvec": len(mv_cases), "mosm_gram_lowrank_vjp": len(vjp_cases),
-            "mosm_gram": 1, "mosm_gram_bwd": 1}
+    want = {"mosm_gram_matvec": len(mv_cases),
+            "mosm_gram_matvec_reduce": sum(splits > 1 for _, splits, _ in plans),
+            "mosm_gram_lowrank_vjp": len(vjp_cases), "mosm_gram": 1, "mosm_gram_bwd": 1}
     if launches != want:
         fail("phase 21: launches %s, expected %s" % (launches, want))
     outs = mv_out + [g for grads in vjp_out for g in grads] + [K] + list(gram_grads)
@@ -3771,16 +3820,16 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
             ms = median_ms(lambda: mv.mosm_gram_matvec_pairstats(*pts, st3, st2, VV))
             pms = median_ms(lambda: mv.mosm_gram_matvec_plain(*pts, st3, st2, VV), reps=3,
                             warmup=1)
-            bnd = bound(4 * ((N + M) * (D + 1) + (N + M) * R), gram_ops(N * M, D) + 2 * N * M * R)
-            yard = ""
-            if R == 33 and ph:
+            bnd, bnd32 = e3_matvec_bounds(N, M, R, D)
+            yard, lms = "", None
+            if R == 33 and ph and N >= 4096:
                 lms = median_ms(lambda: torch.matmul(mg.mosm_gram(*pts, st3, st2), VV), reps=5)
                 yard = ", yardstick K-gram %dx%d + torch.matmul %.3f ms" % (N, M, lms)
-            print("K-gram-matvec %s: max_abs_err %.3e (worst err/tol %.3e, scale %.4f), vs "
-                  "float64 %.3e (twin %.3e, tol %.3e, max|K||V| %.3e), kernel %.3f ms, plain "
-                  "%.3f ms, bound %.3f ms (%s)%s (%s)"
-                  % ((label, err, worst, scale, err_k, err_t, tol64, kv, ms, pms) + bnd
-                     + (yard, card)))
+            print("K-gram-matvec %s (plan nb, splits, tiles a split %s): max_abs_err %.3e (worst "
+                  "err/tol %.3e, scale %.4f), vs float64 %.3e (twin %.3e, tol %.3e, max|K||V| "
+                  "%.3e), kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s; FP32 %.3f ms)%s (%s)"
+                  % ((label, plans[k], err, worst, scale, err_k, err_t, tol64, kv, ms, pms) + bnd
+                     + (bnd32[0], yard, card)))
             if not bool((diff <= tol).all()):
                 fail("K-gram-matvec %s disagrees with its plain twin" % label)
             if not err_k <= tol64:
@@ -3789,10 +3838,16 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
                 fail("K-gram-matvec %s: a repeated call differs" % label)
             if k == 1:
                 report["mosm_gram_matvec"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                                  library_ms=None, bound=bnd)
+                                                  library_ms=None, bound=bnd, bound_fp32=bnd32,
+                                                  yardstick_ms=lms)
+            elif k == 3:
+                report["mosm_gram_matvec"].update(cross_ms=ms, cross_bound_ms=bnd[0],
+                                                  cross_yardstick_ms=lms)
             del twin, again, diff
         mv_out.clear()
         torch.cuda.empty_cache()
+        report["mosm_gram_matvec_reduce"] = gram_matvec_reduce_check(mv, sq, *pm.pair_stats(
+            *params, twopi, True), V[33], card)
 
         for k, ((label, pts, ph, A, B), got) in enumerate(zip(vjp_cases, vjp_out)):
             st3, st2 = pm.pair_stats(*params, twopi, ph)
@@ -3815,7 +3870,8 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
                 plain = "plain %.3f ms" % pms
             else:
                 plain = "plain not timed"
-            bnd = bound(4 * (N + M) * (R + D + 1), e3_lowrank_ops(N, M, R, D))
+            bnd, bnd32 = lowrank_bounds(4 * (N + M) * (R + D + 1), N * M * 2 * R,
+                                        N * M * Q * (18 * D + 16))
             yard = ""
             if k in (0, 2):
                 lms = median_ms(lambda: mg.mosm_gram_bwd(*pts, st3, st2, A @ B.T), reps=5)
@@ -3826,8 +3882,9 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
                                                                            *counts))
                 yard += ", with the channel counts given (no host read) %.3f ms" % cms
             print("K-gram-lowrank-vjp %s: parameter cotangents vs float64 %.3e (twin %.3e, tol "
-                  "%.3e, scale %.3e), vs twin %.3e, kernel %.3f ms, %s, bound %.3f ms (%s)%s (%s)"
-                  % ((label, err_k, err_t, tol, scale, err, ms, plain) + bnd + (yard, card)))
+                  "%.3e, scale %.3e), vs twin %.3e, kernel %.3f ms, %s, bound %.3f ms (%s; FP32 "
+                  "%.3f ms)%s (%s)" % ((label, err_k, err_t, tol, scale, err, ms, plain) + bnd
+                                       + (bnd32[0], yard, card)))
             if not err_k <= tol:
                 fail("K-gram-lowrank-vjp %s is further from float64 than twice its plain twin"
                      % label)
@@ -3835,7 +3892,11 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
                 fail("K-gram-lowrank-vjp %s: a repeated call differs" % label)
             if k == 0:
                 report["mosm_gram_lowrank_vjp"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                                                       library_ms=None, bound=bnd)
+                                                       library_ms=None, bound=bnd,
+                                                       bound_fp32=bnd32, yardstick_ms=lms)
+            elif k == 2:
+                report["mosm_gram_lowrank_vjp"].update(cross_ms=ms, cross_bound_ms=bnd[0],
+                                                       cross_yardstick_ms=lms)
             del twin, ref, again
             torch.cuda.empty_cache()
 

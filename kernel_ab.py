@@ -54,7 +54,11 @@ whose entries take the factor's range scale gets null (scale 1). From
 fused_cho_solve.cu it times K-solve on the bench factor at R = 17, 1 and
 64, and from mosm_lowrank_vjp.cu K-lowrank-vjp at N = 16,384 and 65,536
 with R = 17 (solve_cases and lowrank_vjp_cases say how each root's entry
-is called). --only restricts the sources built and timed. A root whose kernels
+is called). From mosm_matvec.cu it also times K-gram-matvec, and from
+mosm_gram_lowrank_vjp.cu K-gram-lowrank-vjp, at chip_smoke.py phase 21's
+shapes on its permuted bench points (gram_matvec_cases,
+gram_lowrank_vjp_cases: each root through its own entry, the split
+first pass with its second pass where the root has one). --only restricts the sources built and timed. A root whose kernels
 take an instance argument (`int generic`) gets 0, the unrolled instance;
 K-gram-bwd's input half is off (inputs = 0). Every case runs once on
 each side, checked, before the timing. Rounds
@@ -71,7 +75,8 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("mosm_gram.cu", "mosm_matvec.cu", "mosm_gram_bwd.cu", "blocked_cholesky.cu",
            "fused_trsm.cu", "fused_cho_solve.cu", "mosm_lowrank_vjp.cu", "family_matvec.cu",
-           "family_gram_bwd.cu", "family_lowrank_vjp.cu", "family_gram.cu")
+           "family_gram_bwd.cu", "family_lowrank_vjp.cu", "family_gram.cu",
+           "mosm_gram_lowrank_vjp.cu")
 # sources a library also needs where the root has them (K-gram-bwd's
 # instances with the input half are compiled from a file of their own;
 # K-fam-matvec's fold ends in mosm_matvec.cu's second pass)
@@ -618,6 +623,102 @@ def lowrank_vjp_cases(libs, roots, points, stats, Q, D, stream):
     return cases
 
 
+def phase21_points(cs, kernel, x, c):
+    """Phase 21's point sets: the bench points permuted (the seed of
+    chip_smoke.py's phase 21), the 4,096 request points (b) and the 1,024
+    (a), each (x, c) contiguous on x's device."""
+    import numpy as np
+    import torch
+    perm = torch.as_tensor(np.random.RandomState(21).permutation(x.shape[0]), device=x.device)
+    reqs = {k: torch.as_tensor(v, dtype=torch.float32, device=x.device)
+            for k, v in cs.requests().items()}
+    out = {"x": (x[perm].contiguous(), c[perm].contiguous())}
+    for name in ("a", "b"):
+        cq, xq = kernel._split(reqs[name])
+        out[name] = (xq.contiguous(), cq.contiguous())
+    return out
+
+
+def gram_matvec_cases(libs, roots, pts, stats, O, Q, D, stream):
+    """K-gram-matvec at phase 21's shapes: K(X, X)·V on the bench points
+    permuted with R = 1, 33 and 1,024, and K(Xq, X)·V with the 4,096
+    request points, R = 33. A root with the split first pass (its second
+    pass mosm_gram_matvec_reduce_f32) runs this root's gram_matvec_plan and,
+    where the plan splits the columns, the second pass; another root its
+    one-launch entry."""
+    import torch
+    from mogptk_tpu_torch.ops import mosm_matvec as mv
+    P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    xp, cp = pts["x"]
+    xq, cq = pts["b"]
+    gen = torch.Generator(device=xp.device).manual_seed(21)
+    cases = []
+    for (x1, c1), R in (((xp, cp), 1), ((xp, cp), 33), ((xp, cp), 1024), ((xq, cq), 33)):
+        N, M = x1.shape[0], xp.shape[0]
+        V = torch.randn((M, R), generator=gen, device=xp.device)
+        calls = {}
+        for side, root in roots.items():
+            lib = libs[side]["mosm_matvec.cu"]
+            out = torch.empty((N, R), device=xp.device)
+            head = [P(t.data_ptr()) for t in (x1, c1, xp, cp, stats, V)]
+            keep = (x1, c1, V, out)
+            if not has(root, "mosm_matvec.cu", "mosm_gram_matvec_reduce_f32"):
+                calls[side] = (thunk(lib.mosm_gram_matvec_f32, head + [
+                    P(out.data_ptr()), I64(N), I64(M), I32(R), I32(O), I32(Q), I32(D), I32(0),
+                    P(stream)], keep), out)
+                continue
+            nb, splits, tps = mv.gram_matvec_plan(N, M, R, mv.sm_count(xp.device))
+            part = out if splits == 1 else torch.empty((splits, N, R), device=xp.device)
+            first = thunk(lib.mosm_gram_matvec_f32, head + [
+                P(part.data_ptr()), I64(N), I64(M), I32(R), I32(O), I32(Q), I32(D), I32(nb),
+                I32(tps), I32(0), P(stream)], keep + (part,))
+            second = thunk(lib.mosm_gram_matvec_reduce_f32, [
+                P(part.data_ptr()), P(out.data_ptr()), I64(N), I32(R), I32(splits), P(stream)],
+                keep + (part,))
+            calls[side] = ((lambda first, second, splits: lambda: first() or (
+                second() if splits > 1 else 0))(first, second, splits), out)
+        cases.append(("K-gram-matvec %dx%d R=%d" % (N, M, R), "mosm_matvec.cu", 10, calls))
+    return cases
+
+
+def gram_lowrank_vjp_cases(libs, roots, pts, stats, O, Q, D, stream):
+    """K-gram-lowrank-vjp at phase 21's shapes: the bench points permuted
+    against themselves (16,384², R = 17 and 65) and the 1,024 request points
+    against them (Kuf, R = 17), the channel maps and the tile list as its
+    wrapper builds them. A root whose entry takes the k padding (`int KH`)
+    gets this root's lowrank_plan, another its chunk alone."""
+    import torch
+    from mogptk_tpu_torch.ops import block_mosm as bm, mosm_gram as mg
+    P, I32 = ctypes.c_void_p, ctypes.c_int
+    xp, cp = pts["x"]
+    xu, cu = pts["a"]
+    gen = torch.Generator(device=xp.device).manual_seed(17)
+    nout = 3 * Q * D + 2 * Q
+    cases = []
+    for (x1, c1), R in (((xp, cp), 17), ((xp, cp), 65), ((xu, cu), 17)):
+        N = x1.shape[0]
+        A = torch.randn((N, R), generator=gen, device=xp.device)
+        B = torch.randn((xp.shape[0], R), generator=gen, device=xp.device)
+        counts1, counts2 = mg.channel_counts(c1, O), mg.channel_counts(cp, O)
+        rmap, cmap = mg.channel_map(c1, counts1), mg.channel_map(cp, counts2)
+        idx, pairs = mg._device_gram_layout(counts1, counts2, bm.BWD_TILE, xp.device)
+        RC, KH = bm.lowrank_plan(R)
+        calls = {}
+        for side, root in roots.items():
+            lib = libs[side]["mosm_gram_lowrank_vjp.cu"]
+            partial = torch.empty((4 * idx.shape[0], nout), device=xp.device)
+            out = torch.zeros((O * O, nout), device=xp.device)
+            kh = [I32(KH)] if has(root, "mosm_gram_lowrank_vjp.cu", "int KH") else []
+            args = [P(t.data_ptr()) for t in (idx, x1, rmap, xp, cmap, A, B, stats, partial,
+                                               pairs, out)]
+            calls[side] = (thunk(lib.mosm_gram_lowrank_vjp_f32, args + [
+                I32(idx.shape[0]), I32(pairs.shape[0]), I32(Q), I32(D), I32(R), I32(RC), *kh,
+                I32(0), P(stream)], (idx, x1, rmap, cmap, A, B, partial, pairs, out)), out)
+        cases.append(("K-gram-lowrank-vjp %dx%d R=%d (%d tiles)"
+                      % (N, xp.shape[0], R, idx.shape[0]), "mosm_gram_lowrank_vjp.cu", 10, calls))
+    return cases
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -794,6 +895,12 @@ def main():
         cases += family_lowrank_vjp_cases(libs, roots, gpr, cs, X, stream)
     if "family_gram.cu" in built:
         cases += family_gram_cases(libs, roots, gpr, cs, X, stream)
+    if "mosm_matvec.cu" in built or "mosm_gram_lowrank_vjp.cu" in built:
+        pts = phase21_points(cs, kernel, x, c)
+        if "mosm_matvec.cu" in built:
+            cases += gram_matvec_cases(libs, roots, pts, stats, O, Q, D, stream)
+        if "mosm_gram_lowrank_vjp.cu" in built:
+            cases += gram_lowrank_vjp_cases(libs, roots, pts, stats, O, Q, D, stream)
     for name, xx, cc, VV, reps in (("K-matvec N=%d R=33" % n, x, c, V, 10),
                                    ("K-matvec N=%d R=33" % nb, xb, cb, Vb, 5)):
         if all("mosm_matvec.cu" in l for l in libs.values()):

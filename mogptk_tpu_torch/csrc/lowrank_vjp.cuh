@@ -1,7 +1,10 @@
 // The low-rank cotangent tile shared by K-lowrank-vjp
-// (csrc/mosm_lowrank_vjp.cu, the MOSM pair statistics) and
-// K-fam-lowrank-vjp (csrc/family_lowrank_vjp.cu, a family's pack), for
-// Hopper (sm_90a), float32.
+// (csrc/mosm_lowrank_vjp.cu, the MOSM pair statistics), K-fam-lowrank-vjp
+// (csrc/family_lowrank_vjp.cu, a family's pack) and, in its cross mode,
+// K-gram-lowrank-vjp (csrc/mosm_gram_lowrank_vjp.cu, the Gram of two point
+// sets: no fold, g = A_i B_j^T with k = R, the rows of A and B gathered
+// through the channel maps as they are staged, operand stride KH + 4), for
+// Hopper (sm_90a), float32. The fold, described first:
 //
 // The rows are channel-sorted and each channel is padded with zero rows of
 // A and B to a multiple of 256, so padding adds nothing. A host-built list
@@ -46,24 +49,34 @@ namespace {
 
 constexpr int kMaxRC = 64;      // columns of A and B in the operands at a time
 
-__host__ __device__ constexpr int operand_stride(int kh) { return 2 * kh + 4; }
+// row stride of the operands in shared memory: [A | B] halves of KH each
+// (the fold), or one half (the cross call); 4 or 20 (12, 28) mod 32, so the
+// fragments' loads hit 32 distinct banks
+__host__ __device__ constexpr int operand_stride(int kh, bool cross = false) {
+    return cross ? kh + 4 : 2 * kh + 4;
+}
 
 // The thread's 8 x 8 elements of g for this block's quarter, accumulated
 // over R in chunks of RC columns (KH: RC padded to a multiple of 8) staged
-// in shared memory (ops: two [kSub][2 KH + 4] arrays). g[mi][ni][c]: row
-// 64 (w / 4) + 16 mi + lane / 4 + 8 (c / 2), column 32 (w % 4) + 8 ni +
-// 2 (lane % 4) + c % 2.
+// in shared memory (ops: two [kSub][operand_stride(KH, kCross)] arrays).
+// g[mi][ni][c]: row 64 (w / 4) + 16 mi + lane / 4 + 8 (c / 2), column
+// 32 (w % 4) + 8 ni + 2 (lane % 4) + c % 2.
+// kCross (K-gram-lowrank-vjp, the Gram of two point sets): g = A_i B_j^T,
+// k = R alone, A's rows gathered through rows[r] and B's through cols[r]
+// (the quarter's laid-out positions: the point there, -1 for padding, which
+// stages a zero row); else the fold over one channel-sorted layout.
+template <bool kCross>
 __device__ __forceinline__ void lowrank_g(const int* __restrict__ idx,
                                           const float* __restrict__ A,
-                                          const float* __restrict__ Bm, int R, int RC, int KH,
-                                          float* ops, float (&g)[4][4][4], int64_t& row0,
-                                          int64_t& col0) {
-    const int SK = operand_stride(KH);
-    float* Sa = ops;                 // [A_i | B_i]
-    float* Sb = ops + kSub * SK;     // [B_j | A_j]
+                                          const float* __restrict__ Bm, const int* rows,
+                                          const int* cols, int R, int RC, int KH, float* ops,
+                                          float (&g)[4][4][4], int64_t& row0, int64_t& col0) {
+    const int SK = operand_stride(KH, kCross);
+    float* Sa = ops;                 // [A_i | B_i], or A_i
+    float* Sb = ops + kSub * SK;     // [B_j | A_j], or B_j
     const int s = blockIdx.x / 4, quarter = blockIdx.x % 4;
     const int ti = idx[3 * s], tj = idx[3 * s + 1];
-    const int nk = (ti != tj ? 2 * KH : KH) / 8;
+    const int nk = (kCross || ti == tj ? KH : 2 * KH) / 8;
     row0 = (int64_t)ti * kTile + (quarter / 2) * kSub;
     col0 = (int64_t)tj * kTile + (quarter % 2) * kSub;
     const int t = threadIdx.x, w = t >> 5, lane = t & 31, gq = lane >> 2, q = lane & 3;
@@ -80,11 +93,17 @@ __device__ __forceinline__ void lowrank_g(const int* __restrict__ idx,
         for (int e = t; e < kSub * KH; e += kThreads) {
             const int r = e / KH, k = e % KH;   // consecutive threads, consecutive addresses
             const bool ok = k < rc;
-            const int64_t ri = (row0 + r) * R + r0 + k, rj = (col0 + r) * R + r0 + k;
-            Sa[r * SK + k] = ok ? A[ri] : 0.0f;
-            Sa[r * SK + KH + k] = ok ? Bm[ri] : 0.0f;
-            Sb[r * SK + k] = ok ? Bm[rj] : 0.0f;
-            Sb[r * SK + KH + k] = ok ? A[rj] : 0.0f;
+            if constexpr (kCross) {
+                const int i = rows[r], j = cols[r];
+                Sa[r * SK + k] = ok && i >= 0 ? A[(int64_t)i * R + r0 + k] : 0.0f;
+                Sb[r * SK + k] = ok && j >= 0 ? Bm[(int64_t)j * R + r0 + k] : 0.0f;
+            } else {
+                const int64_t ri = (row0 + r) * R + r0 + k, rj = (col0 + r) * R + r0 + k;
+                Sa[r * SK + k] = ok ? A[ri] : 0.0f;
+                Sa[r * SK + KH + k] = ok ? Bm[ri] : 0.0f;
+                Sb[r * SK + k] = ok ? Bm[rj] : 0.0f;
+                Sb[r * SK + KH + k] = ok ? A[rj] : 0.0f;
+            }
         }
         __syncthreads();
         for (int ks = 0; ks < nk; ++ks) {
@@ -124,33 +143,17 @@ __device__ __forceinline__ int elem_col(int v) {
     return 32 * (w & 3) + 8 * (v >> 1) + 2 * (lane & 3) + (v & 1);
 }
 
-// The unrolled instance: g, then each of the thread's rows against its
-// eight columns through E, four at a time.
+// Each of the thread's rows (inputs xi) against its eight columns (xj) with
+// cotangents g through E, four at a time; the block's sums to out (every
+// thread calls it).
 template <class E>
-__global__ void __launch_bounds__(kThreads, E::kMinBlocks)
-lowrank_vjp_kernel(const int* __restrict__ idx, const float* __restrict__ x,
-                   const float* __restrict__ A, const float* __restrict__ Bm,
-                   const float* __restrict__ stats, float* __restrict__ partial, int R, int RC,
-                   int KH) {
+__device__ __forceinline__ void lowrank_chain(const float (&g)[4][4][4],
+                                              const float (&xi)[8][E::kD],
+                                              const float (&xj)[8][E::kD], const float* st,
+                                              float (&red)[kThreads / 32][E::kSlots],
+                                              float* __restrict__ out) {
     constexpr int NS = E::kSlots, D = E::kD;
-    extern __shared__ __align__(16) float ops[];
-    __shared__ float st[NS];
-    __shared__ float red[kThreads / 32][NS];
-    const int pair = idx[3 * (blockIdx.x / 4) + 2];
-    for (int e = threadIdx.x; e < NS; e += kThreads) st[e] = stats[(int64_t)pair * NS + e];
-    float g[4][4][4];
-    int64_t row0, col0;
-    lowrank_g(idx, A, Bm, R, RC, KH, ops, g, row0, col0);   // syncs after st
     const E elem(st);
-
-    float xi[8][D], xj[8][D];
-#pragma unroll
-    for (int u = 0; u < 8; ++u)
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-            xi[u][d] = x[(row0 + elem_row(u)) * D + d];
-            xj[u][d] = x[(col0 + elem_col(u)) * D + d];
-        }
     float acc[NS];
 #pragma unroll
     for (int k = 0; k < NS; ++k) acc[k] = 0.0f;
@@ -168,7 +171,36 @@ lowrank_vjp_kernel(const int* __restrict__ idx, const float* __restrict__ x,
             }
             elem.add4(gv, xi[u], xs, acc);
         }
-    block_reduce_store<NS>(acc, red, partial + (int64_t)blockIdx.x * NS);
+    block_reduce_store<NS>(acc, red, out);
+}
+
+// The unrolled instance: g, then each of the thread's rows against its
+// eight columns through E, four at a time.
+template <class E>
+__global__ void __launch_bounds__(kThreads, E::kMinBlocks)
+lowrank_vjp_kernel(const int* __restrict__ idx, const float* __restrict__ x,
+                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   const float* __restrict__ stats, float* __restrict__ partial, int R, int RC,
+                   int KH) {
+    constexpr int NS = E::kSlots, D = E::kD;
+    extern __shared__ __align__(16) float ops[];
+    __shared__ float st[NS];
+    __shared__ float red[kThreads / 32][NS];
+    const int pair = idx[3 * (blockIdx.x / 4) + 2];
+    for (int e = threadIdx.x; e < NS; e += kThreads) st[e] = stats[(int64_t)pair * NS + e];
+    float g[4][4][4];
+    int64_t row0, col0;
+    lowrank_g<false>(idx, A, Bm, nullptr, nullptr, R, RC, KH, ops, g, row0, col0);   // syncs after st
+
+    float xi[8][D], xj[8][D];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            xi[u][d] = x[(row0 + elem_row(u)) * D + d];
+            xj[u][d] = x[(col0 + elem_col(u)) * D + d];
+        }
+    lowrank_chain<E>(g, xi, xj, st, red, partial + (int64_t)blockIdx.x * NS);
 }
 
 // The generic instances' input: g as gt[u][v] (row elem_row(u), column
@@ -183,7 +215,7 @@ __device__ __forceinline__ void lowrank_generic_input(const int* __restrict__ id
                                                       const float* (&xc)[kMicro]) {
     float g[4][4][4];
     int64_t row0, col0;
-    lowrank_g(idx, A, Bm, R, RC, KH, ops, g, row0, col0);
+    lowrank_g<false>(idx, A, Bm, nullptr, nullptr, R, RC, KH, ops, g, row0, col0);
 #pragma unroll
     for (int u = 0; u < kMicro; ++u) {
         xr[u] = x + (row0 + elem_row(u)) * D;
@@ -194,15 +226,32 @@ __device__ __forceinline__ void lowrank_generic_input(const int* __restrict__ id
 }
 
 // The operands' shared memory for KH, and 4 T blocks of kernel on stream.
-template <typename Kernel, typename... Args>
+template <bool kCross = false, typename Kernel, typename... Args>
 int launch_lowrank(Kernel kernel, int T, int KH, cudaStream_t stream, Args... args) {
-    const size_t smem = sizeof(float) * 2 * (size_t)kSub * operand_stride(KH);
+    const size_t smem = sizeof(float) * 2 * (size_t)kSub * operand_stride(KH, kCross);
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<(unsigned)(4 * T), kThreads, smem, stream>>>(args...);
     return (int)cudaGetLastError();
 }
+
+// The MOSM tau chain as the unrolled kernels' element policy (K-lowrank-vjp,
+// K-gram-lowrank-vjp): the pair's statistics read from their shared-memory
+// stage, mosm_pair_vjp.cuh add_pair_cotangents4's four elements.
+template <int Q, int D>
+struct MosmChain {
+    static constexpr int kD = D;
+    static constexpr int kSlots = 3 * Q * D + 2 * Q;
+    static constexpr int kMinBlocks = Q * D <= 2 ? 2 : 1;   // 128 registers a thread
+    const float* st;
+
+    __device__ __forceinline__ explicit MosmChain(const float* stage) : st(stage) {}
+    __device__ __forceinline__ void add4(const float (&gv)[4], const float (&xi)[D],
+                                         const float (&xj)[4][D], float (&acc)[kSlots]) const {
+        add_pair_cotangents4<Q, D>(gv, xi, xj, st, acc);
+    }
+};
 
 // The chunk plan's checks: 1 <= RC <= min(R, 64), KH a multiple of 8 that
 // holds RC, at most 64.

@@ -35,23 +35,6 @@
 
 namespace {
 
-// The MOSM tau chain as lowrank_vjp.cuh's element policy: the pair's
-// statistics read from their shared-memory stage, add_pair_cotangents4's
-// four elements.
-template <int Q, int D>
-struct MosmChain {
-    static constexpr int kD = D;
-    static constexpr int kSlots = 3 * Q * D + 2 * Q;
-    static constexpr int kMinBlocks = Q * D <= 2 ? 2 : 1;   // 128 registers a thread
-    const float* st;
-
-    __device__ __forceinline__ explicit MosmChain(const float* stage) : st(stage) {}
-    __device__ __forceinline__ void add4(const float (&gv)[4], const float (&xi)[D],
-                                         const float (&xj)[4][D], float (&acc)[kSlots]) const {
-        add_pair_cotangents4<Q, D>(gv, xi, xj, st, acc);
-    }
-};
-
 __global__ void __launch_bounds__(kThreads)
 lowrank_vjp_generic_kernel(const int* __restrict__ idx, const float* __restrict__ x,
                            const float* __restrict__ A, const float* __restrict__ Bm,

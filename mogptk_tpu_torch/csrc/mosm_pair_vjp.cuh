@@ -370,8 +370,8 @@ __global__ void pair_reduce_kernel(const float* __restrict__ partial,
 // int32 [pair id, first partial row, row count]. A block a pair: each
 // pair's thousands of rows at N = 16,384 in a few loads a thread, where the
 // 32-thread pair_reduce_kernel runs each column's rows through one thread.
-// K-gram-bwd's and the family kernels' (K-fam-gram-bwd, K-fam-lowrank-vjp);
-// K-lowrank-vjp and K-gram-lowrank-vjp keep pair_reduce_kernel's sums.
+// K-gram-bwd's and the family kernels' (K-fam-gram-bwd, K-fam-lowrank-vjp),
+// K-gram-lowrank-vjp's too; K-lowrank-vjp keeps pair_reduce_kernel's sums.
 __global__ void __launch_bounds__(256)
 pair_reduce_wide_kernel(const float* __restrict__ partial, const int* __restrict__ pairs,
                         float* __restrict__ out, int nout) {

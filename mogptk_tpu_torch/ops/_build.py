@@ -76,10 +76,13 @@ SIGNATURES = {
     "mosm_matvec_fold_f32": [_c_ptr] * 5 + [_c_i64, _c_ptr, _c_i64] + [_c_int] * 6 + [_c_ptr],
     # part, out, N, R, stream
     "mosm_matvec_reduce_f32": [_c_ptr] * 2 + [_c_i64, _c_int, _c_ptr],
-    # x1, c1, x2, c2, stats, V, out, N, M, R, O, Q, D, generic, stream
-    "mosm_gram_matvec_f32": [_c_ptr] * 7 + [_c_i64, _c_i64] + [_c_int] * 5 + [_c_ptr],
-    # idx, x1, rmap, x2, cmap, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, generic, stream
-    "mosm_gram_lowrank_vjp_f32": [_c_ptr] * 11 + [_c_int] * 7 + [_c_ptr],
+    # x1, c1, x2, c2, stats, V, part, N, M, R, O, Q, D, nb, tps, generic, stream
+    "mosm_gram_matvec_f32": [_c_ptr] * 7 + [_c_i64, _c_i64] + [_c_int] * 7 + [_c_ptr],
+    # part, out, N, R, splits, stream
+    "mosm_gram_matvec_reduce_f32": [_c_ptr] * 2 + [_c_i64, _c_int, _c_int, _c_ptr],
+    # idx, x1, rmap, x2, cmap, A, B, stats, partial, pairs, out, S, P, Q, D, R, RC, KH, generic,
+    # stream
+    "mosm_gram_lowrank_vjp_f32": [_c_ptr] * 11 + [_c_int] * 8 + [_c_ptr],
     # x1, c1, x2, c2, stats, out, N, M, O, S, D, A, fam, stream
     "family_gram_f32": [_c_ptr] * 6 + [_c_i64, _c_i64] + [_c_int] * 5 + [_c_ptr],
     # x, c, stats, out, N, O, S, D, A, fam, stream

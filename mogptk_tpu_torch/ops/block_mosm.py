@@ -28,14 +28,14 @@ import torch.nn.functional as F
 
 from . import _build
 from .mosm_gram import (mosm_gram, mosm_gram_pairstats_plain, mosm_gram_bwd_plain, stats_table,
-                        check_gram_inputs, generic_flag, channel_counts, channel_map,
+                        check_gram_inputs, generic_flag, channel_counts, channel_map, same_tensor,
                         _gram_layout, _device_gram_layout)
 
 # tile edge of the band-lower Gram's tile list (its band and every channel
 # count are multiples of it), and of the low-rank VJP's tile list
 TILE = 512
 BWD_TILE = 256
-LOWRANK_MAX_CHUNK = 64   # columns of A and B that K-lowrank-vjp stages at a time
+LOWRANK_MAX_CHUNK = 64   # columns of A and B the low-rank VJPs stage at a time
 PLAIN_ROWS = 2048        # rows of the cotangent K-gram-lowrank-vjp's twin forms at a time
 
 _two_pi = 2.0 * np.pi
@@ -262,8 +262,9 @@ def lowrank_kpad(chunk):
 
 
 def lowrank_plan(R):
-    """(RC, KH): the chunk and its k padding that K-lowrank-vjp and
-    K-fam-lowrank-vjp (csrc/lowrank_vjp.cuh) take for rank R."""
+    """(RC, KH): the chunk and its k padding that K-lowrank-vjp,
+    K-fam-lowrank-vjp and K-gram-lowrank-vjp (csrc/lowrank_vjp.cuh) take for
+    rank R."""
     chunk = lowrank_chunk(R)
     return chunk, lowrank_kpad(chunk)
 
@@ -332,8 +333,9 @@ def mosm_gram_lowrank_vjp_pairstats(x1, c1, x2, c2, st3, st2, A, B, counts1=None
     per-channel counts of c1/c2 when known, else read from them on the host
     (one read of O numbers each). CPU or float64: the plain twin. float32
     CUDA, contiguous: one call of csrc/mosm_gram_lowrank_vjp.cu (the tile
-    kernel, R in chunks of lowrank_chunk(R) columns, and its per-pair
-    reduction), or raises."""
+    kernel, its g = A·Bᵀ on the tensor cores with R in chunks of
+    lowrank_plan(R), the rows gathered through the channel maps as they are
+    staged, and its per-pair reduction), or raises."""
     if _build.runs_plain(x1):
         return mosm_gram_lowrank_vjp_plain(x1, c1, x2, c2, st3, st2, A, B)
     O, _, Q, D, _ = st3.shape
@@ -351,7 +353,10 @@ def mosm_gram_lowrank_vjp_pairstats(x1, c1, x2, c2, st3, st2, A, B, counts1=None
     nout = 3 * Q * D + 2 * Q
     out = torch.zeros((O * O, nout), dtype=torch.float32, device=x1.device)
     if idx_np.shape[0] and R:
-        rmap, cmap = channel_map(c1, counts1, BWD_TILE), channel_map(c2, counts2, BWD_TILE)
+        rmap = channel_map(c1, counts1, BWD_TILE)
+        # one channel order for rows and columns: one map
+        cmap = (rmap if same_tensor(c1, c2) and counts1 == counts2
+                else channel_map(c2, counts2, BWD_TILE))
         idx, pairs = _device_gram_layout(counts1, counts2, BWD_TILE, x1.device)
         partial = torch.empty((4 * idx_np.shape[0], nout), dtype=torch.float32, device=x1.device)
         _build.require_cuda_inputs("mosm_gram_lowrank_vjp", floats=(partial,),
@@ -359,7 +364,7 @@ def mosm_gram_lowrank_vjp_pairstats(x1, c1, x2, c2, st3, st2, A, B, counts1=None
         err = _build.library().mosm_gram_lowrank_vjp_f32(
             idx.data_ptr(), x1.data_ptr(), rmap.data_ptr(), x2.data_ptr(), cmap.data_ptr(),
             A.data_ptr(), B.data_ptr(), stats.data_ptr(), partial.data_ptr(), pairs.data_ptr(),
-            out.data_ptr(), idx_np.shape[0], pairs_np.shape[0], Q, D, R, lowrank_chunk(R),
+            out.data_ptr(), idx_np.shape[0], pairs_np.shape[0], Q, D, R, *lowrank_plan(R),
             generic_flag("backward", st3), _build.stream_ptr(x1))
         _build.check(err, "mosm_gram_lowrank_vjp_f32")
         mosm_gram_lowrank_vjp_pairstats.launches += 1

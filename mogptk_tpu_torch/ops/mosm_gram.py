@@ -30,9 +30,10 @@ from . import _build
 
 _two_pi = 2.0 * np.pi
 SMEM_TABLE_BYTES = 48 * 1024   # the unrolled forward kernels' pair table in shared memory
-FWD_MAX_D = 8                  # the unrolled forward instances (csrc/mosm_element.cuh kMaxD,
+FWD_MAX_D = 8                  # the unrolled forward instances (csrc/mosm_matvec.cu kMaxD,
                                # csrc/mosm_gram.cu kGMaxD)
-BWD_MAX_Q, BWD_MAX_D = 4, 2    # the unrolled (Q, D) instances of the backward kernels
+BWD_MAX_Q, BWD_MAX_D = 4, 2    # the unrolled (Q, D) instances of the backward kernels and of
+                               # K-gram-matvec
 BWD_TILE = 256                 # K-gram-bwd's tile edge: channels are padded to it
 
 
@@ -43,17 +44,22 @@ def kernel_instance(kind, O, Q, D):
     kind "forward" (K-gram, K-gram-lower, K-matvec): unrolled for D <= 8
     with the O²·(3QD + 2Q) float32 pair table within 48 KB of shared memory;
     else generic (the input-dim loop to the runtime D, the pair table read
-    from global memory). kind "backward" (K-gram-bwd, K-lowrank-vjp):
-    unrolled over Q and D for Q <= 4 and D <= 2; else generic (runtime loops
-    over Q and D). Both instances take any shape their kind allows; the C
-    entries refuse an unrolled call of a shape they have no instance of."""
+    from global memory). kind "backward" (K-gram-bwd, K-lowrank-vjp,
+    K-gram-lowrank-vjp): unrolled over Q and D for Q <= 4 and D <= 2; else
+    generic (runtime loops over Q and D). kind "gram_matvec"
+    (K-gram-matvec): unrolled over Q and D for Q <= 4 and D <= 2 with the
+    pair table within 48 KB; else generic. Both instances take any shape
+    their kind allows; the C entries refuse an unrolled call of a shape they
+    have no instance of."""
+    table = 4 * O * O * (3 * Q * D + 2 * Q)
     if kind == "forward":
-        table = 4 * O * O * (3 * Q * D + 2 * Q)
         fast = D <= FWD_MAX_D and table <= SMEM_TABLE_BYTES
     elif kind == "backward":
         fast = Q <= BWD_MAX_Q and D <= BWD_MAX_D
+    elif kind == "gram_matvec":
+        fast = Q <= BWD_MAX_Q and D <= BWD_MAX_D and table <= SMEM_TABLE_BYTES
     else:
-        raise ValueError("kind must be 'forward' or 'backward'")
+        raise ValueError("kind must be 'forward', 'backward' or 'gram_matvec'")
     return "unrolled" if fast else "generic"
 
 

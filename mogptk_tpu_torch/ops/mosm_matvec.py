@@ -10,17 +10,27 @@ the same product for any channel IDs, and mogptk_tpu/ops/pallas_mosm.py
 and x1 ≠ x2 (K-gram-matvec; its raw-parameter entry point is this port's
 ops/pallas_mosm.py). All are one function of the channel-pair statistics
 (ops/block_mosm.mosm_pair_stats), as K-gram is; csrc/mosm_matvec.cu
-computes it for any channel order: K-gram-matvec in one FFMA launch, and
+computes it for any channel order.
+
+K-gram-matvec: K-gram's element on 128² tiles, the products on the tensor
+cores in 3xTF32, the column axis split over CTAs so that the grid fills the
+card at every N (`gram_matvec_plan`, from the card's SM count); each split
+writes its partial sums to a slab and a second pass
+(`mosm_gram_matvec_reduce`) adds the slabs in split order, or, with one
+split, the first pass writes the product itself.
+
 K-matvec, the square case (the iterative engine, gpr/iterative.py, passes
-channel-sorted rows), by the fold (csrc/matvec_fold.cuh, which
-K-fam-matvec shares, with `fold_matvec` and this module's plan and second
-pass): each 128 × 128 tile of the upper
-triangle of the tile grid evaluated once and used for both K·V and Kᵀ·V,
-the products on the tensor cores in 3xTF32, the transposed contributions
-summed through partial slabs by a fixed-order second pass
-(`mosm_matvec_reduce`, K-matvec-reduce). The folded operator is exactly
-symmetric, as the JAX D1's is. On a CPU tensor the wrappers run the plain
-twins; on a CUDA tensor they launch the kernels (float32) or raise.
+channel-sorted rows), is the fold (csrc/matvec_fold.cuh, which K-fam-matvec
+shares, with `fold_matvec` and this module's plan and second pass): each
+128 × 128 tile of the upper triangle of the tile grid evaluated once and
+used for both K·V and Kᵀ·V, the products on the tensor cores in 3xTF32, the
+transposed contributions summed through partial slabs by a fixed-order
+second pass (`mosm_matvec_reduce`, K-matvec-reduce). The folded operator is
+exactly symmetric, as the JAX D1's is.
+
+On a CPU tensor the wrappers run the plain twins; on a CUDA tensor they
+launch the kernels (float32) or raise. No atomics: repeats are
+bit-identical.
 """
 import functools
 
@@ -32,56 +42,18 @@ from .mosm_gram import mosm_gram_pairstats_plain, stats_table, check_gram_inputs
 
 PLAIN_ROWS = 2048    # rows of the Gram the plain twins form at a time
 MAX_R = 2048         # columns of V one K-gram-matvec launch takes
+GRAM_MATVEC_TILE = 128      # K-gram-matvec's row and column tile edge
+GRAM_MATVEC_WAVES = 4       # the split aims for this many times the CTAs the card holds at once
+GRAM_MATVEC_SLAB_BYTES = 1 << 30   # the partial slabs one K-gram-matvec launch may fill
 FOLD_TILE = 128      # K-matvec's tile edge
 FOLD_SUPER = 4       # tiles per super-block of a work item
 FOLD_MAX_NB = 5      # n-blocks of 8 columns of V a K-matvec CTA takes
 FOLD_SLAB_BYTES = 4 << 30   # the partial slabs one K-matvec launch may fill
 
 
-def mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V):
-    """Plain twin of K-gram-matvec: K(x1, x2)·V from Gram row blocks of at
-    most 2,048 rows (mosm_gram_pairstats_plain), one matmul each."""
-    N = x1.shape[0]
-    out = V.new_empty((N, V.shape[1]))
-    for r0 in range(0, N, PLAIN_ROWS):
-        r1 = min(N, r0 + PLAIN_ROWS)
-        out[r0:r1] = mosm_gram_pairstats_plain(x1[r0:r1], c1[r0:r1], x2, c2, st3, st2) @ V
-    return out
-
-
 def mosm_matvec_plain(x, c, st3, st2, V):
     """Plain twin of K-matvec: mosm_gram_matvec_plain with x2 = x1."""
     return mosm_gram_matvec_plain(x, c, x, c, st3, st2, V)
-
-
-def _launch_matvec(name, x1, c1, x2, c2, st3, st2, V):
-    """K(x1, x2)·V by csrc/mosm_matvec.cu mosm_gram_matvec_f32, one launch
-    per 2,048 columns of V (float32, contiguous, CUDA), or raises. Returns
-    (out, launches)."""
-    O, _, Q, D, _ = st3.shape
-    N, M = x1.shape[0], x2.shape[0]
-    stats = stats_table(st3, st2)
-    check_gram_inputs(name, x1, c1, x2, c2, stats, D)
-    _build.require_cuda_inputs(name, floats=(V,))
-    if V.dim() != 2 or V.shape[0] != M or V.shape[1] < 1:
-        raise ValueError("%s: V must be (M, R) with M = %d rows and R >= 1" % (name, M))
-    R = V.shape[1]
-    out = torch.empty((N, R), dtype=torch.float32, device=x1.device)
-    launches = 0
-    for r0 in range(0, R, MAX_R):
-        r1 = min(R, r0 + MAX_R)
-        Vg = V if (r0, r1) == (0, R) else V[:, r0:r1].contiguous()
-        og = out if (r0, r1) == (0, R) else torch.empty((N, r1 - r0), dtype=torch.float32,
-                                                       device=x1.device)
-        err = _build.library().mosm_gram_matvec_f32(
-            x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), stats.data_ptr(),
-            Vg.data_ptr(), og.data_ptr(), N, M, r1 - r0, O, Q, D, generic_flag("forward", st3),
-            _build.stream_ptr(x1))
-        _build.check(err, "mosm_gram_matvec_f32")
-        launches += 1
-        if og is not out:
-            out[:, r0:r1] = og
-    return out, launches
 
 
 def fold_tiles(N):
@@ -286,17 +258,157 @@ mosm_matvec.launches = 0
 mosm_matvec_reduce.launches = 0
 
 
+# -- K-gram-matvec (TPU kernel E3a) -----------------------------------------------
+
+def gram_matvec_plan(N, M, R, sms):
+    """K-gram-matvec's launch plan for K(x1, x2)·V with N ≥ 1 rows, M ≥ 1
+    columns and 1 ≤ R ≤ MAX_R columns of V on a card of `sms` SMs: (nb,
+    splits, tps).
+
+    nb: n-blocks of 8 columns of V a CTA takes, 1 (R ≤ 8), 5 (R ≤ 40) or 16
+    (chunks of 128: the element is evaluated once per chunk, R/128 times in
+    all). A CTA takes a row tile of 128 rows, one chunk and a split: tps
+    consecutive column tiles of 128 points; there are splits =
+    ceil(ceil(M/128) / tps) of them. Enough splits that the grid holds
+    GRAM_MATVEC_WAVES times the CTAs the card runs at once (two an SM at
+    nb ≤ 5, one at 16), no more than there are column tiles, and at most as
+    many (splits, N, R) float32 slabs as GRAM_MATVEC_SLAB_BYTES holds."""
+    T = GRAM_MATVEC_TILE
+    nb = 1 if R <= 8 else 5 if R <= 40 else 16
+    per_sm = 2 if nb <= 5 else 1
+    nrt, nct = -(-N // T), -(-M // T)
+    chunks = -(-R // (8 * nb))
+    want = -(-GRAM_MATVEC_WAVES * sms * per_sm // (nrt * chunks))
+    cap = max(1, GRAM_MATVEC_SLAB_BYTES // (4 * N * R))
+    tps = -(-nct // min(want, nct, cap))
+    return nb, -(-nct // tps), tps
+
+
+def gram_matvec_split_tiles(M, tps, s):
+    """The column tiles of 128 points that split s of K-gram-matvec takes."""
+    nct = -(-M // GRAM_MATVEC_TILE)
+    return range(s * tps, min(nct, (s + 1) * tps))
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device):
+    """The SM count of a CUDA device, read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V):
+    """Plain twin of K-gram-matvec: K(x1, x2)·V from Gram row blocks of at
+    most 2,048 rows (mosm_gram_pairstats_plain), one matmul each."""
+    N = x1.shape[0]
+    out = V.new_empty((N, V.shape[1]))
+    for r0 in range(0, N, PLAIN_ROWS):
+        r1 = min(N, r0 + PLAIN_ROWS)
+        out[r0:r1] = mosm_gram_pairstats_plain(x1[r0:r1], c1[r0:r1], x2, c2, st3, st2) @ V
+    return out
+
+
+def mosm_gram_matvec_partials_plain(x1, c1, x2, c2, st3, st2, V, tps):
+    """Plain twin of K-gram-matvec's first pass: the (splits, N, R) slabs,
+    slab s = K(x1, x2[s's columns])·V[s's rows] over the column tiles
+    gram_matvec_split_tiles(M, tps, s)."""
+    M, T = x2.shape[0], GRAM_MATVEC_TILE
+    splits = -(-(-(-M // T)) // tps)
+    slabs = []
+    for s in range(splits):
+        tiles = gram_matvec_split_tiles(M, tps, s)
+        cols = slice(tiles.start * T, min(M, tiles.stop * T))
+        slabs.append(mosm_gram_matvec_plain(x1, c1, x2[cols], c2[cols], st3, st2, V[cols]))
+    return torch.stack(slabs)
+
+
+def mosm_gram_matvec_reduce_plain(part):
+    """Plain twin of K-gram-matvec's second pass: the sum of the slabs of
+    part (splits, N, R) in split order, slab 0 first."""
+    out = part[0].clone()
+    for s in range(1, part.shape[0]):
+        out += part[s]
+    return out
+
+
+def mosm_gram_matvec_partials(x1, c1, x2, c2, st3, st2, V, stats=None):
+    """K-gram-matvec's first pass on the card: one launch of
+    csrc/mosm_matvec.cu mosm_gram_matvec_f32 (counted on
+    mosm_gram_matvec_pairstats) into the (splits, N, R) slabs of
+    gram_matvec_plan, N ≥ 1, M ≥ 1, 1 ≤ R ≤ MAX_R; stats: stats_table(st3,
+    st2) where the caller has it. Returns (part, plan); with one split
+    part[0] is K(x1, x2)·V. Raises on what the kernel does not take."""
+    O, _, Q, D, _ = st3.shape
+    N, M, R = x1.shape[0], x2.shape[0], V.shape[1]
+    if stats is None:
+        stats = stats_table(st3, st2)
+        check_gram_inputs("mosm_gram_matvec", x1, c1, x2, c2, stats, D)
+        _build.require_cuda_inputs("mosm_gram_matvec", floats=(V,))
+    if V.shape != (M, R) or not (N >= 1 and M >= 1 and 1 <= R <= MAX_R):
+        raise ValueError("mosm_gram_matvec: N, M >= 1 and V (M, R) with 1 <= R <= %d" % MAX_R)
+    plan = gram_matvec_plan(N, M, R, sm_count(x1.device))
+    nb, splits, tps = plan
+    part = torch.empty((splits, N, R), dtype=torch.float32, device=x1.device)
+    err = _build.library().mosm_gram_matvec_f32(
+        x1.data_ptr(), c1.data_ptr(), x2.data_ptr(), c2.data_ptr(), stats.data_ptr(),
+        V.data_ptr(), part.data_ptr(), N, M, R, O, Q, D, nb, tps,
+        generic_flag("gram_matvec", st3), _build.stream_ptr(x1))
+    _build.check(err, "mosm_gram_matvec_f32")
+    mosm_gram_matvec_pairstats.launches += 1
+    return part, plan
+
+
+def mosm_gram_matvec_reduce(part):
+    """K-gram-matvec's second pass, (N, R) from its (splits, N, R) slabs.
+    CPU or float64: the plain twin. float32 CUDA: csrc/mosm_matvec.cu
+    mosm_gram_matvec_reduce_f32 (the same sums in the same order), or
+    raises."""
+    if _build.runs_plain(part):
+        return mosm_gram_matvec_reduce_plain(part)
+    if part.dim() != 3 or min(part.shape) < 1:
+        raise ValueError("mosm_gram_matvec_reduce: part must be (splits, N, R)")
+    _build.require_cuda_inputs("mosm_gram_matvec_reduce", floats=(part,))
+    splits, N, R = part.shape
+    out = torch.empty((N, R), dtype=torch.float32, device=part.device)
+    err = _build.library().mosm_gram_matvec_reduce_f32(part.data_ptr(), out.data_ptr(), N, R,
+                                                       splits, _build.stream_ptr(part))
+    _build.check(err, "mosm_gram_matvec_reduce_f32")
+    mosm_gram_matvec_reduce.launches += 1
+    return out
+
+
 def mosm_gram_matvec_pairstats(x1, c1, x2, c2, st3, st2, V):
     """K(x1, x2)·V for the MOSM Gram of the pair statistics (st3, st2), with
     x1 (N, D), channel IDs c1 (N,) int32, x2 (M, D), c2 (M,) int32, in any
     channel order, and V (M, R). Not differentiable. CPU or float64: the
-    plain twin. float32 CUDA, contiguous: one launch of csrc/mosm_matvec.cu
-    per 2,048 columns of V, or raises."""
+    plain twin. float32 CUDA, contiguous: per MAX_R columns of V one
+    K-gram-matvec launch (mosm_gram_matvec_partials) and, where its plan
+    splits the columns of K, one launch of its second pass
+    (mosm_gram_matvec_reduce); or raises."""
     if _build.runs_plain(x1):
         return mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V)
-    out, launches = _launch_matvec("mosm_gram_matvec", x1, c1, x2, c2, st3, st2, V)
-    mosm_gram_matvec_pairstats.launches += launches
+    D = st3.shape[3]
+    N, M = x1.shape[0], x2.shape[0]
+    stats = stats_table(st3, st2)
+    check_gram_inputs("mosm_gram_matvec", x1, c1, x2, c2, stats, D)
+    _build.require_cuda_inputs("mosm_gram_matvec", floats=(V,))
+    if V.dim() != 2 or V.shape[0] != M or V.shape[1] < 1:
+        raise ValueError("mosm_gram_matvec: V must be (M, R) with M = %d rows and R >= 1" % M)
+    R = V.shape[1]
+    if N == 0 or M == 0:
+        return torch.zeros((N, R), dtype=torch.float32, device=x1.device)
+
+    def group(Vg):
+        part, (_, splits, _) = mosm_gram_matvec_partials(x1, c1, x2, c2, st3, st2, Vg, stats)
+        return part[0] if splits == 1 else mosm_gram_matvec_reduce(part)
+
+    if R <= MAX_R:
+        return group(V)
+    out = torch.empty((N, R), dtype=torch.float32, device=x1.device)
+    for r0 in range(0, R, MAX_R):
+        r1 = min(R, r0 + MAX_R)
+        out[:, r0:r1] = group(V[:, r0:r1].contiguous())
     return out
 
 
 mosm_gram_matvec_pairstats.launches = 0
+mosm_gram_matvec_reduce.launches = 0

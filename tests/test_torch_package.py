@@ -868,20 +868,24 @@ def test_cuda_kernels_take_every_shape_and_float64():
 def test_cuda_gram_matvec_and_lowrank_vjp_match_plain_twins():
     """K-gram-matvec and K-gram-lowrank-vjp on the card, float32, through
     ops/pallas_mosm.py's entry points: a small square shape (N = M = 256,
-    two channels, shuffled, phase inside) and a ragged one (N = 301 against
-    M = 77, three shuffled channels, phase outside 2π), matvec at R = 1 and
-    33, low-rank at R = 5 and 70 (two chunks). K-gram-matvec per entry
-    within (2e-4 + M·2⁻²⁴)·max|K|·‖V[:, r]‖₁ of its twin (K-gram's bound
-    carried through the sum, plus the float32 summation bound of M terms);
-    the five parameter cotangents no further from a float64 twin than twice
-    the float32 twin, plus 1e-5 relative. Repeats are bit-identical, and
-    each call is one launch."""
+    two channels, shuffled, phase inside), ragged ones (N = 301 and 300
+    against M = 77, three shuffled channels, both phase forms) and the
+    shapes whose column axis K-gram-matvec splits (N = 1,024 and 4,096
+    against M = 16,384, four shuffled channels), matvec at R = 1, 33 and
+    200 (two chunks of 128 columns), low-rank at R = 5 and 70 (two chunks).
+    K-gram-matvec per entry within (2e-4 + M·2⁻²⁴)·max|K|·‖V[:, r]‖₁ of its
+    twin (K-gram's bound carried through the sum, plus the float32
+    summation bound of M terms); the five parameter cotangents no further
+    from a float64 twin than twice the float32 twin, plus 1e-5 relative.
+    Repeats are bit-identical; each call is one launch, and one launch of
+    K-gram-matvec's second pass where its plan splits the columns."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
     from mogptk_tpu_torch.ops import pallas_mosm as tpm
     dev = torch.device("cuda")
     rng = np.random.RandomState(8)
-    for O, N, M, phase_inside in ((2, 256, 256, True), (3, 301, 77, False)):
+    for O, N, M, phase_inside in ((2, 256, 256, True), (3, 301, 77, False), (3, 300, 77, True),
+                                  (4, 1024, 16384, False), (4, 4096, 16384, True)):
         Q, D = 2, 1
         x1 = torch.as_tensor(rng.rand(N, D) * 20, dtype=torch.float32, device=dev)
         x2 = x1 if N == M else torch.as_tensor(rng.rand(M, D) * 20, dtype=torch.float32,
@@ -893,13 +897,19 @@ def test_cuda_gram_matvec_and_lowrank_vjp_match_plain_twins():
         p64 = [p.double() for p in params]
         with torch.no_grad():
             st3, st2 = tpm.pair_stats(*params, twopi, phase_inside)
-        kmax = float(tmg.mosm_gram_pairstats_plain(x1, c1, x2, c2, st3, st2).abs().max())
-        for R in (1, 33):
+        kmax = float(max(tmg.mosm_gram_pairstats_plain(x1[r0:r0 + 2048], c1[r0:r0 + 2048], x2,
+                                                       c2, st3, st2).abs().max()
+                         for r0 in range(0, N, 2048)))
+        for R in (1, 33, 200):
             V = torch.as_tensor(rng.randn(M, R), dtype=torch.float32, device=dev)
-            launches = tmv.mosm_gram_matvec_pairstats.launches
+            launches = (tmv.mosm_gram_matvec_pairstats.launches,
+                        tmv.mosm_gram_matvec_reduce.launches)
             got = tpm.mosm_gram_matvec(x1, c1, x2, c2, *params, twopi, phase_inside, V)
             again = tpm.mosm_gram_matvec(x1, c1, x2, c2, *params, twopi, phase_inside, V)
-            assert tmv.mosm_gram_matvec_pairstats.launches == launches + 2
+            _, splits, _ = tmv.gram_matvec_plan(N, M, R, tmv.sm_count(dev))
+            assert (tmv.mosm_gram_matvec_pairstats.launches,
+                    tmv.mosm_gram_matvec_reduce.launches) == (launches[0] + 2,
+                                                              launches[1] + 2 * (splits > 1))
             twin = tmv.mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V)
             torch.cuda.synchronize()
             assert torch.equal(got, again)
@@ -914,14 +924,15 @@ def test_cuda_gram_matvec_and_lowrank_vjp_match_plain_twins():
             assert tbm.mosm_gram_lowrank_vjp_pairstats.launches == launches + 2
             ref = tpm.mosm_gram_lowrank_vjp(x1.double(), c1, x2.double(), c2, *p64, twopi,
                                             phase_inside, A.double(), B.double())
-            # the float32 twin: the same function on CPU tensors
-            twin = tpm.mosm_gram_lowrank_vjp(*(t.cpu() for t in (x1, c1, x2, c2, *params)),
-                                             twopi, phase_inside, A.cpu(), B.cpu())
+            # the float32 twin: the kernel's plain twin on the same tensors
+            with torch.no_grad():
+                twin = tpm.stats_vjp(params, twopi, phase_inside, *tbm.mosm_gram_lowrank_vjp_plain(
+                    x1, c1, x2, c2, st3, st2, A, B))
             torch.cuda.synchronize()
             assert all(torch.equal(a, b) for a, b in zip(got, again))
             ref = [r.cpu() for r in ref]
-            assert _rel_err([g.cpu() for g in got], ref) <= 2 * _rel_err(twin, ref) + 1e-5, \
-                (N, M, R)
+            assert _rel_err([g.cpu() for g in got], ref) <= \
+                2 * _rel_err([t.cpu() for t in twin], ref) + 1e-5, (N, M, R)
 
 
 def _family_kernels(rng, D, A, dev):

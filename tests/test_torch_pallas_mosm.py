@@ -162,6 +162,48 @@ def test_gram_matvec_matches_pallas(tmp_path_factory, request, Q, D, phase_insid
     assert tmv.mosm_gram_matvec_pairstats.launches == launches
 
 
+@pytest.mark.parametrize("R", [1, 33, 1024])
+@pytest.mark.parametrize("N,M", [(4096, 16384), (16384, 16384), (1024, 16384), (300, 77)])
+def test_gram_matvec_split_plan_covers_each_tile_once(N, M, R):
+    """K-gram-matvec's split of the column tiles (gram_matvec_plan for 132
+    SMs): every (row tile, column tile) pair is one CTA's, exactly once, for
+    every chunk of V's columns; no split is empty; the slabs stay within
+    GRAM_MATVEC_SLAB_BYTES; at K(Xq, X) (4,096 × 16,384, R ≤ 40) the grid
+    holds at least two waves of the CTAs the card runs at once."""
+    sms, T = 132, tmv.GRAM_MATVEC_TILE
+    plan = tmv.gram_matvec_plan(N, M, R, sms)
+    nb, splits, tps = plan
+    nrt, nct = -(-N // T), -(-M // T)
+    seen = np.zeros((nrt, nct), dtype=int)
+    for s in range(splits):
+        tiles = tmv.gram_matvec_split_tiles(M, tps, s)
+        assert len(tiles) >= 1
+        for it in range(nrt):
+            seen[it, list(tiles)] += 1
+    assert (seen == 1).all()
+    assert nb in (1, 5, 16) and 8 * nb >= min(R, 128)
+    assert splits == 1 or 4 * splits * N * R <= tmv.GRAM_MATVEC_SLAB_BYTES
+    if (N, M) == (4096, 16384) and R <= 40:   # two CTAs an SM at nb <= 5
+        assert nrt * splits * -(-R // (8 * nb)) >= 2 * 2 * sms
+
+
+@pytest.mark.parametrize("tps", [1, 2, 3])
+def test_gram_matvec_second_pass_twin_sums_the_splits(tps):
+    """K-gram-matvec's two passes in plain torch: the slabs of each split of
+    the column tiles (tps tiles a split, M = 300: three, two and one
+    splits), summed in split order by the second pass's twin, are the plain
+    twin's K(x1, x2)·V."""
+    rng = np.random.RandomState(tps)
+    st3, st2 = _stats(2, 2, False)
+    x1, c1 = _points(rng, N, 2)
+    x2, c2 = _points(rng, 300, 2)
+    V = _t(rng.randn(300, 7))
+    part = tmv.mosm_gram_matvec_partials_plain(x1, c1, x2, c2, st3, st2, V, tps)
+    assert part.shape == (-(-3 // tps), N, 7)
+    _close(tmv.mosm_gram_matvec_reduce(part),
+           tmv.mosm_gram_matvec_plain(x1, c1, x2, c2, st3, st2, V))
+
+
 # -- K-gram-lowrank-vjp (E3b) ----------------------------------------------------
 
 @pytest.mark.parametrize("R", VJP_RS)
@@ -177,6 +219,24 @@ def test_gram_lowrank_vjp_matches_pallas(tmp_path_factory, request, Q, D, phase_
         assert g.dtype == torch.float64
         _close(g, r)
     assert tbm.mosm_gram_lowrank_vjp_pairstats.launches == launches
+
+
+def test_gram_lowrank_vjp_staging_gathers_the_padded_layout():
+    """K-gram-lowrank-vjp gathers its rows through the channel map as it
+    stages them: position p of the laid-out rows holds point rmap[p], a
+    zero row where rmap[p] = −1. That is K-lowrank-vjp's channel-padded
+    layout (_pad_channels) of the channel-sorted points and cotangent rows
+    (300 shuffled points over three channels, none a multiple of 256)."""
+    n = 300
+    rng = np.random.RandomState(n)
+    x, c = _points(rng, n, 2)
+    A = _t(rng.randn(n, 5))
+    counts = tmg.channel_counts(c, O)
+    rmap = tmg.channel_map(c, counts, tbm.BWD_TILE)
+    order = torch.argsort(c, stable=True)
+    for a in (x, A):
+        staged = torch.where(rmap[:, None] >= 0, a[rmap.long().clamp(min=0)], 0.0)
+        assert torch.equal(staged, tbm._pad_channels(a[order], counts, tbm.BWD_TILE))
 
 
 # -- mosm_gram at the JAX signature (C1, C1b) ------------------------------------
