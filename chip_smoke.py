@@ -667,6 +667,17 @@ def main():
     check_factor_repairs(gpr, bm, bc, X, Y, dev, smi)
     print("phase 22 (factor repairs) wall time: %.1f s" % (time.perf_counter() - t_rep))
 
+    # -- phase 23: the SM model, the single-output kernels and the means ---------
+    t_sm = time.perf_counter()
+    phase("phase 23: mogptk.SM(Q=%d) at N=%d, the single-output kernels, the means" % (SM_Q, n))
+    sm_launches, sm = drive_sm(gpr, bc, fs, mg, xs, ys, reqs, dev, smi)
+    print("phase 23 (SM model) wall time: %.1f s (step %.2f ms, predict %.2f ms, peak %.2f GB; %s)"
+          % (time.perf_counter() - t_sm, sm["step_ms"], sm["predict_ms"], sm["peak_gb"],
+             smi.stdout.strip().splitlines()[0]))
+    for name in ("s_panel", "s_panel_reduce", "col_write"):
+        if sm_launches[name] < 1:
+            fail("%s was not launched on the SM model's path" % name)
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu",
                "fused": "mogptk_tpu_torch/csrc/fused_trsm.cu"}
@@ -3558,9 +3569,11 @@ def unfused_by_column(bc, K, F, invs, B):
             if reduce_at is None or splits * m > reduce_at[1]:
                 ms = median_ms(lambda: bc.s_panel_reduce(buf, part, S1, j, B), reps=5)
                 pms = median_ms(lambda: bc.s_panel_reduce_plain(buf, part, S2, j, B), reps=5)
+                # the one PyTorch call that sums the chunks' partial products
+                lms = median_ms(lambda: part.sum(0), reps=5)
                 bnd = bound(4 * (splits + 2) * m * B, splits * m * B)
                 reduce_at = (j, splits * m, dict(max_abs_err=r_err, ms=ms, plain_ms=pms,
-                                                 library_ms=None, bound=bnd))
+                                                 library_ms=lms, bound=bnd))
             del A, C, part, S1, S2
         Sb = got[B:]
         k_ms, a_ms = in_turns(lambda: bc.s_panel(buf, S, j, B),
@@ -3592,8 +3605,9 @@ def unfused_by_column(bc, K, F, invs, B):
     if reduce_at is not None:
         e = reduce_at[2]
         print("K-spanel's second pass (s_panel_reduce) at j=%d: max_abs_err %.3e (bit-identical), "
-              "kernel %.3f ms, plain %.3f ms, bound %.3f ms (%s)"
-              % ((reduce_at[0], e["max_abs_err"], e["ms"], e["plain_ms"]) + e["bound"]))
+              "kernel %.3f ms, plain %.3f ms, part.sum(0) %.3f ms, bound %.3f ms (%s)"
+              % ((reduce_at[0], e["max_abs_err"], e["ms"], e["plain_ms"], e["library_ms"])
+                 + e["bound"]))
     if bad:
         fail("the unfused factor by column: " + "; ".join(bad))
     if reduce_at is None:
@@ -3941,6 +3955,348 @@ def drive_pallas_mosm(gpr, X, reqs, dev, smi):
     print("float64 on the card (Kuf %dx4096, phase outside): K-gram-matvec's and "
           "K-gram-lowrank-vjp's twins agree with the CPU at rtol 1e-9, no launch" % xu.shape[0])
     return report, launches
+
+
+# -- phase 23: the SM model, the single-output kernels and the means ------------
+
+SM_Q = 3                 # the quick start's mogptk.SM(data, Q=3)
+SM_PREDICT = 1024        # predict_y points per channel
+SM_RAGGED = (700, 1, 611, 736)   # K_sorted against the masked K_mo, N = 2,048
+
+
+def so_kernels(gpr):
+    """tests/test_kernels.py:15-40's single-output kernels and compositors,
+    and ARD over two input dimensions: (label, kernel, input dims)."""
+    import torch
+    return [
+        ("White", gpr.WhiteKernel(), 1), ("Constant", gpr.ConstantKernel(), 1),
+        ("Linear", gpr.LinearKernel(), 1), ("Polynomial", gpr.PolynomialKernel(2), 1),
+        ("Function", gpr.FunctionKernel(lambda x: torch.cat([x, x ** 2], dim=1)), 1),
+        ("Exponential", gpr.ExponentialKernel(), 1),
+        ("SE", gpr.SquaredExponentialKernel(), 1),
+        ("SE order=-1", gpr.SquaredExponentialKernel(order=-1), 1),
+        ("SE order=2", gpr.SquaredExponentialKernel(order=2), 1),
+        ("RQ", gpr.RationalQuadraticKernel(alpha=2.0), 1), ("Periodic", gpr.PeriodicKernel(), 1),
+        ("LocallyPeriodic", gpr.LocallyPeriodicKernel(), 1), ("Cosine", gpr.CosineKernel(), 1),
+        ("Sinc", gpr.SincKernel(), 1), ("Spectral", gpr.SpectralKernel(), 1),
+        ("SpectralMixture", gpr.SpectralMixtureKernel(Q=3), 1),
+        ("Matern 0.5", gpr.MaternKernel(nu=0.5), 1), ("Matern 1.5", gpr.MaternKernel(nu=1.5), 1),
+        ("Matern 2.5", gpr.MaternKernel(nu=2.5), 1),
+        ("SE + Cosine", gpr.SquaredExponentialKernel() + gpr.CosineKernel(), 1),
+        ("SE * Cosine", gpr.SquaredExponentialKernel() * gpr.CosineKernel(), 1),
+        ("Mixture", gpr.MixtureKernel(gpr.SpectralKernel(), 3), 1),
+        ("ChangePoints", gpr.ChangePointsKernel([2.0], 1.0, gpr.SquaredExponentialKernel(),
+                                                gpr.CosineKernel()), 1),
+        ("ARD", gpr.AutomaticRelevanceDeterminationKernel(gpr.SquaredExponentialKernel(), 2), 2),
+    ]
+
+
+def gemm_scale(k, x):
+    """s = max_i ‖x_i‖²·λmax(M) over the kernels in k that form τᵀMτ by the
+    GEMM squared-distance identity (SE, RQ): the scale of ‖z1‖² + ‖z2‖²,
+    whose cancellation leaves an error of a few u·s in τᵀMτ; 0 without
+    one."""
+    import torch
+    from mogptk_tpu_torch.gpr.singleoutput import _lengthscale_matrix
+    s = 0.0
+    for sub in k.modules():
+        if type(sub).__name__ in ("SquaredExponentialKernel", "RationalQuadraticKernel"):
+            xs = x if sub.active_dims is None else x[:, sub.active_dims]
+            M = _lengthscale_matrix(sub).detach().double().cpu()
+            s = max(s, float((xs.double() ** 2).sum(1).max()) * float(torch.linalg.eigvalsh(M).max()))
+    return s
+
+
+def check_single_output_kernels(gpr, dev, smi):
+    """Each kernel of so_kernels at N = 1,000 (x in [0, 5]), its parameters
+    drawn in (0.5, 1.5): K(X) on the card in float64 and in float32 against
+    the same kernel on the CPU in the same dtype, within 64u·(1 + s)·max|K|:
+    a few ulps of the card's and the CPU's exp, sin and pow and one rounding
+    of each short sum, and for the SE and RQ kernels the cancellation of the
+    GEMM squared-distance identity (gemm_scale's s; the card's and the
+    CPU's Cholesky of M may differ in the last bit)."""
+    import copy
+    import torch
+    rng = np.random.RandomState(23)
+    cases = so_kernels(gpr)
+    X = np.sort(rng.rand(1000, 2) * 5.0, axis=0)
+    worst, bad = [], []
+    t = time.perf_counter()
+    for label, k, D in cases:
+        for _, p in k.gp_parameters():
+            if label == "ChangePoints" and p is k.locations:
+                continue
+            p.assign(0.5 + rng.rand(*p.shape))
+        errs = []
+        for dt, u in ((torch.float64, 2.0 ** -53), (torch.float32, TWO_POW_M24)):
+            x = torch.as_tensor(X[:, :D], dtype=dt)
+            ref = copy.deepcopy(k).to(dtype=dt)
+            with torch.no_grad():
+                Kc = ref.K(x)
+                Kd = copy.deepcopy(ref).to(device=dev).K(x.to(dev)).cpu()
+            scale = gemm_scale(ref, x)
+            tol = 64 * u * (1.0 + scale) * float(Kc.abs().max())
+            err = float((Kd - Kc).abs().max())
+            errs.append("%s %.3e (tol %.3e, s %.1f)" % ("f64" if dt == torch.float64 else "f32",
+                                                       err, tol, scale))
+            if not (bool(torch.isfinite(Kd).all()) and err <= tol):
+                bad.append("%s %s" % (label, dt))
+        worst.append("%s: %s" % (label, ", ".join(errs)))
+    torch.cuda.synchronize()
+    print("single-output kernels and compositors, K(X) at N=1,000 on the card against the CPU, "
+          "max|d| (tol 64u·(1 + s)·max|K|), %.2f s (%s):\n  %s"
+          % (time.perf_counter() - t, smi.stdout.strip().splitlines()[0], "\n  ".join(worst)))
+    if bad:
+        fail("single-output kernels off their CPU values: %s" % ", ".join(bad))
+
+
+def sm_kernel(gpr, counts, rng):
+    """An IndependentMultiOutputKernel of SpectralMixtureKernel(Q=3) per
+    channel, parameters drawn as the SM model's constructor draws them."""
+    k = gpr.IndependentMultiOutputKernel(
+        [gpr.SpectralMixtureKernel(Q=SM_Q) for _ in counts], output_dims=len(counts))
+    for j in range(len(counts)):
+        k[j].magnitude.assign(rng.rand(SM_Q))
+        k[j].mean.assign(rng.rand(SM_Q, 1) * 0.5)
+        k[j].variance.assign(rng.rand(SM_Q, 1) * 0.1)
+    return k
+
+
+def check_k_sorted(gpr, dev, smi):
+    """IndependentMultiOutputKernel.K_sorted against the masked K_mo on the
+    card at N = 2,048 with ragged channels SM_RAGGED: equal to rounding
+    (4u·max|K|; the same elements computed the same way) and exactly 0 off
+    the blocks."""
+    import torch
+    rng = np.random.RandomState(24)
+    k = sm_kernel(gpr, SM_RAGGED, rng).to(dev)
+    c = np.repeat(np.arange(len(SM_RAGGED)), SM_RAGGED)
+    x = np.concatenate([np.sort(rng.rand(n) * 100.0) for n in SM_RAGGED])
+    X = torch.as_tensor(np.stack([c, x], axis=1), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        Ks = k.K_sorted(X, SM_RAGGED)
+        Km = k.K(X)
+    cc = torch.as_tensor(c, device=dev)
+    off = cc[:, None] != cc[None, :]
+    err = float((Ks - Km).abs().max())
+    tol = 4 * TWO_POW_M24 * float(Km.abs().max())
+    zero = bool((Ks[off] == 0).all())
+    print("K_sorted against the masked K_mo, N=%d, channels %s: max|d| %.3e (tol %.3e), off the "
+          "blocks all 0: %s (%s)" % (X.shape[0], SM_RAGGED, err, tol, zero,
+                                     smi.stdout.strip().splitlines()[0]))
+    if not (zero and err <= tol):
+        fail("K_sorted differs from the masked K_mo")
+
+
+def sm_float64_first_step(gpr, model):
+    """The SM model's first step in float64 on the card: the same kernel,
+    data, noise and jitter, the raws carried across; the loss and gradient
+    by autograd through K_sorted and the closed-form LML in float64 (plain
+    torch: torch.linalg.cholesky), and the scale |½yᵀα| + |Σ log L_ii| of
+    the LML's two terms from a separate plain factor. Returns (LML, the
+    gradient of −LML per trainable raw, the scale)."""
+    import copy
+    import torch
+    saved = gpr.config._dtype
+    gpr.use_double_precision()
+    try:
+        k64 = copy.deepcopy(model.kernel).double()
+        m64 = gpr.Exact(k64, model.X.double(), model.y.double(), jitter=model.jitter,
+                        variance=np.ones(model.kernel.output_dims), device=model.device)
+        gpr.load_raw_state(m64, [r.cpu().numpy() for r in model.raw_state()])
+        loss = m64.loss()
+        grads = torch.autograd.grad(loss, m64.trainable_raws())
+        loss = float(loss.detach())
+        with torch.no_grad():
+            K = k64.K_sorted(m64.X, m64._channel_counts)
+            K.diagonal().add_(m64._noise_diag(add_jitter=True))
+            L = torch.linalg.cholesky(K)
+            del K
+            alpha = torch.cholesky_solve(m64.y, L)
+            logdet = torch.sum(torch.log(torch.diagonal(L)))
+            quad = 0.5 * torch.sum(m64.y * alpha)
+            lml = float(-logdet - quad) - m64.log_marginal_likelihood_constant
+            del L
+    finally:
+        gpr.config._dtype = saved
+    scale = float(logdet.abs() + quad.abs())
+    if abs(lml + loss) > 1e-9 * scale:
+        fail("the float64 SM loss %.9f and its plain factor's LML %.9f differ" % (loss, lml))
+    return -loss, list(grads), scale
+
+
+def drive_sm(gpr, bc, fs, mg, xs, ys, reqs, dev, smi):
+    """Phase 23: mogptk.SM(DataSet, Q=3) at bench.py's width (4 channels x
+    4,096 points, float32, the default Exact(): closed-form gradient) on the
+    card: init_parameters('LS'), the first step against float64, three
+    counted Adam steps (the blocked factor's K-spanel, K-spanel-reduce and
+    K-colwrite, and K-solve, launched each step), peak memory with K_sorted
+    and with the masked Gram, predict_y of 4 x 1,024 points, error('MAE');
+    then K_sorted against the masked K_mo at N = 2,048, every single-output
+    kernel and compositor on the card against the CPU, MOSM's
+    init_parameters('SM', iters=10) and gpr.Exact with a LinearMean.
+    Returns (the training steps' launch counts, the step's, predict's and
+    peak memory's numbers)."""
+    import torch
+    import mogptk_tpu_torch as mogptk
+    card = smi.stdout.strip().splitlines()[0]
+    ds = mogptk.DataSet([xc[:, 0] for xc in xs], [yc[:, 0] for yc in ys])
+    t = time.perf_counter()
+    model = mogptk.SM(ds, Q=SM_Q)
+    m = model.gpr
+    if m.trace_probes is not None or m.X.device.type != dev.type or m._channel_counts is None:
+        fail("SM did not build the default Exact() on the card over channel-sorted data")
+    with warnings_off():
+        model.init_parameters("LS")
+    torch.cuda.synchronize()
+    print("SM(Q=%d) at N=%d on the card, built and initialized by LS in %.2f s; magnitudes %s (%s)"
+          % (SM_Q, m.X.shape[0], time.perf_counter() - t,
+             np.round([m.kernel[j].magnitude.numpy() for j in range(CHANNELS)], 4).tolist(), card))
+
+    # the first step against float64 (phase 7's tolerance)
+    n = m.X.shape[0]
+    raws = m.trainable_raws()
+    torch.cuda.reset_peak_memory_stats()
+    loss = m.loss()
+    loss.backward()
+    torch.cuda.synchronize()
+    peak_sorted = torch.cuda.max_memory_allocated()
+    loss1 = float(loss.detach())
+    grads1 = [r.grad.clone() for r in raws]
+    for r in raws:
+        r.grad = None
+    del loss
+    lml64, grads64, scale = sm_float64_first_step(gpr, m)
+    torch.cuda.empty_cache()
+    d_lml = abs(-loss1 - lml64)
+    g_scale = max(float(g.abs().max()) for g in grads64)
+    d_grad = max(float((g.double() - r).abs().max()) for g, r in zip(grads1, grads64))
+    print("SM first step vs float64 on the card: LML %.6f vs %.6f, |d| %.3e (tol κu·%.1f = %.3e); "
+          "gradient max|d| %.3e (tol κu·max|g| = %.3e) (%s)"
+          % (-loss1, lml64, d_lml, scale, KAPPA_U * scale, d_grad, KAPPA_U * g_scale, card))
+    if not (d_lml <= KAPPA_U * scale and d_grad <= KAPPA_U * g_scale):
+        fail("the SM model's first step disagrees with float64")
+
+    # three counted Adam steps
+    n_split = sum(bc.spanel_plan(n, j * 512, 512)[0] > 1 for j in range(n // 512))
+    counters = {"s_panel": bc.s_panel, "s_panel_reduce": bc.s_panel_reduce,
+                "col_write": bc.col_write, "fused_cho_solve": fs.fused_cho_solve,
+                "mosm_gram": mg.mosm_gram}
+    want = {"s_panel": (32, 32), "s_panel_reduce": (n_split, n_split), "col_write": (32, 32),
+            "fused_cho_solve": (1, None), "mosm_gram": (0, 0)}
+    torch.cuda.reset_peak_memory_stats()
+    launches = train_and_count(gpr, m, counters, want, loss1, "SM closed-form", smi)
+    peak_train = torch.cuda.max_memory_allocated()
+
+    # the masked Gram: every channel's subkernel over the whole N x N
+    counts = m._channel_counts
+    m._channel_counts = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        loss = m.loss()
+        loss.backward()
+        torch.cuda.synchronize()
+        peak_masked = "%.2f GB" % (torch.cuda.max_memory_allocated() / 1e9)
+    except torch.cuda.OutOfMemoryError as e:
+        peak_masked = "out of memory (%s)" % str(e).splitlines()[0]
+    finally:
+        m._channel_counts = counts
+        loss = None
+        for r in raws:
+            r.grad = None
+        torch.cuda.empty_cache()
+    print("SM step's peak device memory at N=%d: with K_sorted %.2f GB (first step), %.2f GB (3 "
+          "Adam steps); with the masked K_mo: %s (%s)"
+          % (n, peak_sorted / 1e9, peak_train / 1e9, peak_masked, card))
+
+    # predict_y of 4 x 1,024 points through the user API, then error('MAE')
+    Xq = reqs["b"].cpu().numpy()
+    xq = [Xq[Xq[:, 0] == j, 1] for j in range(CHANNELS)]
+    for f in counters.values():
+        f.launches = 0
+    model.predict(xq)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, Mu, Lo, Up = model.predict(xq)
+        ms.append(1e3 * (time.perf_counter() - t))
+    pl = {k: f.launches for k, f in counters.items()}
+    for j in range(CHANNELS):
+        if Mu[j].shape != (SM_PREDICT,) or not np.all(np.isfinite(Mu[j])):
+            fail("SM.predict: channel %d is non-finite or misshapen" % j)
+        if not (np.all(Lo[j] < Mu[j]) and np.all(Mu[j] < Up[j])):
+            fail("SM.predict: channel %d's bands do not bracket the mean" % j)
+    # where predict's time goes: the masked cross Gram K(X, Xq) (every
+    # channel's subkernel over the whole N x M), the block-diagonal K_sorted
+    # and the blocked factor, each alone
+    Xk = torch.as_tensor(model._to_kernel_format(model.dataset._format_X(xq)),
+                         dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        parts = {"cross Gram K(X, Xq)": lambda: m.kernel.K(m.X, Xk),
+                 "K_sorted": lambda: m.kernel.K_sorted(m.X, m._channel_counts),
+                 "blocked factor": lambda: bc.blocked_cholesky(
+                     m.kernel.K_sorted(m.X, m._channel_counts), 512)}
+        split = {k: median_ms(f, reps=3, warmup=1) for k, f in parts.items()}
+    print("SM.predict's parts alone: %s (the factor's ms include its K_sorted) (%s)"
+          % (", ".join("%s %.2f ms" % kv for kv in split.items()), card))
+    t = time.perf_counter()
+    mae = model.error("MAE")
+    error_ms = 1e3 * (time.perf_counter() - t)
+    yall = np.concatenate(ys)
+    print("SM.predict of %d x %d points: %s ms (median %.2f; launches in 4 calls %s); "
+          "error('MAE') = %.6f in %.2f ms (%s)"
+          % (CHANNELS, SM_PREDICT, np.round(ms, 2).tolist(), float(np.median(ms)), pl, mae,
+             error_ms, card))
+    if not (np.isfinite(mae) and mae < np.mean(np.abs(yall - yall.mean()))):
+        fail("SM.error('MAE') = %r is not a fit" % mae)
+    if pl["s_panel"] < 4 or pl["col_write"] < 4:
+        fail("SM.predict did not factor through the blocked kernels")
+    report = dict(step_ms=STEP_MS["SM closed-form"], predict_ms=float(np.median(ms)),
+                  peak_gb=peak_train / 1e9)
+    del model, m
+    torch.cuda.empty_cache()
+
+    check_k_sorted(gpr, dev, smi)
+    check_single_output_kernels(gpr, dev, smi)
+
+    # MOSM's init_parameters('SM'): an SM model pre-fitted on each channel
+    t = time.perf_counter()
+    mosm = mogptk.MOSM(ds, Q=2)
+    with warnings_off():
+        mosm.init_parameters("SM", iters=10)
+    torch.cuda.synchronize()
+    vals = [p.numpy() for p in mosm.parameters()]
+    print("MOSM(Q=2).init_parameters('SM', iters=10) over %d channels of %d points: %.2f s; "
+          "weights %s (%s)" % (CHANNELS, N_PER_CHANNEL, time.perf_counter() - t,
+                               np.round(mosm.gpr.kernel.weight.numpy(), 4).tolist(), card))
+    if not all(np.all(np.isfinite(v)) for v in vals):
+        fail("MOSM.init_parameters('SM') gave non-finite parameters")
+    del mosm
+
+    # gpr.Exact with a LinearMean: one step
+    _, X, Y = gpr.merge_data(xs, ys, device=dev)
+    mean = gpr.MultiOutputMean([gpr.LinearMean() for _ in range(CHANNELS)])
+    ex = gpr.Exact(sm_kernel(gpr, [N_PER_CHANNEL] * CHANNELS, np.random.RandomState(25)), X, Y,
+                   variance=0.1, mean=mean, device=dev)
+    losses, _ = gpr.train(ex, method="Adam", lr=0.01, iters=1)
+    slope = [float(mm.slope.numpy()[0]) for mm in mean.means]
+    print("gpr.Exact with a MultiOutputMean of LinearMeans at N=%d: one Adam step, loss %.6f, "
+          "slopes %s (%s)" % (X.shape[0], losses[0], np.round(slope, 6).tolist(), card))
+    if not (np.isfinite(losses[0]) and all(s != 0.0 for s in slope)):
+        fail("gpr.Exact with a mean did not train")
+    del ex
+    torch.cuda.empty_cache()
+    return launches, report
+
+
+@contextlib.contextmanager
+def warnings_off():
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        yield
 
 
 def event_ms(fn):

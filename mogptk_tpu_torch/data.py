@@ -710,11 +710,21 @@ class Data:
         return A, B, C
 
     def get_sm_estimation(self, Q=1, method="LS", optimizer="Adam", iters=200, params=None):
-        """Spectral peak estimation by pre-fitting an SM model
-        (reference: mogptk/data.py:1053-1087). Not ported yet: the SM model
-        and its kernels are ROADMAP queue 1, item 9."""
-        raise NotImplementedError("the SM-model spectral estimate needs the SM model, which is "
-                                  "not ported yet (ROADMAP queue 1, item 9)")
+        """Spectral peak estimation by pre-fitting an SM model on
+        gpr.config.device, as BNSE fits its GP there
+        (reference: mogptk/data.py:1053-1087)."""
+        from .models.sm import SM
+
+        input_dims = self.get_input_dims()
+        params = params or {}
+        sm = SM(self, Q)
+        sm.init_parameters(method)
+        sm.train(method=optimizer, iters=iters, **params)
+
+        A = sm.gpr.kernel[0].magnitude.numpy().reshape(-1, 1).repeat(input_dims, axis=1)
+        B = sm.gpr.kernel[0].mean.numpy()
+        C = sm.gpr.kernel[0].variance.numpy()
+        return A, B, C
 
     # -- plotting -----------------------------------------------------------------
     # Data preparation lives here; rendering goes through mogptk_tpu_torch.plotting

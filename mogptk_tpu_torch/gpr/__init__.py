@@ -2,14 +2,22 @@
 model, the sparse and variational models, the iterative exact model and the
 trainer. JAX counterpart: mogptk_tpu/gpr/__init__.py (the exports of the
 exact and sparse training and prediction paths, the iterative engine, the
-multi-output kernels, the compositors and the Spectral kernel)."""
+kernels, the compositors and the mean functions)."""
 from .config import (Config, config, set_seed, use_single_precision, use_double_precision,
                      use_blocked_cholesky, blocked_cholesky_enabled, resolve_device,
                      use_jitter_ladder)
 from .parameter import Parameter, Transform, Softplus, Sigmoid
 from .module import Module
-from .kernel import Kernel, Kernels, AddKernel, MulKernel, MixtureKernel, MultiOutputKernel
-from .singleoutput import SpectralKernel
+from .mean import Mean, MultiOutputMean, ConstantMean, LinearMean
+from .kernel import (Kernel, Kernels, AddKernel, MulKernel, MixtureKernel,
+                     AutomaticRelevanceDeterminationKernel, ChangePointsKernel,
+                     MultiOutputKernel)
+from .singleoutput import (WhiteKernel, ConstantKernel, LinearKernel,
+                           PolynomialKernel, FunctionKernel, ExponentialKernel,
+                           SquaredExponentialKernel, RationalQuadraticKernel,
+                           PeriodicKernel, LocallyPeriodicKernel, CosineKernel,
+                           SincKernel, SpectralKernel, SpectralMixtureKernel,
+                           MaternKernel)
 from .multioutput import (IndependentMultiOutputKernel, MultiOutputSpectralKernel,
                           MultiOutputSpectralMixtureKernel, UncoupledMultiOutputSpectralKernel,
                           MultiOutputHarmonizableSpectralKernel, CrossSpectralKernel,

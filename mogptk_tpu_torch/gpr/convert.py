@@ -37,10 +37,11 @@ def load_raw_state(model, raws, names=None):
     into the port's raw nn.Parameters.
 
     Args:
-        model: the port's gpr model (Exact, ExactIterative: the kernel's and
-            the likelihood's raws; the sparse models also their inducing
-            points and variational parameters, induction_points, q_mu,
-            q_sqrt, q_nu, q_lambda) or module, or a top-level model
+        model: the port's gpr model (Exact, ExactIterative: the kernel's,
+            the likelihood's and the mean's raws; the sparse models also
+            their inducing points and variational parameters,
+            induction_points, q_mu, q_sqrt, q_nu, q_lambda) or module
+            (a kernel, a mean), or a top-level model
             (mogptk_tpu_torch.Model, e.g. MOSM), which loads into its .gpr:
             so a trained JAX mogptk_tpu.MOSM's raws carry into the port's.
         raws: list of arrays, e.g. [np.asarray(r) for r in jax_model.raw_state()].

@@ -405,7 +405,7 @@ class ExactIterative(Model):
         if full:
             Kfs = cross(cs, xs)
             V, _ = cg_solve(matvec, Kfs, max_iters=self.max_cg_iters, tol=self.cg_tol, M_inv=M_inv)
-            return Kfs.T @ alpha, self.kernel.K(X) - Kfs.T @ V
+            return self._add_mean(Kfs.T @ alpha, X), self.kernel.K(X) - Kfs.T @ V
         S = xs.shape[0]
         B = int(min(block_size, S))
         mus, qfs = [], []
@@ -415,6 +415,6 @@ class ExactIterative(Model):
                               M_inv=M_inv)
             mus.append(Kfs_b.T @ alpha[:, 0])
             qfs.append(torch.sum(Kfs_b * V_b, dim=0))
-        mu = torch.cat(mus).reshape(-1, 1)
+        mu = self._add_mean(torch.cat(mus).reshape(-1, 1), X)
         var = (self.kernel.K_diag(X) - torch.cat(qfs)).reshape(-1, 1)
         return mu, var

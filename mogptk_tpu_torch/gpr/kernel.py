@@ -1,8 +1,8 @@
 """Kernel base classes and the sum, product and mixture compositors.
 
 JAX counterpart: mogptk_tpu/gpr/kernel.py (Kernel, Kernels, AddKernel,
-MulKernel, MixtureKernel :156-245, MultiOutputKernel). ARD and ChangePoints
-are not ported yet (ROADMAP queue 1, item 9). Multi-output kernels take X
+MulKernel, MixtureKernel :156-245, AutomaticRelevanceDeterminationKernel
+:246-256, ChangePointsKernel :259-322, MultiOutputKernel). Multi-output kernels take X
 with the channel ID in column 0 and implement `K_mo(c1, x1, c2, x2)` on
 integer channel vectors. A compositor keeps its children in an
 nn.ModuleList, so their Parameters register in the JAX package's
@@ -15,6 +15,8 @@ import torch
 from torch import nn
 
 from .module import Module
+from .parameter import Parameter
+from .config import config
 
 
 class Kernel(Module):
@@ -117,6 +119,24 @@ class Kernel(Module):
     def K_diag(self, X1):
         return torch.diagonal(self.K(X1))
 
+    @staticmethod
+    def average(X1, X2=None):
+        if X2 is None:
+            X2 = X1
+        return 0.5 * (X1[:, None, :] + X2[None, :, :])
+
+    @staticmethod
+    def distance(X1, X2=None):
+        if X2 is None:
+            X2 = X1
+        return X1[:, None, :] - X2[None, :, :]
+
+    @staticmethod
+    def squared_distance(X1, X2=None):
+        if X2 is None:
+            X2 = X1
+        return (X1[:, None, :] - X2[None, :, :]) ** 2
+
     def __add__(self, other):
         return AddKernel(self, other)
 
@@ -200,6 +220,69 @@ class MixtureKernel(AddKernel):
             raise ValueError("must pass kernel")
         kernels = self._check_kernels(kernel, Q)
         super().__init__(*kernels)
+
+
+class AutomaticRelevanceDeterminationKernel(MulKernel):
+    """Product of clones of a one-dimensional kernel, clone i reading input
+    dimension i."""
+
+    def __init__(self, kernel, input_dims):
+        if not isinstance(kernel, Kernel):
+            raise ValueError("must pass kernel")
+        kernels = self._check_kernels(kernel, input_dims)
+        for i, k in enumerate(kernels):
+            k.active_dims = i
+        super().__init__(*kernels)
+
+
+class ChangePointsKernel(Kernels):
+    """Kernels switching at sorted `locations` of a one-dimensional input,
+    each regime weighted by sigmoids of the given steepness. Parameters
+    register as in the JAX package: the kernels', then `locations`, then
+    `steepness`."""
+
+    def __init__(self, locations, steepnesses=1.0, *kernels):
+        if not isinstance(locations, list):
+            locations = [locations]
+        if len(kernels) != len(locations) + 1:
+            raise ValueError(
+                "Must pass one more kernel than the number of locations points. "
+                "Got %d kernels and %d locations points." % (len(kernels), len(locations)))
+        if isinstance(steepnesses, list) and len(steepnesses) > 1:
+            if len(locations) != len(steepnesses):
+                raise ValueError(
+                    "Must pass as many locations as steepness point(s). "
+                    "Got %d locations and %d steepness points." % (len(locations), len(steepnesses)))
+        if list(locations) != sorted(locations):
+            raise ValueError("'locations' must be sorted ascendingly and 'steepnesses' should be "
+                             "ordered correspondingly.")
+        super().__init__(*kernels)
+        if self.input_dims != 1:
+            raise ValueError("Must pass kernels defined over a 1D input domain.")
+        self.locations = Parameter(locations)
+        self.steepness = Parameter(steepnesses, lower=config.positive_minimum)
+
+    def _weight_sigmoid(self, X):
+        return 1.0 / (1.0 + torch.exp(-self.steepness() * (X - self.locations())))
+
+    def K(self, X1, X2=None):
+        X1, X2 = self._active_input(X1, X2)
+        w1 = self._weight_sigmoid(X1)[:, None, :]
+        w2 = w1.transpose(0, 1) if X2 is None else self._weight_sigmoid(X2)[None, :, :]
+        ones = torch.ones(w1.shape[0], w2.shape[1], 1, dtype=X1.dtype, device=X1.device)
+        start_weights = torch.cat((ones, w1 * w2), dim=-1)
+        end_weights = torch.cat(((1.0 - w1) * (1.0 - w2), ones), dim=-1)
+        kernel_stack = torch.stack([kernel.K(X1, X2) for kernel in self.kernels], dim=-1)
+        return torch.sum(start_weights * kernel_stack * end_weights, dim=-1)
+
+    def K_diag(self, X1):
+        X1, _ = self._active_input(X1)
+        w = self._weight_sigmoid(X1)
+        ones = torch.ones(X1.shape[0], 1, dtype=X1.dtype, device=X1.device)
+        start_weights = torch.cat((ones, w ** 2), dim=-1)
+        end_weights = torch.cat(((1.0 - w) ** 2, ones), dim=-1)
+        kernel_stack = torch.stack([kernel.K_diag(X1) for kernel in self.kernels], dim=-1)
+        return torch.sum(start_weights * kernel_stack * end_weights, dim=-1)
 
 
 class MultiOutputKernel(Kernel):

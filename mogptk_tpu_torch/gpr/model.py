@@ -14,8 +14,10 @@ ops/linalg.lml_chol_fused), and the
 sparse models' ELBOs and LML, whose trained inducing points Z get their
 gradient from the Gram's input cotangents (ops/mosm_gram.MosmGram, the
 K-gram-bwd kernel on the card). The sparse and variational models take the
-Gaussian likelihood only (others: ROADMAP queue 1, item 9). Means, masks,
-meshes and sampling are later work. Prediction recomputes the Grams and
+Gaussian likelihood only (others: ROADMAP queue 1, item 9). A mean function
+(gpr/mean.py) is fitted as in the JAX package: the models see the residual
+y − m(X), and predict_f adds m(X) back. Masks, meshes and sampling are later
+work. Prediction recomputes the Grams and
 their factors on every call, as the JAX package does. Factorizations go
 through ops/linalg.jittered_cholesky, with the jitter ladder when
 gpr.use_jitter_ladder asks for it.
@@ -38,6 +40,7 @@ import torch
 from .module import Module
 from .kernel import Kernel
 from .likelihood import GaussianLikelihood
+from .mean import Mean
 from .config import config, resolve_device
 from ..ops.block_families import pack_of
 from ..ops.block_mosm import sorted_channel_counts
@@ -138,13 +141,14 @@ class Model(Module):
             config.dtype on `device`.
         likelihood: defaults to GaussianLikelihood(1.0).
         jitter: relative jitter; at least 1e-6 in float32, 1e-15 in float64.
+        mean: an optional gpr.Mean; the model fits y − mean(X).
         device: None = config.device. Parameters move there too.
     """
 
     def __init__(self, kernel, X, y, likelihood=None, jitter=1e-8, mean=None, device=None):
         super().__init__()
-        if mean is not None:
-            raise NotImplementedError("mean functions are not ported yet (ROADMAP queue 1, item 9)")
+        if mean is not None and not isinstance(mean, Mean):
+            raise ValueError("mean must derive from mogptk_tpu_torch.gpr.Mean")
         if likelihood is None:
             likelihood = GaussianLikelihood(1.0)
         if not isinstance(kernel, Kernel):
@@ -157,11 +161,18 @@ class Model(Module):
             jitter = max(jitter, 1e-15)
         self.kernel = kernel
         self.likelihood = likelihood
+        self.mean = mean
         self.X = X
         self.y = y
         self.jitter = jitter
         self.input_dims = X.shape[1]
         self.to(device=self.device, dtype=config.dtype)
+        if mean is not None:
+            with torch.no_grad():
+                mu = mean(X).reshape(-1, 1)
+            if mu.shape != y.shape:
+                raise ValueError("mean and y data must match shapes: %s != %s"
+                                 % (tuple(mu.shape), tuple(y.shape)))
         # per-channel counts when X is channel-sorted (merge_data's layout):
         # the Gram then takes the sorted path
         self._channel_counts = None
@@ -205,7 +216,16 @@ class Model(Module):
         return value
 
     def _residual_y(self):
+        """y − mean(X), or y without a mean."""
+        if self.mean is not None:
+            return self.y - self.mean(self.X).reshape(-1, 1)
         return self.y
+
+    def _add_mean(self, mu, X):
+        """The predictive mean of f at X: mu plus the mean function's."""
+        if self.mean is not None:
+            return mu + self.mean(X).reshape(-1, 1)
+        return mu
 
     def log_marginal_likelihood(self):
         raise NotImplementedError()
@@ -349,7 +369,7 @@ class Exact(Model):
         Lff = jittered_cholesky(Kff, extra_diag=self._noise_diag(add_jitter=True),
                                 ladder_base=self.jitter)
         v = solve_triangular(Lff, Kfs)
-        mu = Kfs.T @ cholesky_solve(Lff, y)
+        mu = self._add_mean(Kfs.T @ cholesky_solve(Lff, y), X)
         return mu, _posterior_var(self.kernel, X, full, v)
 
 
@@ -433,7 +453,7 @@ class Snelson(_Inducing):
         a = solve_triangular(Luu, Kus)
         b = solve_triangular(L, a)
         c = solve_triangular(L, vG @ y)
-        return b.T @ c, _posterior_var(self.kernel, X, full, a, b)
+        return self._add_mean(b.T @ c, X), _posterior_var(self.kernel, X, full, a, b)
 
 
 class OpperArchambeau(Model):
@@ -450,8 +470,9 @@ class OpperArchambeau(Model):
         self.to(device=self.device)
 
     def elbo(self):
-        """The ELBO (JAX: OpperArchambeau.elbo; y is the residual of the
-        mean, as there)."""
+        """The ELBO (JAX: OpperArchambeau.elbo). y is the residual of the
+        mean and qf_mu the zero-mean part's, so no mean is subtracted from
+        qf_mu: the JAX package's repair of the reference, which did."""
         y = self._residual_y()
         q_nu = self.q_nu()
         q_lambda = self.q_lambda()
@@ -480,7 +501,7 @@ class OpperArchambeau(Model):
         Kfs = self.kernel.K(self.X, X)
         L = self._cholesky(Kff + torch.diag((1.0 / self.q_lambda() ** 2).reshape(-1)))
         a = solve_triangular(L, Kfs)
-        return Kfs.T @ self.q_nu(), _posterior_var(self.kernel, X, full, a)
+        return self._add_mean(Kfs.T @ self.q_nu(), X), _posterior_var(self.kernel, X, full, a)
 
 
 class Titsias(_Inducing):
@@ -545,7 +566,7 @@ class Titsias(_Inducing):
         a = solve_triangular(Luu, Kus)
         b = solve_triangular(L, a)
         c = solve_triangular(L, v @ y) / self.likelihood.scale() ** 2
-        return b.T @ c, _posterior_var(self.kernel, X, full, a, b)
+        return self._add_mean(b.T @ c, X), _posterior_var(self.kernel, X, full, a, b)
 
 
 class SparseHensman(_Inducing):
@@ -619,7 +640,8 @@ class SparseHensman(_Inducing):
     @torch.no_grad()
     def predict_f(self, X, full=False):
         X = self._check_input(X)
-        return self._predict_f(X, full=full)
+        mu, var = self._predict_f(X, full=full)
+        return self._add_mean(mu, X), var
 
 
 class Hensman(SparseHensman):

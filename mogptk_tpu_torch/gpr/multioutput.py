@@ -14,7 +14,11 @@ their plain per-point formulations `_mosm_K`, `_umosm_cross_weight`,
   cross Grams, the sparse models), is the plain formulation below on every
   device, as the JAX package ran its jnp formulation there, and autograd
   differentiates it.
-- `IndependentMultiOutputKernel`: plain torch over its subkernels.
+- `IndependentMultiOutputKernel`: plain torch over its subkernels. Its
+  `K_sorted` (no JAX counterpart) evaluates each channel's subkernel on
+  that channel's own block of channel-sorted data only, into a zero N × N:
+  the same elements as `K_mo`'s masked sum over the whole N × N, computed
+  the same way, at 1/O of its evaluations and autograd residuals.
 
 `family` is the fused-family id (name, statics) of the block engines, None
 for a kernel without one, and `_fused_params()` the parameter tuple the
@@ -64,6 +68,18 @@ class IndependentMultiOutputKernel(MultiOutputKernel):
         for i in range(self.output_dims):
             out = out + (c1 == i).to(x1.dtype) * self.kernels[i].K_diag(x1)
         return out
+
+    def K_sorted(self, X, counts):
+        """Square Gram of channel-sorted X with per-channel `counts`: channel
+        i's subkernel on its own rows, block-diagonal, exact zeros off the
+        blocks."""
+        _, x = self._split(X)
+        blocks, r0 = [], 0
+        for i, n in enumerate(counts):
+            if n:
+                blocks.append(self.kernels[i].K(x[r0:r0 + n]))
+            r0 += n
+        return torch.block_diag(*blocks)
 
 
 def _mosm_K(c1, x1, c2, x2, params, twopi, phase_inside_2pi=True, cross_weight=None,

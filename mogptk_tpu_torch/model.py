@@ -1,7 +1,8 @@
 """User-facing Model: glues a DataSet, a kernel and an inference scheme;
 training, prediction, metrics, persistence and plots.
 
-JAX counterpart: mogptk_tpu/model.py (`Exact` :80-105, `Model` :208-865);
+JAX counterpart: mogptk_tpu/model.py (the `kernels` registry :27-69, `Exact`
+:80-105, `Model` :208-865);
 reference mogptk/model.py:76-1037. Training runs gpr.train (torch.optim, one
 synchronizing callback per step); prediction runs the gpr model's predict_y
 on its device and hands numpy back. Ported: the `Exact` selector
@@ -28,6 +29,51 @@ from .util import (mean_absolute_error, mean_absolute_percentage_error,
                    mean_squared_error, root_mean_squared_error)
 
 logger = logging.getLogger("mogptk_tpu_torch")
+
+
+class Kernels(dict):
+    __getattr__ = dict.get
+
+
+# name → kernel class, with the JAX package's aliases
+kernels = Kernels({
+    "White": gpr.WhiteKernel,
+    "Constant": gpr.ConstantKernel,
+    "Linear": gpr.LinearKernel,
+    "Polynomial": gpr.PolynomialKernel,
+    "Function": gpr.FunctionKernel,
+    "Exponential": gpr.ExponentialKernel,
+    "Exp": gpr.ExponentialKernel,
+    "SquaredExponential": gpr.SquaredExponentialKernel,
+    "SqExp": gpr.SquaredExponentialKernel,
+    "SE": gpr.SquaredExponentialKernel,
+    "RBF": gpr.SquaredExponentialKernel,
+    "RationalQuadratic": gpr.RationalQuadraticKernel,
+    "RQ": gpr.RationalQuadraticKernel,
+    "Periodic": gpr.PeriodicKernel,
+    "ExpSineSquared": gpr.PeriodicKernel,
+    "LocallyPeriodic": gpr.LocallyPeriodicKernel,
+    "Cosine": gpr.CosineKernel,
+    "Sinc": gpr.SincKernel,
+    "Spectral": gpr.SpectralKernel,
+    "SpectralMixture": gpr.SpectralMixtureKernel,
+    "Matern": gpr.MaternKernel,
+    "IndependentMultiOutput": gpr.IndependentMultiOutputKernel,
+    "IMO": gpr.IndependentMultiOutputKernel,
+    "MultiOutputSpectral": gpr.MultiOutputSpectralKernel,
+    "MultiOutputSpectralMixture": gpr.MultiOutputSpectralMixtureKernel,
+    "MOSM": gpr.MultiOutputSpectralMixtureKernel,
+    "UncoupledMultiOutputSpectral": gpr.UncoupledMultiOutputSpectralKernel,
+    "uMOS": gpr.UncoupledMultiOutputSpectralKernel,
+    "MultiOutputHarmonizableSpectral": gpr.MultiOutputHarmonizableSpectralKernel,
+    "MOHS": gpr.MultiOutputHarmonizableSpectralKernel,
+    "CrossSpectral": gpr.CrossSpectralKernel,
+    "LinearModelOfCoregionalization": gpr.LinearModelOfCoregionalizationKernel,
+    "LMC": gpr.LinearModelOfCoregionalizationKernel,
+    "GaussianConvolutionProcess": gpr.GaussianConvolutionProcessKernel,
+    "CONV": gpr.GaussianConvolutionProcessKernel,
+    "GCP": gpr.GaussianConvolutionProcessKernel,
+})
 
 
 def LoadModel(filename, device=None):
@@ -231,6 +277,8 @@ class Model:
         s = "Model: %s\n" % self.gpr.name()
         s += "- Kernel: %s\n" % self.gpr.kernel.name()
         s += "- Likelihood: %s\n" % self.gpr.likelihood.name()
+        if self.gpr.mean is not None:
+            s += "- Mean: %s\n" % self.gpr.mean.name()
         s += "- Parameters: %d\n" % self.num_parameters()
         for name, p in zip(gpr.parameter_names(self.gpr), self.parameters()):
             s += "  - %s %s\n" % (name, tuple(p.shape))
@@ -368,6 +416,8 @@ class Model:
             print("- Model: %s" % self.gpr.name())
             print("  - Kernel: %s" % self.gpr.kernel.name())
             print("  - Likelihood: %s" % self.gpr.likelihood.name())
+            if self.gpr.mean is not None:
+                print("  - Mean: %s" % self.gpr.mean.name())
             print("- Channels: %d" % len(self.dataset))
             print("- Parameters: %d" % self.num_parameters())
             print("- Training points: %d" % self.num_training_points())

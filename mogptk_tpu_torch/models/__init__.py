@@ -1,5 +1,5 @@
-"""Named models over a DataSet. JAX counterpart: mogptk_tpu/models/; the SM
-model is not ported yet (ROADMAP queue 1, item 9)."""
+"""Named models over a DataSet. JAX counterpart: mogptk_tpu/models/."""
+from .sm import SM
 from .mosm import MOSM
 from .csm import CSM
 from .sm_lmc import SM_LMC

@@ -1,9 +1,8 @@
 """CONV: Gaussian Convolution Process model, Álvarez & Lawrence 2009.
 
 JAX counterpart: mogptk_tpu/models/conv.py; reference
-mogptk/models/conv.py:8-103. Initialization by 'BNSE' and 'LS'; 'SM' needs
-the SM model, which is not ported yet: it raises NotImplementedError
-(ROADMAP queue 1, item 9).
+mogptk/models/conv.py:8-103. Initialization by 'BNSE', 'LS' and 'SM' (the
+estimate of a pre-fitted SM model, Data.get_sm_estimation).
 """
 import numpy as np
 

@@ -1,9 +1,8 @@
 """CSM: Cross Spectral Mixture model, Ulrich et al. 2015.
 
 JAX counterpart: mogptk_tpu/models/csm.py; reference
-mogptk/models/csm.py:8-111. Initialization by 'BNSE' and 'LS'; 'SM' needs
-the SM model, which is not ported yet: it raises NotImplementedError
-(ROADMAP queue 1, item 9).
+mogptk/models/csm.py:8-111. Initialization by 'BNSE', 'LS' and 'SM' (the
+estimate of a pre-fitted SM model, Data.get_sm_estimation).
 """
 import numpy as np
 

@@ -1,9 +1,8 @@
 """MOHSM: Multi-Output Harmonizable Spectral Mixture model, Altamirano 2021.
 
 JAX counterpart: mogptk_tpu/models/mohsm.py; reference
-mogptk/models/mohsm.py:8-145. Initialization by 'BNSE' and 'LS'; 'SM' needs
-the SM model, which is not ported yet: it raises NotImplementedError
-(ROADMAP queue 1, item 9).
+mogptk/models/mohsm.py:8-145. Initialization by 'BNSE', 'LS' and 'SM' (the
+estimate of a pre-fitted SM model, Data.get_sm_estimation).
 """
 import numpy as np
 

@@ -1,8 +1,8 @@
 """MOSM: Multi-Output Spectral Mixture model, Parra & Tobar 2017.
 
 JAX counterpart: mogptk_tpu/models/mosm.py (:14-199); reference
-mogptk/models/mosm.py:10-257. Initialization by 'BNSE' and 'LS'; 'SM' needs
-the SM model, which is not ported yet (it raises NotImplementedError).
+mogptk/models/mosm.py:10-257. Initialization by 'BNSE', 'LS' and 'SM' (the
+estimate of a pre-fitted SM model, Data.get_sm_estimation).
 """
 import numpy as np
 

@@ -1,9 +1,8 @@
 """SM-LMC: Spectral Mixture Linear Model of Coregionalization.
 
 JAX counterpart: mogptk_tpu/models/sm_lmc.py; reference
-mogptk/models/sm_lmc.py:8-114. Initialization by 'BNSE' and 'LS'; 'SM' needs
-the SM model, which is not ported yet: it raises NotImplementedError
-(ROADMAP queue 1, item 9).
+mogptk/models/sm_lmc.py:8-114. Initialization by 'BNSE', 'LS' and 'SM' (the
+estimate of a pre-fitted SM model, Data.get_sm_estimation).
 """
 import numpy as np
 

@@ -519,7 +519,8 @@ def test_named_model_initial_parameters_match_jax(named):
 def test_named_model_trains_like_jax(named):
     """Model.train(Adam, lr=0.01, iters=2) from the JAX model's raws: each
     step's loss (rtol 1e-7) and the trained raws (atol 1e-9 of each raw's
-    scale); then predict and error run."""
+    scale); then predict and error run, and CONV's default
+    init_parameters() gives finite parameters."""
     j, which = named
     _, model = _named(T, which)
     tgpr.load_raw_state(model, j["raws"], names=j["names"])
@@ -533,5 +534,8 @@ def test_named_model_trains_like_jax(named):
     assert all(np.all(np.isfinite(m)) for m in mu)
     assert np.isfinite(model.error("MAE"))
     if which == "CONV":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            model.init_parameters()
+        # its default method, 'SM': an SM model pre-fitted on each channel
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            model.init_parameters(iters=3)
+        assert all(np.all(np.isfinite(p.numpy())) for p in model.parameters())

@@ -230,21 +230,16 @@ def _small_model(trace_probes=PROBES, shuffle=False, device=None):
 
 def test_unported_configurations_raise():
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item: LBFGS, a mean function, the SM-model initialization and a sparse
-    model with a non-Gaussian likelihood. (The closed-form gradient,
-    unsorted channels and the sparse selectors, which raised here before,
-    now train: test_torch_closed_form.py, test_torch_sparse.py.)"""
+    item: LBFGS and a sparse model with a non-Gaussian likelihood. (The
+    closed-form gradient, unsorted channels and the sparse selectors, which
+    raised here before, now train: test_torch_closed_form.py,
+    test_torch_sparse.py; so do a mean function and the SM-model
+    initialization: test_torch_singleoutput.py.)"""
     import mogptk_tpu_torch as mogptk
     with pytest.raises(NotImplementedError, match="LBFGS.*queue 1, item 8"):
         tgpr.train(_small_model(), method="LBFGS", iters=1)
     xs, ys, _, _ = _dense_data()
-    _, X, Y = tgpr.merge_data(xs, ys)
-    k = tgpr.MultiOutputSpectralMixtureKernel(2, output_dims=3)
-    with pytest.raises(NotImplementedError, match="mean functions"):
-        tgpr.Exact(k, X, Y, mean=object())
     ds = mogptk.DataSet([x[:, 0] for x in xs], [y[:, 0] for y in ys])
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        mogptk.MOSM(ds, Q=2).init_parameters("SM", iters=1)
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):
         mogptk.MOSM(ds, Q=2, inference=mogptk.Hensman(inducing_points=8,
                                                       likelihood=tgpr.Likelihood()))
