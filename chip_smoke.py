@@ -104,7 +104,18 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
 - the blocked factor's repairs (phase 22): a forced blocked factor at
   n = 300 (one 320-wide panel on the kernels) and the bench Gram times 2¹⁰⁰
   (diag ~ 4e30, under the range scale), unfused and fused, each against
-  float64 on the card.
+  float64 on the card;
+- the SM model, the single-output kernels and the means (phase 23);
+- the likelihoods (phase 24): SparseHensman on bench.py's SVGP shape (256
+  random inducing points per channel, M = 1,024) with one likelihood per
+  channel (Student's t, Poisson, Bernoulli and Gamma, the bench data mapped
+  into their supports), its first step against float64 and the float32
+  twins, three counted Adam steps, predict_y's 10,000-draw Monte Carlo
+  bands at 4 x 1,024 points, sample_f at those 4,096 points through the
+  blocked factor's kernels; Hensman and OpperArchambeau with a Poisson
+  likelihood at N = 1,024 (first steps against float64, the Poisson
+  Hensman's sample_y); and mogptk.MOSM with the Hensman selector and a
+  per-channel likelihood: train, predict(ci=0.95), sample(n=4).
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -678,6 +689,17 @@ def main():
         if sm_launches[name] < 1:
             fail("%s was not launched on the SM model's path" % name)
 
+    # -- phase 24: the likelihoods, the Monte Carlo bands and sampling ----------
+    t_lik = time.perf_counter()
+    phase("phase 24: non-Gaussian likelihoods on bench.py's SVGP shape (N=%d, M=%d)"
+          % (n, CHANNELS * SPARSE_M_PER_CHANNEL))
+    lik = drive_likelihoods(gpr, _build, bc, xs, ys, reqs, dev, smi)
+    print("phase 24 (likelihoods) wall time: %.1f s (SVGP step %.2f ms, peak %.2f GB; predict_y "
+          "with bands %.2f ms, peak %.2f GB; sample_f %.2f ms; sample_y %.2f ms; %s)"
+          % (time.perf_counter() - t_lik, lik["step_ms"], lik["step_peak_gb"], lik["predict_ms"],
+             lik["predict_peak_gb"], lik["sample_f_ms"], lik["sample_y_ms"],
+             smi.stdout.strip().splitlines()[0]))
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu",
                "fused": "mogptk_tpu_torch/csrc/fused_trsm.cu"}
@@ -802,6 +824,9 @@ def main():
 
 SPARSE_M_PER_CHANNEL = 256   # bench.py's SVGP cell: M = 1,024 over 4 channels
 SPARSE_STEPS = 20
+# launches a step: with inducing points (Kuf and Kuu, Z trained), and without
+SPARSE_WANT = {"mosm_gram": (2, 2), "mosm_gram_bwd_inputs": (2, 2), "mosm_gram_bwd": (0, 0)}
+DENSE_WANT = {"mosm_gram": (1, 1), "mosm_gram_bwd_inputs": (0, 0), "mosm_gram_bwd": (1, 1)}
 
 
 class Counter:
@@ -1217,8 +1242,7 @@ def drive_titsias(gpr, _build, model, Xq, smi):
     if "--profile" in sys.argv[1:]:
         profile_step(model)
     Z0 = model.Z.raw.detach().clone()
-    want = {"mosm_gram": (2, 2), "mosm_gram_bwd_inputs": (2, 2), "mosm_gram_bwd": (0, 0)}
-    launches = train_and_count(gpr, model, sparse_counters(), want, loss1, "Titsias", smi,
+    launches = train_and_count(gpr, model, sparse_counters(), SPARSE_WANT, loss1, "Titsias", smi,
                                steps=SPARSE_STEPS)
     if not torch.equal(model.Z.raw[:, 0], Z0[:, 0]):
         fail("training moved the inducing points' channel column")
@@ -1310,23 +1334,19 @@ def drive_other_sparse(gpr, _build, xs, ys, dev, smi):
 
     X4, Y4 = data(4)
     X16, Y16 = data(16)
-    inducing = {"mosm_gram": (2, 2), "mosm_gram_bwd_inputs": (2, 2), "mosm_gram_bwd": (0, 0)}
-    dense = {"mosm_gram": (1, 1), "mosm_gram_bwd_inputs": (0, 0), "mosm_gram_bwd": (1, 1)}
     cases = (
-        ("Snelson", X4, Y4, inducing,
+        ("Snelson", X4, Y4, SPARSE_WANT,
          lambda X_, Y_, Z: gpr.Snelson(kernel(), X_, Y_, Z=Z, variance=0.1, device=dev)),
-        ("SparseHensman", X4, Y4, inducing,
+        ("SparseHensman", X4, Y4, SPARSE_WANT,
          lambda X_, Y_, Z: gpr.SparseHensman(kernel(), X_, Y_, Z=Z, device=dev)),
-        ("Hensman", X16, Y16, dense, lambda X_, Y_, Z: gpr.Hensman(kernel(), X_, Y_, device=dev)),
-        ("OpperArchambeau", X16, Y16, dense,
+        ("Hensman", X16, Y16, DENSE_WANT,
+         lambda X_, Y_, Z: gpr.Hensman(kernel(), X_, Y_, device=dev)),
+        ("OpperArchambeau", X16, Y16, DENSE_WANT,
          lambda X_, Y_, Z: gpr.OpperArchambeau(kernel(), X_, Y_, device=dev)))
     for label, Xd, Yd, want, make in cases:
         model = make(Xd, Yd, 64)
-        if hasattr(model, "q_sqrt"):      # q(u) away from p(u), so Z's gradient is not zero
-            n = model.q_mu.shape[0]
-            rng = np.random.RandomState(8)
-            model.q_mu.assign(0.3 * rng.randn(n, 1))
-            model.q_sqrt.assign(np.eye(n) + 0.01 * np.tril(rng.randn(n, n), -1))
+        if hasattr(model, "q_sqrt"):
+            perturb_q(model)
 
         def rebuild(model=model, make=make):
             Z = getattr(model, "Z", None)
@@ -4289,6 +4309,238 @@ def drive_sm(gpr, bc, fs, mg, xs, ys, reqs, dev, smi):
     del ex
     torch.cuda.empty_cache()
     return launches, report
+
+
+LIK_DRAWS = 10000         # Monte Carlo draws behind predict_y's bands
+LIK_SAMPLES = 16          # sample_f / sample_y draws
+LIK_API_POINTS = 64       # inducing points per channel of the user-API Hensman
+
+
+def likelihood_ys(ys):
+    """Each bench channel mapped into its likelihood's support, as
+    tests/test_likelihoods.py:178-195 maps its signal: Student's t as is,
+    Poisson counts round(exp(y)), Bernoulli y > the channel's median, Gamma
+    exp(y) + 0.1."""
+    return [ys[0], np.round(np.exp(ys[1])), (ys[2] > np.median(ys[2])).astype(np.float64),
+            np.exp(ys[3]) + 0.1]
+
+
+def channel_likelihood(gpr):
+    """One likelihood per channel of likelihood_ys."""
+    return gpr.MultiOutputLikelihood(gpr.StudentTLikelihood(dof=4), gpr.PoissonLikelihood(),
+                                     gpr.BernoulliLikelihood(), gpr.GammaLikelihood())
+
+
+def perturb_q(model):
+    """q(u) away from p(u), so that Z's gradient is not zero (phases 15 and
+    24)."""
+    n = model.q_mu.shape[0]
+    rng = np.random.RandomState(8)
+    model.q_mu.assign(0.3 * rng.randn(n, 1))
+    model.q_sqrt.assign(np.eye(n) + 0.01 * np.tril(rng.randn(n, n), -1))
+
+
+def counted(counters, fn):
+    """(fn(), the launches it made of each counter's kernel)."""
+    import torch
+    for f in counters.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counters.items()}
+
+
+def check_draws(label, s, mu, var, jitter, S):
+    """The draws s (S, M) finite, their mean within 6 standard errors of mu
+    at every point (the variance with the jitter sample_f adds)."""
+    import torch
+    if s.shape != (S, mu.shape[0]) or not bool(torch.isfinite(s).all()):
+        fail("%s: non-finite or misshapen draws %s" % (label, tuple(s.shape)))
+    d = var.reshape(-1).clamp_min(0.0) + jitter * float(var.mean())
+    z = float(((s.mean(0) - mu.reshape(-1)).abs() / torch.sqrt(d / S)).max())
+    print("%s: %d draws of %d points, finite; the draws' mean at most %.2f standard errors "
+          "from predict_f's" % (label, S, mu.shape[0], z))
+    if not z <= 6.0:
+        fail("%s: the draws' mean is %.2f standard errors off predict_f's" % (label, z))
+
+
+def drive_likelihoods(gpr, _build, bc, xs, ys, reqs, dev, smi):
+    """Phase 24: the per-channel likelihood mix on bench.py's SVGP shape:
+    SparseHensman with 256 random inducing points per channel (M = 1,024)
+    over the 4 x 4,096 bench points mapped into Student's t, Poisson,
+    Bernoulli and Gamma supports (quadrature for each channel), q(u)
+    perturbed; the first step against a float64 execution on the card and
+    the float32 twins, TRAIN_STEPS counted Adam steps (K-gram twice a step,
+    K-gram-bwd's input half twice), predict_y's Monte Carlo bands at
+    4 x 1,024 points (n = 10,000, a seeded generator), sample_f at those
+    4,096 points through the blocked factor's kernels (the jitter ladder
+    at 3 rungs throughout, as bench.py's SVGP cell runs), sample_y; then
+    Hensman and OpperArchambeau with a Poisson likelihood at N = 1,024, each
+    first step against float64 and three counted steps, the Poisson
+    Hensman's sample_y at the 4,096 points; and mogptk.MOSM with the
+    Hensman selector and a per-channel likelihood (train, predict(ci=0.95),
+    sample(n=4)). Returns the numbers PERF.md quotes."""
+    import torch
+    import mogptk_tpu_torch as mogptk
+    card = smi.stdout.strip().splitlines()[0]
+    lys = likelihood_ys(ys)
+    _, X, Y = gpr.merge_data(xs, lys, device=dev)
+    Xq = reqs["b"]
+    M = Xq.shape[0]
+    report = {}
+
+    def kernel():
+        k = gpr.MultiOutputSpectralMixtureKernel(Q, output_dims=CHANNELS)
+        set_bench_params(k)
+        return k
+
+    # SparseHensman, M = 1,024, the jitter ladder at bench.py's SVGP cell's 3 rungs
+    gpr.set_seed(0)
+    gpr.use_jitter_ladder(3)
+    label = "SparseHensman [%s] (N=%d, M=%d)" % (
+        ",".join(type(lk).__name__ for lk in channel_likelihood(gpr).likelihoods),
+        X.shape[0], CHANNELS * SPARSE_M_PER_CHANNEL)
+    model = gpr.SparseHensman(kernel(), X, Y, Z=SPARSE_M_PER_CHANNEL, Z_init="random",
+                              likelihood=channel_likelihood(gpr), device=dev)
+    perturb_q(model)
+
+    def rebuild():
+        return gpr.SparseHensman(kernel(), model.X.double(), model.y.double(),
+                                 Z=model.Z().detach().double(),
+                                 likelihood=channel_likelihood(gpr), device=dev)
+
+    loss1 = check_sparse_first_step(gpr, _build, model, rebuild, label)
+    grads = step_outputs(model)[1:]
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        fail("%s: a float32 gradient is not finite" % label)
+    torch.cuda.reset_peak_memory_stats()
+    train_and_count(gpr, model, sparse_counters(), SPARSE_WANT, loss1, label, smi)
+    report["step_ms"] = STEP_MS[label]
+    report["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # predict_y's Monte Carlo bands, 4 x 1,024 points, n = 10,000
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+
+    def bands():
+        return model.predict_y(Xq, ci=[0.025, 0.975], n=LIK_DRAWS, generator=gen.manual_seed(24))
+
+    mu, lo, up = bands()
+    report["predict_ms"] = median_ms(bands, reps=3, warmup=0)
+    report["predict_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    again = bands()
+    for out in (mu, lo, up):
+        if out.shape != (M, 1) or not bool(torch.isfinite(out).all()):
+            fail("%s predict_y: non-finite or misshapen bands" % label)
+    if not bool((lo <= mu).all() and (mu <= up).all()):
+        fail("%s predict_y: the bands do not bracket the mean" % label)
+    if not all(torch.equal(a, b) for a, b in zip(again, (mu, lo, up))):
+        fail("%s predict_y: a generator seeded alike gave other bands" % label)
+    c = Xq[:, 0].long()
+    if not (torch.equal(lo[c == 2], mu[c == 2]) and torch.equal(up[c == 2], mu[c == 2])):
+        fail("%s predict_y: the Bernoulli channel's bands are not its mean" % label)
+    widths = [float((up - lo)[c == j].mean()) for j in range(CHANNELS)]
+    print("%s predict_y of %d points with %d-draw bands: median %.2f ms, peak %.2f GB; mean "
+          "band width by channel %s (%s)" % (label, M, LIK_DRAWS, report["predict_ms"],
+                                              report["predict_peak_gb"],
+                                              np.round(widths, 4).tolist(), card))
+
+    # sample_f at the 4,096 points: the posterior covariance's factor on the
+    # kernels, with the jitter ladder's rungs (predict_f's own, Kuu's, apart)
+    factor = {"s_panel": bc.s_panel, "s_panel_reduce": bc.s_panel_reduce,
+              "col_write": bc.col_write, "jitter rungs": sparse_counters()["jitter rungs"]}
+    sf, sf_launches = counted(factor, lambda: model.sample_f(Xq, n=LIK_SAMPLES,
+                                                             generator=gen.manual_seed(25)))
+    (mu_f, var_f), pf_launches = counted(factor, lambda: model.predict_f(Xq))
+    fired = sf_launches["jitter rungs"] - pf_launches["jitter rungs"]
+    report["sample_f_ms"] = median_ms(lambda: model.sample_f(Xq, n=LIK_SAMPLES, generator=gen),
+                                      reps=3, warmup=1)
+    if sf_launches["s_panel"] < 1 or sf_launches["col_write"] < 1:
+        fail("%s sample_f: the factor did not run on K-spanel and K-colwrite (%s)"
+             % (label, sf_launches))
+    print("%s sample_f: the covariance's factor took %d jitter rung(s): relative jitter %.1e"
+          % (label, fired, model.jitter * 10.0 ** fired))
+    check_draws("%s sample_f" % label, sf, mu_f, var_f, model.jitter * 10.0 ** fired,
+                LIK_SAMPLES)
+    if model.sample_y(Xq, n=LIK_SAMPLES, generator=gen) is not None:
+        fail("%s sample_y: the Bernoulli channel cannot draw y, yet y came back" % label)
+    print("%s sample_f of %d x %d: median %.2f ms, factor launches %s; sample_y: None (the "
+          "Bernoulli channel) (%s)" % (label, LIK_SAMPLES, M, report["sample_f_ms"],
+                                       sf_launches, card))
+    report["sample_f_launches"] = sf_launches
+    del model, mu, lo, up, again, sf
+    torch.cuda.empty_cache()
+
+    # Hensman and OpperArchambeau with a Poisson likelihood at N = 1,024
+    counts16 = [np.round(np.exp(a[::16])) for a in ys]
+    _, X16, Y16 = gpr.merge_data([a[::16] for a in xs], counts16, device=dev)
+    cases = (("Hensman", lambda X_, Y_: gpr.Hensman(kernel(), X_, Y_,
+                                                    likelihood=gpr.PoissonLikelihood(),
+                                                    device=dev)),
+             ("OpperArchambeau", lambda X_, Y_: gpr.OpperArchambeau(
+                 kernel(), X_, Y_, likelihood=gpr.PoissonLikelihood(), device=dev)))
+    for name, make in cases:
+        model = make(X16, Y16)
+        if hasattr(model, "q_sqrt"):
+            perturb_q(model)
+        lbl = "%s [PoissonLikelihood] (N=%d)" % (name, X16.shape[0])
+        loss1 = check_sparse_first_step(gpr, _build, model, lambda: make(model.X.double(),
+                                                                         model.y.double()), lbl)
+        train_and_count(gpr, model, sparse_counters(), DENSE_WANT, loss1, lbl, smi)
+        if name == "Hensman":
+            sy, sy_launches = counted(factor, lambda: model.sample_y(
+                Xq, n=LIK_SAMPLES, generator=gen.manual_seed(26)))
+            report["sample_y_ms"] = median_ms(
+                lambda: model.sample_y(Xq, n=LIK_SAMPLES, generator=gen), reps=3, warmup=1)
+            if sy is None or sy.shape != (LIK_SAMPLES, M) or not bool(torch.isfinite(sy).all()):
+                fail("%s sample_y: non-finite or misshapen draws" % lbl)
+            if not (bool((sy >= 0).all()) and torch.equal(sy, torch.round(sy))):
+                fail("%s sample_y: draws are not counts" % lbl)
+            if sy_launches["s_panel"] < 1 or sy_launches["col_write"] < 1:
+                fail("%s sample_y: the factor did not run on the kernels" % lbl)
+            print("%s sample_y of %d x %d counts: median %.2f ms, mean count %.3f, factor "
+                  "launches %s (%s)" % (lbl, LIK_SAMPLES, M, report["sample_y_ms"],
+                                        float(sy.mean()), sy_launches, card))
+        del model
+        torch.cuda.empty_cache()
+
+    # the user API: MOSM through the Hensman selector, a likelihood per channel
+    ds = mogptk.DataSet([xc[:, 0] for xc in xs], [yc[:, 0] for yc in lys])
+    lik = gpr.MultiOutputLikelihood(gpr.StudentTLikelihood(dof=4), gpr.PoissonLikelihood(),
+                                    gpr.LaplaceLikelihood(), gpr.GammaLikelihood())
+    api = mogptk.MOSM(ds, Q=Q, inference=mogptk.Hensman(inducing_points=LIK_API_POINTS,
+                                                          likelihood=lik))
+    if type(api.gpr).__name__ != "SparseHensman" or api.gpr.Z.raw.device.type != "cuda":
+        fail("MOSM with the Hensman selector did not build a SparseHensman on the card")
+    set_bench_params(api.gpr.kernel)
+    t = time.perf_counter()
+    losses, _ = api.train(method="Adam", lr=0.01, iters=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    if not np.all(np.isfinite(losses)):
+        fail("MOSM(Hensman, %s).train: loss is not finite" % lik.name())
+    t = time.perf_counter()
+    _, Mu, Lo, Up = api.predict(ci=0.95)
+    predict_s = time.perf_counter() - t
+    for j in range(CHANNELS):
+        if Mu[j].shape != (N_PER_CHANNEL,) or not np.all(np.isfinite(Lo[j] + Mu[j] + Up[j])):
+            fail("MOSM(Hensman).predict: channel %d is non-finite or misshapen" % j)
+        if not (np.all(Lo[j] <= Mu[j]) and np.all(Mu[j] <= Up[j])):
+            fail("MOSM(Hensman).predict: channel %d's bands do not bracket the mean" % j)
+    t = time.perf_counter()
+    draws = api.sample(n=4)
+    sample_s = time.perf_counter() - t
+    for j in range(CHANNELS):
+        if draws[j].shape != (N_PER_CHANNEL, 4) or not np.all(np.isfinite(draws[j])):
+            fail("MOSM(Hensman).sample: channel %d is non-finite or misshapen" % j)
+    print("MOSM(inference=Hensman(%d, likelihood=%s)): train(Adam, iters=%d) %.2f s, losses %s; "
+          "predict(ci=0.95) of %d points %.2f s; sample(n=4) %.2f s (%s)"
+          % (LIK_API_POINTS, lik.name(), TRAIN_STEPS, train_s, np.round(losses, 4).tolist(),
+             CHANNELS * N_PER_CHANNEL, predict_s, sample_s, card))
+    del api
+    gpr.use_jitter_ladder(0)
+    torch.cuda.empty_cache()
+    return report
 
 
 @contextlib.contextmanager

@@ -7,9 +7,10 @@ load data frames or draw, never when the package is imported. It covers the
 quick start (DataSet → SM, MOSM, CSM, SM_LMC, CONV or MOHSM →
 init_parameters → train → predict) on exact inference with the closed-form
 or the probe-trace gradient, the iterative engine, and the sparse and
-variational inference schemes (Snelson, Titsias, Hensman, OpperArchambeau)
-with the Gaussian likelihood, the single-output kernels, the compositors and
-the mean functions; see README.md, "PyTorch/CUDA port".
+variational inference schemes (Snelson, Titsias, Hensman, OpperArchambeau;
+the last two with any of the twelve likelihoods, per channel too), sampling,
+the single-output kernels, the compositors and the mean functions; see
+README.md, "PyTorch/CUDA port".
 """
 from . import gpr
 from .gpr import (config, set_seed, use_single_precision, use_double_precision,

@@ -2,7 +2,7 @@
 model, the sparse and variational models, the iterative exact model and the
 trainer. JAX counterpart: mogptk_tpu/gpr/__init__.py (the exports of the
 exact and sparse training and prediction paths, the iterative engine, the
-kernels, the compositors and the mean functions)."""
+kernels, the compositors, the mean functions and the likelihoods)."""
 from .config import (Config, config, set_seed, use_single_precision, use_double_precision,
                      use_blocked_cholesky, blocked_cholesky_enabled, resolve_device,
                      use_jitter_ladder)
@@ -22,7 +22,12 @@ from .multioutput import (IndependentMultiOutputKernel, MultiOutputSpectralKerne
                           MultiOutputSpectralMixtureKernel, UncoupledMultiOutputSpectralKernel,
                           MultiOutputHarmonizableSpectralKernel, CrossSpectralKernel,
                           LinearModelOfCoregionalizationKernel, GaussianConvolutionProcessKernel)
-from .likelihood import Likelihood, GaussianLikelihood
+from .likelihood import (identity, square, exp, probit, inv_probit, sigmoid,
+                         GaussHermiteQuadrature, Likelihood, MultiOutputLikelihood,
+                         GaussianLikelihood, StudentTLikelihood, ExponentialLikelihood,
+                         LaplaceLikelihood, BernoulliLikelihood, BetaLikelihood,
+                         GammaLikelihood, PoissonLikelihood, WeibullLikelihood,
+                         LogLogisticLikelihood, LogGaussianLikelihood, ChiSquaredLikelihood)
 from .model import (Model, Exact, Snelson, OpperArchambeau, Titsias, SparseHensman, Hensman,
                     init_inducing_points)
 from .iterative import ExactIterative

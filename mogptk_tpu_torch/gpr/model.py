@@ -1,22 +1,25 @@
 """GP models: the base Model, exact GP regression (training and prediction)
 and the sparse and variational models: Snelson (FITC), OpperArchambeau,
-Titsias (the collapsed bound) and SparseHensman/Hensman (SVGP).
+Titsias (the collapsed bound) and SparseHensman/Hensman (SVGP), and the
+posterior and prior draws of f and y.
 
 JAX counterpart: mogptk_tpu/gpr/model.py (`init_inducing_points` :36-97,
 `Model` :126-360, `Exact` :489-784, `Snelson` :787-856, `OpperArchambeau`
 :859-923, `Titsias` :926-1008, `SparseHensman` :1011-1117, `Hensman`
 :1120-1125). Ported: construction, the objective `loss()` = −LML − log
-prior, the noise diagonal, `predict_f(full=)`/`predict_y` on the unmasked
+prior, the noise diagonal, `predict_f(full=)`/`predict_y` (with the
+likelihood's Monte Carlo bands) and `sample_f`/`sample_y` on the unmasked
 single-device branch, and every model's differentiable objective: the exact
 LML with the closed-form gradient or the probe-trace gradient (`trace_probes`;
 on channel-sorted data with a block-engine kernel the fused path
 ops/linalg.lml_chol_fused), and the
 sparse models' ELBOs and LML, whose trained inducing points Z get their
 gradient from the Gram's input cotangents (ops/mosm_gram.MosmGram, the
-K-gram-bwd kernel on the card). The sparse and variational models take the
-Gaussian likelihood only (others: ROADMAP queue 1, item 9). A mean function
+K-gram-bwd kernel on the card). OpperArchambeau, SparseHensman and Hensman
+take any likelihood of gpr/likelihood.py (its variational expectation by
+quadrature or in closed form). A mean function
 (gpr/mean.py) is fitted as in the JAX package: the models see the residual
-y − m(X), and predict_f adds m(X) back. Masks, meshes and sampling are later
+y − m(X), and predict_f adds m(X) back. Masks and meshes are later
 work. Prediction recomputes the Grams and
 their factors on every call, as the JAX package does. Factorizations go
 through ops/linalg.jittered_cholesky, with the jitter ladder when
@@ -39,7 +42,7 @@ import torch
 
 from .module import Module
 from .kernel import Kernel
-from .likelihood import GaussianLikelihood
+from .likelihood import GaussianLikelihood, MultiOutputLikelihood
 from .mean import Mean
 from .config import config, resolve_device
 from ..ops.block_families import pack_of
@@ -139,7 +142,9 @@ class Model(Module):
         kernel: a Kernel.
         X (N, input_dims), y (N,) or (N, 1): training data, converted to
             config.dtype on `device`.
-        likelihood: defaults to GaussianLikelihood(1.0).
+        likelihood: defaults to GaussianLikelihood(1.0). A
+            MultiOutputLikelihood must have the kernel's output_dims; y is
+            checked against the likelihood's support (validate_y).
         jitter: relative jitter; at least 1e-6 in float32, 1e-15 in float64.
         mean: an optional gpr.Mean; the model fits y − mean(X).
         device: None = config.device. Parameters move there too.
@@ -155,6 +160,10 @@ class Model(Module):
             raise ValueError("kernel must derive from mogptk_tpu_torch.gpr.Kernel")
         self.device = resolve_device(device)
         X, y = self._check_input(X, y)
+        if (isinstance(likelihood, MultiOutputLikelihood)
+                and likelihood.output_dims != kernel.output_dims):
+            raise ValueError("kernel and likelihood must have matching output dimensions")
+        likelihood.validate_y(X.cpu().numpy(), y.cpu().numpy())
         if config.dtype == torch.float32:
             jitter = max(jitter, 1e-6)
         else:
@@ -245,15 +254,60 @@ class Model(Module):
         raise NotImplementedError()
 
     @torch.no_grad()
-    def predict_y(self, X, ci=None, sigma=None):
+    def predict_y(self, X, ci=None, sigma=None, n=10000, generator=None):
         """Predictive mean and, with ci=[lo, hi] quantiles or sigma, the
-        (mean, lower, upper) bands of y."""
+        (mean, lower, upper) bands of y: closed-form for the Gaussian
+        likelihood, else from n Monte Carlo draws taken from `generator` (a
+        torch.Generator on the model's device; None: gpr.config.generator)."""
         X = self._check_input(X)
         mu, var = self.predict_f(X)
         if ci is None and sigma is not None:
             p = 0.5 * (1.0 + math.erf(sigma / math.sqrt(2.0)))
             ci = [1.0 - p, p]
-        return self.likelihood.predict(X, mu, var, ci, sigma=sigma)
+        return self.likelihood.predict(X, mu, var, ci, sigma=sigma, n=n, generator=generator)
+
+    @torch.no_grad()
+    def sample_f(self, Z, n=None, prior=False, generator=None):
+        """n draws (S, N) of f at Z from the posterior, or from the prior
+        N(mean(Z), K(Z)) with prior=True; one draw (N,) when n is None. The
+        covariance is factored with the model's relative jitter,
+        jitter·mean(diag)·I, through ops/linalg.jittered_cholesky (the
+        blocked factor's kernels on the card at n ≥
+        gpr.config.blocked_cholesky_min_n; with gpr.use_jitter_ladder, the
+        escalated jitter where the factor fails, as in training). Draws come
+        from `generator` (None: gpr.config.generator)."""
+        Z = self._check_input(Z)
+        S = 1 if n is None else n
+        if prior:
+            mu = (self.mean(Z).reshape(-1, 1) if self.mean is not None
+                  else torch.zeros((Z.shape[0], 1), dtype=Z.dtype, device=Z.device))
+            var = self.kernel(Z)
+        else:
+            mu, var = self.predict_f(Z, full=True)
+        L = self._cholesky(var, add_jitter=True)
+        if generator is None:
+            generator = config.generator(Z.device)
+        eps = torch.randn((var.shape[0], S), generator=generator, dtype=var.dtype,
+                          device=var.device)
+        samples = (mu.reshape(-1, 1) + L @ eps).T  # SxN
+        if n is None:
+            samples = samples.squeeze(0)
+        return samples
+
+    @torch.no_grad()
+    def sample_y(self, Z, n=None, generator=None):
+        """n draws (S, N) of y at Z, or one (N,) when n is None: posterior
+        draws of f through the likelihood's conditional_sample. None where
+        the likelihood cannot draw y (Bernoulli, or a MultiOutputLikelihood
+        with such a channel)."""
+        Z = self._check_input(Z)
+        if generator is None:
+            generator = config.generator(Z.device)
+        samples_f = self.sample_f(Z, n=1 if n is None else n, generator=generator)
+        samples_y = self.likelihood.conditional_sample(Z, samples_f, generator=generator)
+        if n is None and samples_y is not None:
+            samples_y = samples_y.squeeze()
+        return samples_y
 
 
 class Exact(Model):
@@ -373,17 +427,6 @@ class Exact(Model):
         return mu, _posterior_var(self.kernel, X, full, v)
 
 
-def _gaussian_only(likelihood, model):
-    """The sparse and variational models take the Gaussian likelihood only."""
-    if likelihood is None:
-        return GaussianLikelihood(1.0)
-    if not isinstance(likelihood, GaussianLikelihood):
-        raise NotImplementedError("%s with a %s: only the Gaussian likelihood is ported; the "
-                                  "others are ROADMAP queue 1, item 9"
-                                  % (model, type(likelihood).__name__))
-    return likelihood
-
-
 class _Inducing(Model):
     """A model with trained inducing points Z: the Parameter
     "induction_points", column 0 the channel ID for a multi-output kernel.
@@ -457,12 +500,11 @@ class Snelson(_Inducing):
 
 
 class OpperArchambeau(Model):
-    """Variational GP, Opper & Archambeau 2009 (JAX: gpr/model.py:859-923),
-    with the Gaussian likelihood: q(f) has one mean parameter q_nu and one
+    """Variational GP for any likelihood, Opper & Archambeau 2009 (JAX:
+    gpr/model.py:859-923): q(f) has one mean parameter q_nu and one
     precision parameter q_lambda per data point."""
 
     def __init__(self, kernel, X, y, likelihood=None, jitter=1e-8, mean=None, device=None):
-        likelihood = _gaussian_only(likelihood, "OpperArchambeau")
         super().__init__(kernel, X, y, likelihood, jitter, mean, device)
         n = self.X.shape[0]
         self.q_nu = Parameter(np.zeros((n, 1)))
@@ -571,7 +613,7 @@ class Titsias(_Inducing):
 
 class SparseHensman(_Inducing):
     """Sparse variational GP with whitened q(u), Hensman et al. 2015 (JAX:
-    gpr/model.py:1011-1117), with the Gaussian likelihood:
+    gpr/model.py:1011-1117), for any likelihood:
     q(u) = N(L·q_mu, L·q_sqrt·q_sqrtᵀ·Lᵀ) with L Lᵀ = Kuu.
 
     Args:
@@ -582,7 +624,6 @@ class SparseHensman(_Inducing):
 
     def __init__(self, kernel, X, y, Z=None, Z_init="grid", likelihood=None, jitter=1e-8,
                  mean=None, device=None):
-        likelihood = _gaussian_only(likelihood, type(self).__name__)
         super().__init__(kernel, X, y, likelihood, jitter, mean, device)
         self.is_sparse = Z is not None
         n = self.X.shape[0] if not self.is_sparse else None

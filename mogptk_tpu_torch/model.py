@@ -8,10 +8,10 @@ synchronizing callback per step); prediction runs the gpr model's predict_y
 on its device and hands numpy back. Ported: the `Exact` selector
 (closed-form gradient by default, probe-trace with trace_probes),
 the `Iterative` selector (the block-engine families), the sparse and variational selectors
-(`Snelson`, `OpperArchambeau`, `Titsias`, `Hensman`; Gaussian likelihood),
-save/LoadModel, the metrics and the plots. Not ported yet: sampling, and
-the XLA compilation-cache priming (`precompile`, which has no counterpart
-here).
+(`Snelson`, `OpperArchambeau`, `Titsias`, `Hensman`; the last two with any
+likelihood), sampling, save/LoadModel, the metrics and the plots. Not
+ported: the XLA compilation-cache priming (`precompile`, which has no
+counterpart here).
 """
 import inspect
 import logging
@@ -138,7 +138,7 @@ class Snelson:
 
 class OpperArchambeau:
     """Opper & Archambeau variational inference selector (JAX:
-    mogptk_tpu/model.py:128-138); the Gaussian likelihood only."""
+    mogptk_tpu/model.py:128-138); any likelihood (default Gaussian)."""
 
     def __init__(self, likelihood=None, jitter=1e-6):
         self.likelihood = likelihood
@@ -168,8 +168,8 @@ class Titsias:
 
 class Hensman:
     """Hensman SVGP inference selector (JAX: mogptk_tpu/model.py:193-212):
-    SparseHensman with inducing points, Hensman without; the Gaussian
-    likelihood only."""
+    SparseHensman with inducing points, Hensman without; any likelihood
+    (default Gaussian)."""
 
     def __init__(self, inducing_points=None, init_inducing_points="grid", likelihood=None,
                  jitter=1e-6):
@@ -537,9 +537,9 @@ class Model:
 
     def predict(self, X=None, ci=None, sigma=2, n=10000, transformed=False):
         """Predict mean and confidence bounds per channel, inverting the data
-        transformations (reference: mogptk/model.py:608-664). `n` (Monte
-        Carlo samples of non-Gaussian likelihoods) is unused: the Gaussian
-        likelihood's bands are closed-form."""
+        transformations (reference: mogptk/model.py:608-664). `n` is the
+        number of Monte Carlo draws behind the bands of a non-Gaussian
+        likelihood; the Gaussian likelihood's are closed-form."""
         if X is None:
             X = self.dataset.get_prediction_data()
         else:
@@ -552,7 +552,7 @@ class Model:
         if ci is not None:
             ci = [max(0.0, ci[0]), min(1.0, ci[1])]
 
-        out = self.gpr.predict_y(x, ci, sigma=sigma)
+        out = self.gpr.predict_y(x, ci, sigma=sigma, n=n)
         if not isinstance(out, tuple):
             out = (out, out, out)
         mu, lower, upper = (t.cpu().numpy() for t in out)
@@ -585,8 +585,42 @@ class Model:
         return self._gram(x1, self._to_kernel_format(self.dataset._format_X(X2)))
 
     def sample(self, X=None, n=None, prior=False, transformed=False):
-        """Sampling from the posterior or prior is not ported yet."""
-        raise NotImplementedError("sampling is not ported yet (ROADMAP queue 1, item 8)")
+        """Draws per channel of y from the posterior, or of f from the
+        prior with prior=True (reference: mogptk/model.py:692-734): for
+        each channel an (N_j,) array when n is None, else (N_j, n), the data
+        transformations inverted unless transformed. ValueError where the
+        likelihood cannot draw y (a Bernoulli channel)."""
+        if X is None:
+            X = self.dataset.get_prediction_data()
+        else:
+            X = self.dataset._format_X(X)
+        x = self._to_kernel_format(X)
+        if prior:
+            samples = self.gpr.sample_f(x, n=n, prior=True)
+        else:
+            samples = self.gpr.sample_y(x, n=n)
+        if samples is None:
+            raise ValueError("the %s likelihood cannot draw y" % self.gpr.likelihood.name())
+        samples = samples.cpu().numpy()
+
+        i = 0
+        Samples = []
+        for j in range(self.dataset.get_output_dims()):
+            N = X[j].shape[0]
+            if n is None:
+                sample = samples[i:i + N].reshape(-1)
+                if not transformed:
+                    sample = self.dataset[j].Y_transformer.backward(sample, X[j])
+            else:
+                sample = samples[:, i:i + N].T.copy()
+                if not transformed:
+                    for k in range(sample.shape[1]):
+                        sample[:, k] = self.dataset[j].Y_transformer.backward(sample[:, k], X[j])
+            Samples.append(sample)
+            i += N
+        if self.dataset.get_output_dims() == 1:
+            return Samples[0]
+        return Samples
 
     # -- plotting ---------------------------------------------------------------
     # Data preparation only; rendering goes through plotting.py

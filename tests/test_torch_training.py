@@ -230,19 +230,14 @@ def _small_model(trace_probes=PROBES, shuffle=False, device=None):
 
 def test_unported_configurations_raise():
     """What is not ported raises NotImplementedError naming its ROADMAP
-    item: LBFGS and a sparse model with a non-Gaussian likelihood. (The
-    closed-form gradient, unsorted channels and the sparse selectors, which
-    raised here before, now train: test_torch_closed_form.py,
+    item: LBFGS. (The closed-form gradient, unsorted channels and the sparse
+    selectors, which raised here before, now train: test_torch_closed_form.py,
     test_torch_sparse.py; so do a mean function and the SM-model
-    initialization: test_torch_singleoutput.py.)"""
-    import mogptk_tpu_torch as mogptk
+    initialization: test_torch_singleoutput.py; and the sparse and
+    variational models with a non-Gaussian likelihood:
+    test_torch_likelihood.py.)"""
     with pytest.raises(NotImplementedError, match="LBFGS.*queue 1, item 8"):
         tgpr.train(_small_model(), method="LBFGS", iters=1)
-    xs, ys, _, _ = _dense_data()
-    ds = mogptk.DataSet([x[:, 0] for x in xs], [y[:, 0] for y in ys])
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        mogptk.MOSM(ds, Q=2, inference=mogptk.Hensman(inducing_points=8,
-                                                      likelihood=tgpr.Likelihood()))
 
 
 def test_probes():
