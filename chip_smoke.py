@@ -115,7 +115,17 @@ the MOSM model that bench.py builds (4 channels x 4,096 points, Q=2, float32):
   blocked factor's kernels; Hensman and OpperArchambeau with a Poisson
   likelihood at N = 1,024 (first steps against float64, the Poisson
   Hensman's sample_y); and mogptk.MOSM with the Hensman selector and a
-  per-channel likelihood: train, predict(ci=0.95), sample(n=4).
+  per-channel likelihood: train, predict(ci=0.95), sample(n=4);
+- L-BFGS, priors and pegging (phase 25): mogptk_tpu_torch.MOSM on the
+  bench data with the default closed-form Exact(), a Normal prior on the
+  card on kernel.variance and kernel.delay pegged to 0.1 · kernel.mean:
+  three Adam steps, then Model.train(method="LBFGS") for five iterations
+  (a warm resume; gpr/lbfgs.py, optax.lbfgs()'s zoom line search), the
+  first evaluation against a float64 execution on the card, each loss no
+  larger than the one before, a repeat with identical losses, the peg held,
+  a save_parameters/load_parameters round trip, and K-gram, K-spanel,
+  K-spanel-reduce, K-colwrite, K-solve and K-gram-bwd counted per
+  evaluation ("lbfgs_launches" in the kernels line).
 
 Prints the card's name and power limit, per-kernel errors and times, per-
 request and per-step times, then one JSON line {"kernels": [...]} and, last,
@@ -700,6 +710,15 @@ def main():
              lik["predict_peak_gb"], lik["sample_f_ms"], lik["sample_y_ms"],
              smi.stdout.strip().splitlines()[0]))
 
+    # -- phase 25: L-BFGS with a prior and a peg, save/load_parameters -----------
+    t_lb = time.perf_counter()
+    phase("phase 25: MOSM.train(method='LBFGS') with a prior and a peg (N=%d)" % n)
+    lbfgs_launches, lb = drive_lbfgs(gpr, bm, mg, xs, ys, cf_counters, cf_want, dev, smi)
+    print("phase 25 (LBFGS) wall time: %.1f s (%d evaluations, %s per iteration, median "
+          "evaluation %.2f ms, %d iterations %.2f s; %s)"
+          % (time.perf_counter() - t_lb, lb["evals"], lb["per_iter"], lb["eval_ms"],
+             LBFGS_ITERS, lb["wall_s"], smi.stdout.strip().splitlines()[0]))
+
     sources = {"cuda_gram": "mogptk_tpu_torch/csrc/mosm_gram.cu",
                "chol": "mogptk_tpu_torch/csrc/blocked_cholesky.cu",
                "fused": "mogptk_tpu_torch/csrc/fused_trsm.cu"}
@@ -801,6 +820,9 @@ def main():
     for k in kernels:
         if k["launches"] < 1:
             fail("%s was not launched on its main path" % k["name"])
+        if lbfgs_launches.get(k["name"], 0) > 0:    # phase 25's run
+            k["path"] += "; LBFGS train"
+            k["lbfgs_launches"] = lbfgs_launches[k["name"]]
     for k in kernels:
         r = report[k["name"]]
         k.update(max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -2334,19 +2356,28 @@ def float64_training_reference(model, bm, mg):
     held fixed: for the probe-trace gradient (model.probes set)
     dK = A Bᵀ, A = ½[α, −U/R], B = [α, Z]; for the closed-form gradient
     dK = ½(ααᵀ − K⁻¹), K⁻¹ from torch.cholesky_inverse. The Gram part runs one
-    channel-pair block at a time (pair_block_gram).
+    channel-pair block at a time (pair_block_gram). A pegged parameter is
+    its transform of its target's float64 value, so its gradient reaches the
+    target's raw; the parameters' priors add their log density at the
+    float64 values.
 
-    Returns (LML, gradient of the loss −LML per trainable raw, the scale
-    |½yᵀα| + Σ|log L_ii| of the LML's two terms)."""
+    Returns (LML + log prior, gradient of the loss −LML − log prior per
+    trainable raw, the scale |½yᵀα| + Σ|log L_ii| + |log prior| of its
+    terms)."""
     import torch
-    named = [(path, p) for path, p in model.gp_parameters() if p.train]
+    named = [(path, p) for path, p in model.gp_parameters() if p.train and not p.pegged]
     raws = [p.raw.detach().double().requires_grad_() for _, p in named]
     vals = {path: (p.transform.forward(r) if p.transform is not None else r)
             for (path, p), r in zip(named, raws)}
     allp = {path: p for path, p in model.gp_parameters()}
+    path_of = {id(p): path for path, p in model.gp_parameters()}
 
     def value(path):
-        return vals[path] if path in vals else allp[path]().detach().double()
+        p = allp[path]
+        if p.pegged:
+            other = value(path_of[id(p.pegged_parameter)])
+            return other if p.pegged_transform is None else p.pegged_transform(other)
+        return vals[path] if path in vals else p().detach().double()
 
     kern = model.kernel
     w, mu, var, th, ph = (value("kernel." + k) for k in ("weight", "mean", "variance", "delay", "phase"))
@@ -2371,6 +2402,9 @@ def float64_training_reference(model, bm, mg):
         quad = 0.5 * torch.sum(y * alpha)
         lml = float(-logdet - quad) - model.log_marginal_likelihood_constant
         scale = float(logdet.abs() + quad.abs())
+    priors = [p.prior.log_prob(value(path)).sum() for path, p in allp.items()
+              if p.prior is not None]
+    with torch.no_grad():
         if Z is None:
             dK = torch.cholesky_inverse(L, upper=False).neg_().addr_(alpha[:, 0], alpha[:, 0]).mul_(0.5)
             block = lambda sa, sb: dK[sa, sb]
@@ -2381,7 +2415,10 @@ def float64_training_reference(model, bm, mg):
             block = lambda sa, sb: A[sa] @ B[sb].T
             ddiag = torch.sum(A * B, dim=1)
         del L
-    grads = list(torch.autograd.grad(torch.sum(diag * ddiag), raws,
+    log_prior = sum(priors) if priors else torch.zeros((), dtype=torch.float64, device=y.device)
+    lml += float(log_prior.detach())
+    scale += abs(float(log_prior.detach()))
+    grads = list(torch.autograd.grad(torch.sum(diag * ddiag) + log_prior, raws,
                                      retain_graph=True, allow_unused=True))
     offs = np.concatenate([[0], np.cumsum(model._channel_counts)]).astype(int)
     O = len(model._channel_counts)
@@ -4585,6 +4622,142 @@ def median_ms(fn, reps=10, warmup=2):
     for _ in range(warmup):
         fn()
     return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+
+# -- phase 25: L-BFGS with a prior and a peg, save/load_parameters -----------
+
+LBFGS_ITERS = 5
+
+
+def tenth(m):
+    """Phase 25's peg transform: kernel.delay = 0.1 · kernel.mean."""
+    return 0.1 * m
+
+
+def drive_lbfgs(gpr, bm, mg, xs, ys, counters, want, dev, smi):
+    """Phase 25: mogptk_tpu_torch.MOSM on the bench data (N = 16,384, the
+    default closed-form Exact()) with a Normal prior built on the card on
+    kernel.variance and kernel.delay pegged to 0.1 · kernel.mean:
+    TRAIN_STEPS Adam steps, then Model.train(method="LBFGS") for
+    LBFGS_ITERS iterations (a warm resume), its first evaluation's loss and
+    gradient against a float64 execution on the card (the prior's term and
+    the peg's routed gradient included), each iteration's loss finite and no
+    larger than the one before, a repeat from the same start with identical
+    losses, the peg held after training, a save_parameters/load_parameters
+    round trip with an identical loss, and the closed-form kernels counted
+    per evaluation as `want` says a closed-form step launches them
+    (Model.train's own loss() before the first iteration, forward only,
+    counted apart). The line search's evaluations are read from a recording
+    subclass of gpr/lbfgs.py's LBFGS and from the model's loss() calls with
+    gradients on. Returns the launches of the L-BFGS run and the numbers
+    PERF.md quotes."""
+    import os
+    import tempfile
+    import torch
+    import mogptk_tpu_torch as mogptk
+    from mogptk_tpu_torch.gpr import lbfgs, training
+    card = smi.stdout.strip().splitlines()[0]
+    gpr.set_seed(0)     # MOSM's random initial weights, whatever phases ran before
+    ds = mogptk.DataSet([xc[:, 0] for xc in xs], [yc[:, 0] for yc in ys])
+    api = mogptk.MOSM(ds, Q=Q)
+    k = api.gpr.kernel
+    set_bench_params(k)
+    k.variance.assign(prior=torch.distributions.Normal(torch.tensor(0.35, device=dev),
+                                                       torch.tensor(0.2, device=dev)))
+    k.delay.peg(k.mean, transform=tenth)
+    if api.gpr.trace_probes is not None or any(r is k.delay.raw for r in api.gpr.trainable_raws()):
+        fail("LBFGS: the MOSM is not the closed-form Exact() with delay pegged")
+    api.train(method="Adam", lr=0.01, iters=TRAIN_STEPS)
+    start = [r.clone() for r in api.gpr.raw_state()]
+    loss1 = check_first_step(api.gpr, bm, mg, "LBFGS")
+
+    steps, evals = [], []
+    loss_fn = api.gpr.loss
+
+    def counted():
+        if torch.is_grad_enabled():
+            evals.append(time.perf_counter())
+        return loss_fn()
+
+    class Recording(lbfgs.LBFGS):
+        def step(self, fun, x):
+            out = super().step(fun, x)
+            steps.append((self.linesearch_steps, time.perf_counter()))
+            return out
+
+    def run(fn):
+        del steps[:], evals[:]
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses = fn()
+        torch.cuda.synchronize()
+        return (np.asarray(losses, dtype=np.float64), time.perf_counter() - t,
+                [n for n, _ in steps], list(evals), {k: f.launches for k, f in counters.items()})
+
+    forward = run(api.loss)[4]
+    api.gpr.loss = counted
+    training.LBFGS = Recording
+    try:
+        n_hist = api.losses.shape[0]
+        losses, wall, ls, ev, launches = run(
+            lambda: api.train(method="LBFGS", iters=LBFGS_ITERS)[0][n_hist:])
+        end = [r.clone() for r in api.gpr.raw_state()]
+        with torch.no_grad():
+            for r, v in zip(api.gpr.raw_state(), start):
+                r.copy_(v)
+        again, wall2, ls2, ev2, _ = run(
+            lambda: gpr.train(api.gpr, method="LBFGS", iters=LBFGS_ITERS)[0])
+    finally:
+        training.LBFGS = lbfgs.LBFGS
+        del api.gpr.loss
+    per_iter = [n + (i == 0) for i, n in enumerate(ls)]
+    eval_ms = 1e3 * np.diff(ev)
+    print("LBFGS (Model.train warm resume after %d Adam steps) at N=%d: losses %s; line-search "
+          "evaluations per iteration %s (+1 at the start), %d evaluations in all; median "
+          "evaluation %.2f ms (%d intervals between evaluation starts); %d iterations %.2f s "
+          "(%s)" % (TRAIN_STEPS, api.gpr.X.shape[0], losses.tolist(), ls, len(ev),
+                    float(np.median(eval_ms)), len(eval_ms), LBFGS_ITERS, wall, card))
+    per_eval = {k: (v - forward[k]) / len(ev) for k, v in launches.items()}
+    print("LBFGS launches: %s, of them Model.train's forward-only loss() %s; per evaluation %s"
+          % (launches, forward, per_eval))
+    if len(losses) != LBFGS_ITERS or not np.all(np.isfinite(losses)):
+        fail("LBFGS: a loss is not finite")
+    if np.any(np.diff(losses) > 0):
+        fail("LBFGS: a loss rose: %s" % losses.tolist())
+    if losses[0] != loss1:
+        fail("LBFGS: the first evaluation's loss differs from the checked first step")
+    if len(ev) != sum(per_iter):
+        fail("LBFGS: %d evaluations, the line searches count %d" % (len(ev), sum(per_iter)))
+    for name, (lo, hi) in want.items():
+        got = launches[name] - forward[name]
+        if got < lo * len(ev) or (hi is not None and got != hi * len(ev)):
+            fail("LBFGS: %s launched %d times in %d evaluations" % (name, got, len(ev)))
+    if not (np.array_equal(again, losses) and ls2 == ls):
+        fail("LBFGS: a repeat from the same start gave %s, %s" % (again.tolist(), ls2))
+    if not all(torch.equal(a, b) for a, b in zip(api.gpr.raw_state(), end)):
+        fail("LBFGS: a repeat from the same start ended elsewhere")
+    print("LBFGS repeat from the same start (gpr.train): identical losses and line searches, "
+          "%.2f s" % wall2)
+    if not torch.equal(k.delay(), tenth(k.mean())):
+        fail("LBFGS: the pegged delay is not 0.1 · mean after training")
+    loss_a = api.loss()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        path = os.path.join(tmp, "mosm")
+        api.save_parameters(path)
+        k.mean.assign(0.5 * k.mean.numpy())
+        if api.loss() == loss_a:
+            fail("LBFGS: a new mean did not move the loss")
+        api.load_parameters(path)
+    if api.loss() != loss_a or not all(torch.equal(a, b)
+                                       for a, b in zip(api.gpr.raw_state(), end)):
+        fail("LBFGS: save_parameters/load_parameters did not restore the loss")
+    print("save_parameters/load_parameters: identical raws and loss %.6f" % loss_a)
+    del api
+    torch.cuda.empty_cache()
+    return launches, dict(evals=len(ev), per_iter=per_iter, eval_ms=float(np.median(eval_ms)),
+                          wall_s=wall, per_eval=per_eval)
 
 
 if __name__ == "__main__":

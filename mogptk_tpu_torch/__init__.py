@@ -9,6 +9,7 @@ init_parameters → train → predict) on exact inference with the closed-form
 or the probe-trace gradient, the iterative engine, and the sparse and
 variational inference schemes (Snelson, Titsias, Hensman, OpperArchambeau;
 the last two with any of the twelve likelihoods, per channel too), sampling,
+training by Adam, SGD, AdaGrad or L-BFGS with parameter priors and pegs,
 the single-output kernels, the compositors and the mean functions; see
 README.md, "PyTorch/CUDA port".
 """

@@ -1,6 +1,7 @@
 """GP core of the port: config, parameters, kernels, likelihood, the exact
 model, the sparse and variational models, the iterative exact model and the
-trainer. JAX counterpart: mogptk_tpu/gpr/__init__.py (the exports of the
+trainer (Adam, SGD, AdaGrad on torch.optim; L-BFGS in gpr/lbfgs.py). JAX
+counterpart: mogptk_tpu/gpr/__init__.py (the exports of the
 exact and sparse training and prediction paths, the iterative engine, the
 kernels, the compositors, the mean functions and the likelihoods)."""
 from .config import (Config, config, set_seed, use_single_precision, use_double_precision,

@@ -14,14 +14,15 @@ from torch import nn
 def parameter_names(model):
     """JAX-style names of the port's Parameters, in order: the explicit name
     where a Parameter has one (the sparse models' "induction_points"), else
-    "<OwnerClass>.<attr>", each list of child kernels adding
+    "<OwnerClass>.<attr>" (the attribute replaced by a name given to
+    Parameter.assign), each list of child kernels adding
     "<ListOwnerClass>[i]." in front, as the JAX package names them
     (mogptk_tpu/gpr/module.py Module.__setattr__)."""
     modules = dict(model.named_modules())
     names = []
     for path, p in model.gp_parameters():
         owner, _, attr = path.rpartition(".")
-        name = p.name or "%s.%s" % (type(modules[owner]).__name__, attr)
+        name = p.name or "%s.%s" % (type(modules[owner]).__name__, p.rename or attr)
         parts = owner.split(".") if owner else []
         for k in range(len(parts) - 1, 0, -1):
             if isinstance(modules[".".join(parts[:k])], nn.ModuleList):

@@ -45,6 +45,7 @@ from .kernel import Kernel
 from .likelihood import GaussianLikelihood, MultiOutputLikelihood
 from .mean import Mean
 from .config import config, resolve_device
+from .convert import parameter_names
 from ..ops.block_families import pack_of
 from ..ops.block_mosm import sorted_channel_counts
 from ..ops.linalg import (jittered_cholesky, solve_triangular, cholesky_solve, lml_chol_fused,
@@ -133,6 +134,24 @@ def generator(seed, device):
 def rademacher(gen, shape, dtype, device):
     """A ±1 matrix drawn from `gen`."""
     return (2 * torch.randint(0, 2, shape, generator=gen, device=device) - 1).to(dtype)
+
+
+def _param_range(p):
+    """A Parameter's range as the JAX package prints it: "pegged", "fixed",
+    or its bounds (each a number, or a list where it is per entry)."""
+    if p.pegged:
+        return "pegged"
+    if not p.train:
+        return "fixed"
+    lower, upper = (None if b is None else (b.item() if b.size == 1 else b.tolist())
+                    for b in (p.lower, p.upper))
+    if lower is None and upper is None:
+        return "(-inf, inf)"
+    if lower is None:
+        return "(-inf, %s]" % upper
+    if upper is None:
+        return "[%s, inf)" % lower
+    return "[%s, %s]" % (lower, upper)
 
 
 class Model(Module):
@@ -249,6 +268,23 @@ class Model(Module):
         """The training objective −LML − log prior as a 0-d tensor; call
         .backward() on it for the raws' gradients."""
         return self()
+
+    def num_parameters(self):
+        """The free values that training moves (BIC, AIC): those of the
+        Parameters that are trained and not pegged."""
+        return sum(p.num_parameters for _, p in self.gp_parameters() if p.train and not p.pegged)
+
+    def print_parameters(self, file=None):
+        """Print each Parameter's name, range and value, one row each: the
+        range is "pegged", "fixed" or its bounds (JAX:
+        gpr/model.py:388-428's rows)."""
+        rows = [("Name", "Range", "Value")]
+        for name, (_, p) in zip(parameter_names(self), self.gp_parameters()):
+            rows.append((name, _param_range(p), p.numpy().tolist()))
+        w0 = max(len(r[0]) for r in rows)
+        w1 = max(len(r[1]) for r in rows)
+        for name, rng, value in rows:
+            print("%-*s  %-*s  %s" % (w0, name, w1, rng, value), file=file)
 
     def predict_f(self, X, full=False):
         raise NotImplementedError()

@@ -22,10 +22,12 @@ class Module(nn.Module):
                 if isinstance(mod, Parameter)]
 
     def raw_state(self):
-        """The raw (unconstrained) tensors of all Parameters, in order."""
+        """The raw (unconstrained) tensors of all Parameters, in order,
+        pegged ones included (JAX: Module.raw_state)."""
         return [p.raw.detach() for _, p in self.gp_parameters()]
 
     def trainable_raws(self):
-        """The raw nn.Parameters the optimizer updates, in order: those with
-        requires_grad (JAX: the True entries of Module.train_mask)."""
-        return [p.raw for _, p in self.gp_parameters() if p.train]
+        """The raw nn.Parameters the optimizer updates, in order: those of
+        Parameters that are trained and not pegged (JAX: the True entries of
+        Module.train_mask)."""
+        return [p.raw for _, p in self.gp_parameters() if p.train and not p.pegged]

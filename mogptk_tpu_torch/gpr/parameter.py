@@ -1,11 +1,14 @@
-"""Constrained parameters: a raw nn.Parameter behind a bijector.
+"""Constrained parameters: a raw nn.Parameter behind a bijector, with an
+optional prior and an optional peg to another Parameter.
 
 JAX counterpart: mogptk_tpu/gpr/parameter.py (Transform, Softplus, Sigmoid,
 Parameter). The raw value is unconstrained; calling the Parameter returns the
 constrained value. Inverses are computed on the host in float64 numpy exactly
 as in the JAX package, so both packages store identical raw values for the
-same assignment. Priors and pegging are not ported yet: a prior raises at
-construction, so log_prior is 0.
+same assignment. A prior is any object with log_prob(tensor) -> tensor (a
+torch.distributions object, for example); log_prior() sums it at the
+constrained value. A pegged Parameter reads its value from its target,
+optionally through a transform, and is not trained.
 """
 import numpy as np
 import torch
@@ -84,25 +87,52 @@ def _align(value, shape, what):
     return value
 
 
+def _prior_tensors(obj, depth=0):
+    """The tensors an object holds in its attributes, two levels down (a
+    torch.distributions object's parameters, a transformed distribution's
+    base)."""
+    if torch.is_tensor(obj):
+        return [obj]
+    if depth > 2 or not hasattr(obj, "__dict__"):
+        return []
+    out = []
+    for v in vars(obj).values():
+        if isinstance(v, (list, tuple)):
+            for item in v:
+                out += _prior_tensors(item, depth + 1)
+        else:
+            out += _prior_tensors(v, depth + 1)
+    return out
+
+
 class Parameter(nn.Module):
-    """A trainable parameter with optional bounds. The constrained value is
-    `param()`; the unconstrained value is the nn.Parameter `param.raw`.
+    """A trainable parameter with optional bounds, prior and peg. The
+    constrained value is `param()`; the unconstrained value is the
+    nn.Parameter `param.raw`.
     `name` is an explicit name (the JAX package's, e.g. "induction_points"),
     else gpr.convert.parameter_names gives "<OwnerClass>.<attribute>".
     `num_parameters` is the count of free values it contributes (BIC, AIC):
     its size, less what a model fixes (the inducing points' channel IDs,
-    the upper triangle of a Cholesky factor), as in the JAX package."""
+    the upper triangle of a Cholesky factor), as in the JAX package.
+    `prior` is an object with log_prob(tensor) -> tensor, or None."""
 
     def __init__(self, value, lower=None, upper=None, prior=None, train=True, name=None):
         super().__init__()
         self.name = name
-        if prior is not None:
-            raise NotImplementedError("parameter priors are not ported yet")
+        # a name given to assign() for a Parameter named by its owner: it
+        # replaces the attribute in "<OwnerClass>.<attribute>"
+        self.rename = None
         value = np.asarray(value.detach().cpu() if torch.is_tensor(value) else value,
                            dtype=np.float64)
         self.lower = None
         self.upper = None
         self.transform = None
+        self.prior = prior
+        # the peg target is held outside nn.Module's registry: registered as
+        # a submodule it would appear a second time in named_modules(), under
+        # this Parameter's path, and move or drop from gp_parameters()' order
+        object.__setattr__(self, "pegged_parameter", None)
+        self.pegged_transform = None
         self.raw = nn.Parameter(torch.empty(value.shape, dtype=config.dtype),
                                 requires_grad=bool(train))
         self.num_parameters = int(np.prod(value.shape)) if value.ndim else 1
@@ -124,7 +154,14 @@ class Parameter(nn.Module):
     def train(self, val):
         self.raw.requires_grad_(bool(val))
 
+    @property
+    def pegged(self):
+        return self.pegged_parameter is not None
+
     def forward(self):
+        if self.pegged_parameter is not None:
+            other = self.pegged_parameter()
+            return other if self.pegged_transform is None else self.pegged_transform(other)
         if self.transform is None:
             return self.raw
         return self.transform.forward(self.raw)
@@ -135,9 +172,18 @@ class Parameter(nn.Module):
         return np.array(self().detach().cpu())
 
     def log_prior(self):
-        """Log density of the prior at the constrained value: 0, since no
-        prior can be set yet."""
-        return 0.0
+        """Log density of the prior at the constrained value, summed: a 0-d
+        tensor on the parameter's device, or 0.0 without a prior
+        (mogptk_tpu/gpr/parameter.py:298-305). A prior whose tensors lie on
+        another device raises ValueError: it is never copied over."""
+        if self.prior is None:
+            return 0.0
+        device = self.raw.device
+        for t in _prior_tensors(self.prior):
+            if t.device != device:
+                raise ValueError("the prior's tensors are on %s and the parameter on %s; build "
+                                 "the prior on the parameter's device" % (t.device, device))
+        return self.prior.log_prob(self()).sum()
 
     @staticmethod
     def to_transform(lower, upper):
@@ -152,10 +198,13 @@ class Parameter(nn.Module):
             return Softplus(lower=upper, beta=-0.1)
         return None
 
-    def assign(self, value=None, lower=None, upper=None, train=None):
-        """Assign a constrained value and/or new bounds, and optionally the
-        train flag; unspecified fields are kept. The value is clamped to the
-        bounds, then inverted."""
+    def assign(self, value=None, name=None, lower=None, upper=None, prior=None, train=None):
+        """Assign a constrained value, a name, new bounds, a prior and the
+        train flag; unspecified fields are kept
+        (mogptk_tpu/gpr/parameter.py:204-284). The value is clamped to the
+        bounds, then inverted. A new name keeps the owner's prefix. Assigning
+        to a pegged Parameter removes the peg and, unless train is given,
+        trains it again."""
         if value is None:
             value = self.numpy().astype(np.float64)
         else:
@@ -177,8 +226,31 @@ class Parameter(nn.Module):
         if upper is not None:
             value = np.minimum(value, upper)
         raw = value if transform is None else transform.inverse(value)
+        if name is not None:
+            if self.name is None:
+                self.rename = name
+            else:
+                self.name = self.name[:self.name.rfind(".") + 1] + name
+        if train is None and self.pegged:
+            train = True
         with torch.no_grad():
             self.raw.copy_(torch.as_tensor(raw, dtype=self.raw.dtype))
         self.lower, self.upper, self.transform = lower, upper, transform
+        if prior is not None:
+            self.prior = prior
+        object.__setattr__(self, "pegged_parameter", None)
+        self.pegged_transform = None
         if train is not None:
             self.train = train
+
+    def peg(self, other, transform=None):
+        """Tie this parameter's value to `other`'s, as transform(other())
+        when a transform is given; a pegged parameter is not trained
+        (mogptk_tpu/gpr/parameter.py:286-296)."""
+        if not isinstance(other, Parameter):
+            raise ValueError("parameter must be pegged to other parameter object")
+        elif other.pegged:
+            raise ValueError("cannot peg parameter to another pegged parameter")
+        object.__setattr__(self, "pegged_parameter", other)
+        self.pegged_transform = transform
+        self.train = False

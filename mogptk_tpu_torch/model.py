@@ -3,13 +3,14 @@ training, prediction, metrics, persistence and plots.
 
 JAX counterpart: mogptk_tpu/model.py (the `kernels` registry :27-69, `Exact`
 :80-105, `Model` :208-865);
-reference mogptk/model.py:76-1037. Training runs gpr.train (torch.optim, one
-synchronizing callback per step); prediction runs the gpr model's predict_y
+reference mogptk/model.py:76-1037. Training runs gpr.train (torch.optim or
+gpr/lbfgs.py, one synchronizing callback per step); prediction runs the gpr model's predict_y
 on its device and hands numpy back. Ported: the `Exact` selector
 (closed-form gradient by default, probe-trace with trace_probes),
 the `Iterative` selector (the block-engine families), the sparse and variational selectors
 (`Snelson`, `OpperArchambeau`, `Titsias`, `Hensman`; the last two with any
-likelihood), sampling, save/LoadModel, the metrics and the plots. Not
+likelihood), training by Adam, SGD, AdaGrad or L-BFGS, sampling,
+save/LoadModel, save_parameters/load_parameters, the metrics and the plots. Not
 ported: the XLA compilation-cache priming (`precompile`, which has no
 counterpart here).
 """
@@ -287,13 +288,9 @@ class Model:
         return s
 
     def print_parameters(self, file=None):
-        """Print each parameter's name and value (reference:
-        gpr/model.py:188-240, the plain-text table)."""
-        rows = [("Name", "Value")] + [(name, p.numpy().tolist()) for name, p in
-                                      zip(gpr.parameter_names(self.gpr), self.parameters())]
-        width = max(len(r[0]) for r in rows)
-        for name, value in rows:
-            print("%-*s  %s" % (width, name, value), file=file)
+        """Print each parameter's name, range ("pegged", "fixed" or its
+        bounds) and value (gpr.Model.print_parameters)."""
+        self.gpr.print_parameters(file=file)
 
     def parameters(self):
         """The gpr model's Parameters, in registration order."""
@@ -325,7 +322,9 @@ class Model:
                 p.raw.copy_(q.raw)
 
     def num_parameters(self):
-        return sum(p.num_parameters for p in self.parameters() if p.train)
+        """The free values that training moves: pegged and fixed parameters
+        are not counted (BIC, AIC)."""
+        return self.gpr.num_parameters()
 
     def num_training_points(self):
         return sum(len(channel.get_train_data()[1]) for channel in self.dataset)
@@ -340,6 +339,35 @@ class Model:
         except OSError:
             pass
         torch.save(self, filename)
+
+    def save_parameters(self, filename):
+        """Save the raw (unconstrained) value of every parameter, pegged ones
+        included, in parameters() order to an .npz as raw_0000, raw_0001, …
+        (mogptk_tpu/model.py:349-358): the JAX package's layout, so either
+        package loads the other's file."""
+        arrays = {"raw_%04d" % i: r.cpu().numpy() for i, r in enumerate(self.gpr.raw_state())}
+        np.savez(filename, **arrays)
+
+    def load_parameters(self, filename):
+        """Restore the raws saved by save_parameters (either package's);
+        ".npz" is added to a filename without it. Raises ValueError on a
+        count or shape mismatch, before any raw changes."""
+        if not filename.endswith(".npz"):
+            filename += ".npz"
+        with np.load(filename) as data:
+            arrays = [data[key] for key in sorted(data.files)]
+        params = self.gpr.gp_parameters()
+        if len(arrays) != len(params):
+            raise ValueError("checkpoint has %d parameters, model has %d"
+                             % (len(arrays), len(params)))
+        names = gpr.parameter_names(self.gpr)
+        for name, (_, p), arr in zip(names, params, arrays):
+            if arr.shape != p.shape:
+                raise ValueError("parameter shape mismatch for %s: %s != %s"
+                                 % (name, arr.shape, p.shape))
+        with torch.no_grad():
+            for (_, p), arr in zip(params, arrays):
+                p.raw.copy_(torch.as_tensor(arr, dtype=p.raw.dtype))
 
     def log_marginal_likelihood(self, readout=True):
         """The model's log marginal likelihood, a float. For the Iterative
@@ -396,7 +424,10 @@ class Model:
 
     def train(self, method="Adam", iters=500, verbose=False, error=None, plot=False, **kwargs):
         """Optimize the kernel and likelihood hyperparameters
-        (reference: mogptk/model.py:441-579) with gpr.train.
+        (reference: mogptk/model.py:441-579) with gpr.train: method 'Adam',
+        'SGD', 'AdaGrad' or 'LBFGS' (also 'L-BFGS', 'L-BFGS-B'); lr and
+        LBFGS's memory_size and scale_init_precond go through kwargs. A
+        second call resumes: its losses, times and errors follow the first's.
 
         Returns:
             (losses, errors): per-iteration arrays of length iters+1.

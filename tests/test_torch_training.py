@@ -19,6 +19,7 @@ import torch
 
 import mogptk_tpu.gpr as jgpr
 import mogptk_tpu_torch.gpr as tgpr
+from mogptk_tpu_torch.gpr import lbfgs as tlbfgs
 from mogptk_tpu_torch.ops import block_mosm as tbm
 from mogptk_tpu_torch.ops import fused_solve as tfs
 from mogptk_tpu_torch.ops import blocked_cholesky as tbc
@@ -228,16 +229,197 @@ def _small_model(trace_probes=PROBES, shuffle=False, device=None):
     return tgpr.Exact(k, X, Y, variance=0.1, trace_probes=trace_probes, device=device)
 
 
-def test_unported_configurations_raise():
-    """What is not ported raises NotImplementedError naming its ROADMAP
-    item: LBFGS. (The closed-form gradient, unsorted channels and the sparse
-    selectors, which raised here before, now train: test_torch_closed_form.py,
-    test_torch_sparse.py; so do a mean function and the SM-model
-    initialization: test_torch_singleoutput.py; and the sparse and
-    variational models with a non-Gaussian likelihood:
-    test_torch_likelihood.py.)"""
-    with pytest.raises(NotImplementedError, match="LBFGS.*queue 1, item 8"):
-        tgpr.train(_small_model(), method="LBFGS", iters=1)
+LBFGS_ITERS = 5
+
+
+def _tenth(m):
+    """The peg's transform: a module-level function, so a model pegged
+    through it pickles."""
+    return 0.1 * m
+
+
+class _JaxNormal:
+    """A Normal prior for the JAX package: log_prob in jnp arithmetic."""
+
+    def __init__(self, loc, scale):
+        self.loc, self.scale = loc, scale
+
+    def log_prob(self, x):
+        z = (x - self.loc) / self.scale
+        return -0.5 * z * z - np.log(self.scale) - 0.5 * np.log(2.0 * np.pi)
+
+
+def _jax_rows(jm):
+    """The JAX model's print_parameters rows (name, range), read from the
+    table it shows inside IPython."""
+    import builtins
+    import re
+    import IPython.display
+    shown = []
+    saved = IPython.display.display
+    builtins.get_ipython = lambda: None
+    IPython.display.display = shown.append
+    try:
+        jm.print_parameters()
+    finally:
+        IPython.display.display = saved
+        del builtins.get_ipython
+    return re.findall(r'<tr><td style="text-align:left">(.*?)</td><td>(.*?)</td>', shown[0].data)
+
+
+def _jax_lbfgs():
+    """The closed-form MOSM of _small_model's data with a Normal prior on
+    kernel.variance, kernel.delay pegged to 0.1 · kernel.mean and
+    kernel.phase fixed: its loss
+    and gradient at the start, num_parameters, print_parameters' rows and
+    constrained values, then LBFGS_ITERS iterations of the step that
+    gpr.train(method="LBFGS") runs (optax.lbfgs() through
+    _build_lbfgs_step): the losses, the trained raws and the line search's
+    evaluations after each (numpy only, jax_reference.once_per_run)."""
+    from mogptk_tpu.gpr import training as jtraining
+    xs, ys, mean, var = _dense_data()
+    _, X, Y = jgpr.merge_data(xs, ys)
+    k = jgpr.MultiOutputSpectralMixtureKernel(2, output_dims=3)
+    k.mean.assign(mean)
+    k.variance.assign(var, prior=_JaxNormal(0.4, 0.2))
+    k.delay.peg(k.mean, transform=_tenth)
+    k.phase.train = False
+    jm = jgpr.Exact(k, X, Y, variance=0.1)
+    loss_flat, _, _ = jm.make_flat_loss_fn()
+    opt = optax.lbfgs()
+    step, params, _ = jtraining._build_lbfgs_step(jm, opt)
+    _, fixed = jm._split_raws()
+    v0, g0 = jax_reference.jit(jax.value_and_grad(loss_flat))(params, fixed)
+    state = opt.init(params)
+    step = jax_reference.jit(step)
+    losses, raws, evals = [], [], []
+    for _ in range(LBFGS_ITERS):
+        params, state, v = step(params, state)
+        losses.append(float(v))
+        raws.append(np.asarray(params))
+        evals.append(int(state[2].info.num_linesearch_steps))
+    return dict(model=jax_reference.raws_and_names(jm), loss0=float(v0), grad0=np.asarray(g0),
+                num_parameters=jm.num_parameters(), rows=_jax_rows(jm),
+                values=[np.asarray(p()) for p in jm.parameters()],
+                losses=losses, raws=raws, evals=evals, rosenbrock=_jax_rosenbrock())
+
+
+ROSENBROCK_X0, ROSENBROCK_ITERS = [3.0, -3.0, 3.0, -3.0, 3.0], 40
+
+
+def _rosenbrock(x):
+    """The Rosenbrock function, in jnp or torch arithmetic."""
+    return (100.0 * (x[1:] - x[:-1] ** 2) ** 2 + (1.0 - x[:-1]) ** 2).sum()
+
+
+def _jax_rosenbrock():
+    """optax.lbfgs() on the 5-dimensional Rosenbrock function from
+    ROSENBROCK_X0, as optax's docstring drives it: the value at the start
+    of each iteration, the iterate after it and its line search's
+    evaluations. Its line searches zoom by every interpolation."""
+    opt = optax.lbfgs()
+    value_and_grad = optax.value_and_grad_from_state(_rosenbrock)
+
+    def step(p, state):
+        v, g = value_and_grad(p, state=state)
+        u, state = opt.update(g, state, p, value=v, grad=g, value_fn=_rosenbrock)
+        return optax.apply_updates(p, u), state, v
+
+    p = jnp.asarray(ROSENBROCK_X0, dtype=jnp.float64)
+    state = opt.init(p)
+    step = jax_reference.jit(step)
+    out = []
+    for _ in range(ROSENBROCK_ITERS):
+        p, state, v = step(p, state)
+        out.append((float(v), np.asarray(p), int(state[2].info.num_linesearch_steps)))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_lbfgs(tmp_path_factory):
+    return jax_reference.once_per_run(tmp_path_factory, "training_jax_lbfgs", _jax_lbfgs)
+
+
+def test_lbfgs_with_prior_and_peg_matches_jax(jax_lbfgs):
+    """gpr.train(method="LBFGS") on a closed-form MOSM with a Normal prior
+    (torch.distributions) and a pegged parameter against the JAX package's
+    optax.lbfgs(): the loss and gradient at the start (rtol 1e-7, atol 1e-9
+    of the largest entry), num_parameters and print_parameters' rows (a
+    pegged and a fixed parameter), then after each of 5 iterations the loss
+    and the trained raws (rtol 1e-6, atol 1e-10 of each raw's scale) and
+    the line search's
+    evaluations, exactly: the model's loss() calls of the iteration, less
+    the first iteration's evaluation at the start. A Wolfe branch taken
+    otherwise than in the JAX run shows as a differing count in the
+    message. Afterwards the pegged parameter is 0.1 · its target. Then
+    gpr/lbfgs.py alone against optax.lbfgs() over 40 iterations on the
+    Rosenbrock function, whose line searches zoom by cubic, quadratic and
+    bisection steps (the MOSM's five take none): each iteration's value
+    (rtol 1e-7), iterate (rtol 1e-6) and evaluations (exactly)."""
+    import ast
+    import io
+    ref = jax_lbfgs
+    tm = _small_model(trace_probes=None)
+    k = tm.kernel
+    k.variance.assign(prior=torch.distributions.Normal(torch.tensor(0.4, dtype=torch.float64),
+                                                       torch.tensor(0.2, dtype=torch.float64)))
+    k.delay.peg(k.mean, transform=_tenth)
+    k.phase.train = False
+    tgpr.load_raw_state(tm, ref["model"]["raws"], names=ref["model"]["names"])
+    raws = tm.trainable_raws()
+    loss = tm.loss()
+    grad = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, raws)]).numpy()
+    np.testing.assert_allclose(float(loss.detach()), ref["loss0"], rtol=RTOL)
+    np.testing.assert_allclose(grad, ref["grad0"], rtol=RTOL,
+                               atol=1e-9 * np.abs(ref["grad0"]).max())
+
+    assert tm.num_parameters() == ref["num_parameters"] == 6 * 3 + 1
+    buf = io.StringIO()
+    tm.print_parameters(file=buf)
+    lines = buf.getvalue().splitlines()
+    rows = [("Name", "Range")] + ref["rows"]
+    w0, w1 = max(len(r[0]) for r in rows), max(len(r[1]) for r in rows)
+    assert len(lines) == len(rows)
+    assert dict(ref["rows"])["MultiOutputSpectralMixtureKernel.delay"] == "pegged"
+    assert dict(ref["rows"])["MultiOutputSpectralMixtureKernel.phase"] == "fixed"
+    for line, (name, rng), value in zip(lines[1:], ref["rows"], ref["values"]):
+        head = "%-*s  %-*s  " % (w0, name, w1, rng)
+        assert line.startswith(head), (line, head)
+        np.testing.assert_allclose(np.array(ast.literal_eval(line[len(head):])), value,
+                                   rtol=RTOL, err_msg=name)
+
+    calls, seen = [0], []
+    loss_fn = tm.loss
+
+    def counted():
+        calls[0] += 1
+        return loss_fn()
+
+    tm.loss = counted
+    losses, _ = tgpr.train(tm, method="LBFGS", lr=0.5, iters=LBFGS_ITERS,
+                           callback=lambda i, v: seen.append(
+                               (calls[0], torch.cat([r.detach().reshape(-1) for r in raws]).numpy())))
+    evals = list(np.diff([1] + [c for c, _ in seen]))
+    assert evals == ref["evals"], "line-search evaluations: port %s, JAX %s" % (evals, ref["evals"])
+    np.testing.assert_allclose(losses, ref["losses"], rtol=1e-6)
+    for i, ((_, got), want) in enumerate(zip(seen, ref["raws"])):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-10 * np.abs(want).max(),
+                                   err_msg="iteration %d" % i)
+    np.testing.assert_array_equal(k.delay.numpy(), 0.1 * k.mean.numpy())
+
+    def fun(x):
+        x = x.detach().requires_grad_()
+        v = _rosenbrock(x)
+        return v.detach(), torch.autograd.grad(v, x)[0]
+
+    opt, x = tlbfgs.LBFGS(), torch.tensor(ROSENBROCK_X0, dtype=torch.float64)
+    for i, (value, want, steps) in enumerate(ref["rosenbrock"]):
+        x, got = opt.step(fun, x)
+        assert opt.linesearch_steps == steps, "Rosenbrock iteration %d: %d line-search " \
+            "evaluations, JAX %d" % (i, opt.linesearch_steps, steps)
+        np.testing.assert_allclose(got, value, rtol=RTOL, err_msg="Rosenbrock %d" % i)
+        np.testing.assert_allclose(x.numpy(), want, rtol=1e-6, atol=1e-10,
+                                   err_msg="Rosenbrock %d" % i)
 
 
 def test_probes():

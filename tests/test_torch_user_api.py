@@ -9,6 +9,8 @@ from the same numpy Generator draws. The JAX flow runs once per test run
 one stage. rtol 1e-7 (XLA-CPU's exp is only
 ~1e-8 accurate even in float64) unless stated.
 """
+import copy
+import io
 import os
 import warnings
 
@@ -66,6 +68,11 @@ def _flow(pkg):
         # numpy only, so one worker's answers serve every worker
         out["raws"] = [np.asarray(r) for r in model.gpr.raw_state()]
         out["names"] = [p.name for p in model.gpr.parameters()]
+        # save_parameters' file, as bytes, and the loss it gives
+        buf = io.BytesIO()
+        model.save_parameters(buf)
+        out["npz"] = buf.getvalue()
+        out["loss"] = model.loss()
     else:
         out["model"] = model
     return out
@@ -154,10 +161,25 @@ def test_predict_and_error_match_jax(flows):
     np.testing.assert_allclose(t["mae"], j["mae"], rtol=RTOL)
 
 
+def _tenth(m):
+    """The peg's transform: a module-level function, so a model pegged
+    through it pickles."""
+    return 0.1 * m
+
+
 def test_save_and_load_round_trip(flows, tmp_path):
     """save() then LoadModel(): the loaded model predicts what the saved one
-    did, with its tensors on the asked device."""
-    model = flows[1]["model"]
+    did, with its tensors on the asked device. Then a copy of it with a
+    Normal prior on kernel.variance and kernel.delay pegged to
+    0.1 · kernel.mean: copy.deepcopy pegs the copy to its own target;
+    save()/LoadModel() keep the peg inside the loaded model, with the same
+    loss; save_parameters()/load_parameters() round-trip every raw
+    bitwise; and the .npz that the JAX model's save_parameters() wrote
+    loads into the port's MOSM and gives the JAX loss (rtol 1e-7). On the
+    way: a peg leaves the parameters' order as it was, assign(name=) keeps
+    the owner's prefix, and a prior on another device raises."""
+    j, t = flows
+    model = t["model"]
     path = os.path.join(str(tmp_path), "mosm")
     model.save(path)
     loaded = T.LoadModel(path, device="cpu")
@@ -165,6 +187,50 @@ def test_save_and_load_round_trip(flows, tmp_path):
     for a, b in zip(model.predict(), loaded.predict()):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x, y)
+
+    m = copy.deepcopy(model)
+    k = m.gpr.kernel
+    k.variance.assign(prior=torch.distributions.Normal(torch.tensor(0.4, dtype=torch.float64),
+                                                       torch.tensor(0.2, dtype=torch.float64)))
+    k.delay.peg(k.mean, transform=_tenth)
+    assert float(k.variance.log_prior().detach()) != 0.0 and m.num_parameters() == model.num_parameters() - 6
+    kk = T.gpr.MultiOutputSpectralMixtureKernel(2, output_dims=3)
+    order = [n for n, _ in kk.gp_parameters()]
+    kk.weight.peg(kk.phase)       # a target registered after the pegged parameter
+    assert [n for n, _ in kk.gp_parameters()] == order
+    k.weight.assign(name="amplitude")     # the owner's prefix stays, as in the JAX package
+    assert "MultiOutputSpectralMixtureKernel.amplitude" in T.gpr.parameter_names(m.gpr)
+    with pytest.raises(ValueError, match="meta.*cpu"):
+        T.gpr.Parameter(1.0, prior=torch.distributions.Normal(
+            torch.zeros((), device="meta"), torch.ones((), device="meta"),
+            validate_args=False)).log_prior()
+    clone = copy.deepcopy(m)
+    ck = clone.gpr.kernel
+    assert ck.delay.pegged_parameter is ck.mean and ck.delay.pegged_parameter is not k.mean
+    k.mean.assign(0.7 * np.ones(k.mean.shape))
+    assert not np.allclose(ck.delay.numpy(), k.delay.numpy())
+    np.testing.assert_array_equal(ck.delay.numpy(), 0.1 * ck.mean.numpy())
+
+    m.save(path)
+    loaded = T.LoadModel(path, device="cpu")
+    lk = loaded.gpr.kernel
+    assert lk.delay.pegged_parameter is lk.mean and lk.variance.prior is not None
+    assert [n for n, _ in loaded.gpr.gp_parameters()] == [n for n, _ in model.gpr.gp_parameters()]
+    assert loaded.loss() == m.loss()
+
+    m.save_parameters(path)
+    clone.load_parameters(path)
+    for a, b in zip(clone.gpr.raw_state(), m.gpr.raw_state()):
+        assert torch.equal(a, b)
+    assert clone.loss() == m.loss()
+
+    with open(os.path.join(str(tmp_path), "jax.npz"), "wb") as f:
+        f.write(j["npz"])
+    fresh = T.MOSM(_dataset(T, 3, 40), Q=2)
+    fresh.load_parameters(os.path.join(str(tmp_path), "jax"))
+    np.testing.assert_allclose(fresh.loss(), j["loss"], rtol=RTOL)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        T.MOSM(_dataset(T, 3, 40), Q=3).load_parameters(os.path.join(str(tmp_path), "jax"))
 
 
 def test_load_raw_state_from_a_jax_mosm(flows):
